@@ -1,0 +1,213 @@
+"""Sampler phase-program IR: one declarative sampler definition that the
+engine executes.
+
+A :class:`SamplerSpec` lowers once (:func:`lower`) into a
+:class:`PhaseProgram` — a short sequence of typed :class:`Phase` records
+(``draw`` / ``gather`` / ``score`` / ``commit``) with explicit operand
+residency (owner of ``v_curr`` or of ``v_prev``).  The lowering is pure
+data and covers every sampler kind; :func:`make_sampler` executes a
+program over one superstep's lane pool.  The uniform and alias executors
+are ported; the kinds that need the typed gather, the rejection score or
+the reservoir loop raise until theirs are.
+
+Phase vocabulary
+----------------
+``draw(width, salt)``
+    Consume ``width`` U[0,1) draws from the task's stateless stream.
+``gather(segment, width)``
+    Materialize candidate operands from the graph: ``csr`` (proposal
+    columns), ``typed`` (MetaPath sub-segment bounds), ``alias`` (alias
+    table probes), ``chunk`` (one reservoir chunk).
+``score(reduction)``
+    Reduce candidates to a decision: ``pick_uniform``, ``alias_accept``,
+    ``first_accept``, ``es_reservoir``.
+``commit``
+    Column access on the chosen offset + hop advance (engine-owned).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.core import rng as task_rng
+from repro_torch.core.rng import SALT_CHUNK0, SALT_COLUMN
+from repro_torch.core.samplers import SamplerSpec, _uniform_index
+
+__all__ = ["Phase", "PhaseProgram", "lower", "make_sampler"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Phase:
+    """One typed phase of a hop.
+
+    ``op``        — draw | gather | score | commit.
+    ``variant``   — gather segment (csr/typed/alias/chunk) or score
+                    reduction (pick_uniform/alias_accept/first_accept/
+                    es_reservoir); "" for draw/commit.
+    ``residency`` — which vertex's owner holds this phase's operands:
+                    "v_curr" or "v_prev".
+    ``width``     — per-lane operand fan-out (draws or candidates).
+    ``salt``      — rng salt channel for ``draw``.
+    """
+
+    op: str
+    variant: str = ""
+    residency: str = "v_curr"
+    width: int = 1
+    salt: int = SALT_COLUMN
+
+
+@dataclasses.dataclass(frozen=True)
+class PhaseProgram:
+    """A lowered sampler: the phase list plus the facts the engine
+    dispatches on (``loop``: the gather/score pair repeats per reservoir
+    chunk; ``carry``: payload threaded between owners; ``requires``: graph
+    payloads the program samples from)."""
+
+    kind: str
+    phases: Tuple[Phase, ...]
+    loop: bool = False
+    carry: str = "none"
+    requires: Tuple[str, ...] = ()
+
+    @property
+    def cuda(self) -> bool:
+        """Covered by the one-hop walk-step CUDA kernels
+        (single-residency programs over the plain/alias CSR segments)."""
+        return all(p.residency == "v_curr" for p in self.phases) and not (
+            self.loop or "typed" in self.requires)
+
+
+@functools.lru_cache(maxsize=None)
+def lower(spec: SamplerSpec) -> PhaseProgram:
+    """Lower a sampler definition to its phase program (cached — specs
+    are frozen and hashable)."""
+    k = spec.kind
+    if k == "uniform":
+        return PhaseProgram(k, (
+            Phase("draw", width=1),
+            Phase("score", "pick_uniform"),
+            Phase("commit"),
+        ))
+    if k == "alias":
+        return PhaseProgram(k, (
+            Phase("draw", width=2),
+            Phase("gather", "alias"),
+            Phase("score", "alias_accept"),
+            Phase("commit"),
+        ), requires=("alias",))
+    if k == "metapath":
+        return PhaseProgram(k, (
+            Phase("draw", width=1),
+            Phase("gather", "typed"),
+            Phase("score", "pick_uniform"),
+            Phase("commit"),
+        ), requires=("typed",))
+    if k == "rejection_n2v":
+        K = spec.rejection_rounds
+        return PhaseProgram(k, (
+            Phase("draw", width=2 * K),
+            Phase("gather", "csr", width=K),
+            Phase("score", "first_accept", residency="v_prev", width=K),
+            Phase("commit"),
+        ), carry="candidates")
+    if k == "reservoir_n2v":
+        CH = spec.reservoir_chunk
+        return PhaseProgram(k, (
+            Phase("draw", width=CH, salt=SALT_CHUNK0),
+            Phase("gather", "chunk", width=CH),
+            Phase("score", "es_reservoir", residency="v_prev", width=CH),
+            Phase("commit"),
+        ), loop=True, carry="reservoir", requires=("weights",))
+    raise ValueError(f"unknown sampler kind: {k!r}")
+
+
+class _Ctx:
+    """Mutable interpretation state threaded through one hop's phases."""
+
+    __slots__ = ("spec", "g", "addr", "deg", "slots", "base_key", "u",
+                 "index", "ok")
+
+    def __init__(self, spec, g, addr, deg, slots, base_key):
+        self.spec, self.g = spec, g
+        self.addr, self.deg = addr, deg
+        self.slots, self.base_key = slots, base_key
+        self.u = None
+        self.index = None        # chosen neighbor offset
+        self.ok = None           # lane has a valid continuation
+
+
+def _exec_draw(ph: Phase, ctx: _Ctx):
+    s = ctx.slots
+    ctx.u = task_rng.task_uniforms(ctx.base_key, s.query_id, s.hop, ph.width,
+                                   ph.salt, epoch=s.epoch)
+
+
+def _exec_gather_alias(ph: Phase, ctx: _Ctx):
+    # The alias tables live beside the CSR segment; the score phase probes
+    # them directly.
+    pass
+
+
+def _exec_score_pick_uniform(ph: Phase, ctx: _Ctx):
+    """index = min(floor(u·deg), deg-1) over the CSR segment."""
+    ctx.index = _uniform_index(ctx.deg, ctx.u[:, 0])
+    ctx.ok = ctx.deg > 0
+
+
+def _exec_score_alias_accept(ph: Phase, ctx: _Ctx):
+    """Walker alias method: accept the column draw with prob[e], else take
+    the alias index — two uniforms, two probes."""
+    g = ctx.g
+    k = _uniform_index(ctx.deg, ctx.u[:, 0])
+    ctx.ok = ctx.deg > 0
+    if g.num_edges == 0:  # no table to probe; every lane is a dead end
+        ctx.index = k
+        return
+    e = torch.clamp(ctx.addr + k, 0, g.num_edges - 1).long()
+    accept = ctx.u[:, 1] < g.alias_prob[e]
+    idx = torch.where(accept, k, g.alias_idx[e])
+    ctx.index = torch.minimum(torch.clamp(idx, min=0),
+                              torch.clamp(ctx.deg - 1, min=0))
+
+
+def _exec_commit(ph: Phase, ctx: _Ctx):
+    pass  # column access + hop advance are engine-owned
+
+
+_EXEC = {
+    ("draw", ""): _exec_draw,
+    ("gather", "alias"): _exec_gather_alias,
+    ("score", "pick_uniform"): _exec_score_pick_uniform,
+    ("score", "alias_accept"): _exec_score_alias_accept,
+    ("commit", ""): _exec_commit,
+}
+
+
+def make_sampler(spec: SamplerSpec):
+    """Lower ``spec`` for the plain tensor superstep: returns
+    ``sample(g, addr, deg, slots, base_key) -> (index, ok)``.
+
+    Raises NotImplementedError for a program whose executors are not
+    ported yet (typed gather, rejection score, reservoir loop).
+    """
+    prog = lower(spec)
+    missing = [f"{p.op}:{p.variant}" for p in prog.phases
+               if (p.op, p.variant) not in _EXEC]
+    if missing:
+        raise NotImplementedError(
+            f"sampler kind {spec.kind!r} needs phases {missing} "
+            "that are not ported yet (ROADMAP.md queue 1 item 2)")
+    execs = [(_EXEC[(p.op, p.variant)], p) for p in prog.phases]
+
+    def sample(g, addr, deg, slots, base_key):
+        """Execute the lowered phases over one superstep's lane pool."""
+        ctx = _Ctx(spec, g, addr, deg, slots, base_key)
+        for fn, ph in execs:
+            fn(ph, ctx)
+        return ctx.index, ctx.ok
+
+    return sample

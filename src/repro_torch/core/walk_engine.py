@@ -1,0 +1,335 @@
+"""Single-device walk engine: out-of-order slot-pool execution with
+zero-bubble refill (paper §V + §VI, on a SIMD superstep machine).
+
+One *superstep* advances every live lane by one hop — Row Access →
+Sampling → Column Access — then terminates finished walks and refills
+freed lanes from the pending-query queue.  Each task is stateless and its
+randomness derives from (seed, query_id, hop), so lanes are
+interchangeable: which lane serves a hop does not change the path.
+
+Two scheduling modes:
+  * ``zero_bubble`` — per-superstep compaction + refill (RidgeWalker).
+  * ``static``      — bulk-synchronous batches: the engine waits for the
+    slowest walk of a batch before loading the next; early-terminating
+    walks leave idle lanes, counted as bubbles.
+
+The host→device injection latency is modeled by the queue's ``staged``
+watermark, advanced by a feedback controller that observes ``head`` C
+supersteps late; `scheduler.min_queue_depth` sizes the stage-ahead depth
+(Theorem VI.1).
+
+Two step implementations, bit-identical in every output:
+  * ``torch`` — the plain tensor superstep (row access, the sampler's
+    phase program, column access);
+  * ``cuda``  — the same superstep with row access, sampling and column
+    access done by the hand-written one-hop kernel
+    (`repro_torch.kernels.walk_step`) for the uniform and alias kinds.
+
+The closed batch drains in a host loop that reads ``_work_left`` once per
+superstep — one device→host sync per superstep, which keeps ``supersteps``
+and ``slot_steps`` exact.  The path buffers are written in place (they are
+the largest state, (Q, max_hops+1) int32); every other tensor is replaced.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import rng as task_rng, scheduler as sched
+from repro_torch.core.phase_program import lower as lower_program, make_sampler
+from repro_torch.core.rng import SALT_COLUMN, SALT_STOP
+from repro_torch.core.samplers import SamplerSpec
+from repro_torch.core.tasks import (QueryQueue, WalkerSlots, WalkResult,
+                                    WalkStats, empty_slots, make_queue,
+                                    zero_stats)
+from repro_torch.graph.csr import CSRGraph, column_access, row_access
+from repro_torch.kernels.walk_step import ops as walk_ops
+
+MODES = ("zero_bubble", "static")
+STEP_IMPLS = ("torch", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    num_slots: int = 1024          # W — lane count (outstanding tasks)
+    max_hops: int = 80             # paper §VIII-A4: query length 80
+    record_paths: bool = True
+    mode: str = "zero_bubble"      # zero_bubble | static
+    injection_delay: int = 0       # C supersteps of host->device latency
+    queue_depth_factor: float = 1.0  # × Theorem VI.1 depth D
+    max_supersteps: int = 1 << 20  # safety bound for the drain loop
+    step_impl: str = "torch"       # torch | cuda (one-hop kernel)
+
+    def __post_init__(self):
+        if self.num_slots <= 0:
+            raise ValueError(
+                f"num_slots must be a positive lane count (W), got "
+                f"{self.num_slots}; a zero-width slot pool can do no work")
+        if self.max_hops <= 0:
+            raise ValueError(
+                f"max_hops must be positive, got {self.max_hops}; a walk "
+                "needs at least one hop of budget")
+        if self.mode not in MODES:
+            raise ValueError(
+                f"mode must be one of {MODES}, got {self.mode!r}")
+        check_step_impl(self.step_impl)
+        if self.injection_delay < 0:
+            raise ValueError(
+                f"injection_delay is a latency in supersteps and cannot be "
+                f"negative, got {self.injection_delay}")
+        if self.queue_depth_factor <= 0:
+            raise ValueError(
+                f"queue_depth_factor must be positive (it scales the "
+                f"Theorem VI.1 stage-ahead depth), got "
+                f"{self.queue_depth_factor}")
+        if self.max_supersteps <= 0:
+            raise ValueError(
+                f"max_supersteps must be positive, got {self.max_supersteps}")
+
+
+def check_step_impl(step_impl: str) -> None:
+    """Raise unless ``step_impl`` is one this package runs."""
+    if step_impl == "fused":
+        raise NotImplementedError(
+            "step_impl='fused' (the device-resident multi-superstep kernel) "
+            "is not ported yet: ROADMAP.md queue 2 item 1")
+    if step_impl not in STEP_IMPLS:
+        raise ValueError(
+            f"step_impl must be one of {STEP_IMPLS}, got {step_impl!r} "
+            "('torch' is the plain superstep, 'cuda' the one-hop kernel)")
+
+
+class StreamState(NamedTuple):
+    """Engine state threaded through the supersteps of one run."""
+
+    slots: WalkerSlots
+    queue: QueryQueue
+    paths: torch.Tensor      # (Q, max_hops+1) int32; (1, 1) when not recording
+    lengths: torch.Tensor    # (Q,) int32; (1,) when not recording
+    done: torch.Tensor       # (Q,) bool — query fully terminated
+    stats: WalkStats
+    head_hist: torch.Tensor  # (C+1,) int64 — delayed head observations
+
+
+class Drain(NamedTuple):
+    """Host-side timing of one closed-batch drain: its wall time (ending
+    with the device idle) and the part of it spent blocked in the
+    per-superstep ``_work_left`` read."""
+
+    wall_s: float
+    sync_s: float
+
+
+def _stage_depth(cfg: EngineConfig) -> int:
+    d = sched.min_queue_depth(cfg.num_slots, mu=1.0, delay=cfg.injection_delay)
+    return max(1, int(round(cfg.queue_depth_factor * d)))
+
+
+def _fresh_buffers(cfg: EngineConfig, num_queries: int, device):
+    if cfg.record_paths:
+        paths = torch.full((num_queries, cfg.max_hops + 1), -1,
+                           dtype=torch.int32, device=device)
+        lengths = torch.zeros((num_queries,), dtype=torch.int32, device=device)
+    else:
+        paths = torch.full((1, 1), -1, dtype=torch.int32, device=device)
+        lengths = torch.zeros((1,), dtype=torch.int32, device=device)
+    return paths, lengths
+
+
+def _refill(slots: WalkerSlots, queue: QueryQueue, paths, lengths,
+            cfg: EngineConfig, terminated: torch.Tensor):
+    """Zero-bubble compaction + refill: freed lanes pull the next staged
+    arrivals in lane order, ranked by a prefix sum over the free lanes.
+    Only the lanes that take an arrival write its path's first vertex."""
+    free = (~slots.active) | terminated
+    if cfg.mode == "static":
+        # Bulk-synchronous: only reload when the whole batch drained.
+        free = free & free.all()
+    avail = torch.clamp(queue.staged - queue.head, min=0)
+    rank = torch.cumsum(free.to(torch.int32), 0) - 1   # rank among free lanes
+    take = free & (rank < avail)
+    pos = (queue.head + torch.clamp(rank, min=0)) % queue.capacity
+    qid = queue.order[pos]
+    start = queue.start_vertex[qid.long()]
+    ep = queue.epoch[qid.long()]
+
+    new_slots = WalkerSlots(
+        v_curr=torch.where(take, start, slots.v_curr),
+        v_prev=torch.where(take, -1, slots.v_prev),
+        query_id=torch.where(take, qid,
+                             torch.where(terminated, -1, slots.query_id)),
+        hop=torch.where(take, 0, slots.hop),
+        active=take | (slots.active & ~terminated),
+        epoch=torch.where(take, ep, slots.epoch),
+    )
+    new_queue = queue._replace(head=queue.head + take.sum())
+    if cfg.record_paths:
+        q = qid[take].long()
+        paths[q, 0] = start[take]
+        lengths[q] = 1
+    return new_slots, new_queue, paths, lengths
+
+
+def _advance_controller(queue: QueryQueue, head_hist: torch.Tensor,
+                        cfg: EngineConfig, depth: int):
+    """Feedback-driven staging: observe head with a C-superstep delay and
+    keep the staged watermark >= delayed_head + D (Theorem VI.1), clipped
+    to the queries that have arrived (``tail``).  ``head_hist`` holds the
+    last C+1 head observations; pushing the current head and reading
+    index 0 yields the head of exactly C supersteps ago."""
+    head_hist = torch.cat([head_hist[1:], queue.head.reshape(1)])
+    target = torch.minimum(head_hist[0] + depth, queue.tail)
+    return queue._replace(staged=torch.maximum(queue.staged, target)), head_hist
+
+
+def _process(graph: CSRGraph, spec: SamplerSpec, cfg: EngineConfig, key,
+             sample, slots: WalkerSlots, paths, lengths, done):
+    """One hop for every live lane: Row Access → Sampling → Column Access →
+    terminate.  Only advancing lanes write their path entry, and only
+    terminating lanes set their done bit."""
+    A = slots.active
+
+    # PPR teleport/termination draw (before the hop; geometric walk length).
+    if spec.stop_prob > 0.0:
+        u_stop = task_rng.task_uniforms(key, slots.query_id, slots.hop, 1,
+                                        SALT_STOP, epoch=slots.epoch)[:, 0]
+        stop = A & (u_stop < float(np.float32(spec.stop_prob)))
+    else:
+        stop = torch.zeros_like(A)
+
+    if cfg.step_impl == "cuda" and lower_program(spec).cuda:
+        if spec.kind == "uniform":
+            u = task_rng.task_uniforms(key, slots.query_id, slots.hop, 1,
+                                       SALT_COLUMN, epoch=slots.epoch)
+            v_next, deg = walk_ops.walk_step_uniform(
+                slots.v_curr, u[:, 0].contiguous(), graph.row_ptr, graph.col)
+        else:
+            u = task_rng.task_uniforms(key, slots.query_id, slots.hop, 2,
+                                       SALT_COLUMN, epoch=slots.epoch)
+            v_next, deg = walk_ops.walk_step_alias(
+                slots.v_curr, u[:, 0].contiguous(), u[:, 1].contiguous(),
+                graph.row_ptr, graph.col, graph.alias_prob, graph.alias_idx)
+        ok = deg > 0
+    else:
+        addr, deg = row_access(graph, slots.v_curr)           # stage 1
+        idx, ok = sample(graph, addr, deg, slots, key)        # stage 2
+        v_next = column_access(graph, addr, idx)              # stage 3
+
+    adv = A & ~stop & ok
+    dead = A & ~stop & ~ok
+    new_hop = torch.where(adv, slots.hop + 1, slots.hop)
+    reached_max = adv & (new_hop >= cfg.max_hops)
+    terminated = stop | dead | reached_max
+
+    new_slots = slots._replace(
+        v_curr=torch.where(adv, v_next, slots.v_curr),
+        v_prev=torch.where(adv, slots.v_curr, slots.v_prev),
+        hop=new_hop,
+    )
+    if cfg.record_paths:
+        q = slots.query_id[adv].long()
+        h = new_hop[adv]
+        paths[q, h.long()] = v_next[adv]
+        lengths[q] = h + 1
+    done[slots.query_id[terminated & A].long()] = True
+    return new_slots, terminated, adv, paths, lengths, done
+
+
+def _superstep(graph, spec, cfg, key, depth, sample,
+               state: StreamState) -> StreamState:
+    slots, queue, paths, lengths, done, stats, head_hist = state
+    W = cfg.num_slots
+
+    new_slots, terminated, adv, paths, lengths, done = _process(
+        graph, spec, cfg, key, sample, slots, paths, lengths, done)
+
+    idle = W - slots.active.sum()
+    # Idle lanes while unserved queries exist upstream = scheduler
+    # starvation (what Theorem VI.1 eliminates); idle lanes after the last
+    # arrived query was issued = unavoidable tail drain.
+    upstream = (queue.head < queue.tail).to(torch.int64)
+    stats = stats._replace(
+        steps=stats.steps + adv.sum(),
+        slot_steps=stats.slot_steps + W,
+        bubbles=stats.bubbles + idle,
+        starved=stats.starved + idle * upstream,
+        terminations=stats.terminations + (terminated & slots.active).sum(),
+        supersteps=stats.supersteps + 1,
+        # The per-hop impls dispatch one device program per superstep.
+        launches=stats.launches + 1,
+    )
+
+    queue, head_hist = _advance_controller(queue, head_hist, cfg, depth)
+    new_slots, queue, paths, lengths = _refill(new_slots, queue, paths,
+                                               lengths, cfg, terminated)
+    return StreamState(new_slots, queue, paths, lengths, done, stats,
+                       head_hist)
+
+
+def _work_left(state: StreamState) -> torch.Tensor:
+    return (state.queue.head < state.queue.tail) | state.slots.active.any()
+
+
+def build_engine(spec: SamplerSpec, cfg: EngineConfig):
+    """Build ``run(graph, start_vertices, key) -> (WalkResult, Drain)``: the
+    closed system, draining a fixed query batch to completion on the
+    graph's device.  ``key`` is a base key pair (`rng.stream_key`).
+
+    Raises NotImplementedError for a sampler kind that is not ported.
+    """
+    sample = make_sampler(spec)
+    depth = _stage_depth(cfg)
+
+    def run(graph: CSRGraph, start_vertices: torch.Tensor, key):
+        t0 = time.perf_counter()
+        device = graph.device
+        key = tuple(int(k) for k in key)
+        sv = start_vertices.to(device=device, dtype=torch.int32)
+        num_queries = int(sv.shape[0])
+        paths, lengths = _fresh_buffers(cfg, num_queries, device)
+        stats = zero_stats(device)
+        if num_queries == 0:
+            return (WalkResult(paths=paths, lengths=lengths, stats=stats),
+                    Drain(time.perf_counter() - t0, 0.0))
+        queue = make_queue(sv, staged=min(depth, num_queries))
+        head_hist = torch.zeros((cfg.injection_delay + 1,), dtype=torch.int64,
+                                device=device)
+        # Initial injection so lanes processed in superstep 1 are live.
+        queue, head_hist = _advance_controller(queue, head_hist, cfg, depth)
+        slots, queue, paths, lengths = _refill(
+            empty_slots(cfg.num_slots, device), queue, paths, lengths, cfg,
+            torch.zeros((cfg.num_slots,), dtype=torch.bool, device=device))
+        state = StreamState(
+            slots=slots, queue=queue, paths=paths, lengths=lengths,
+            done=torch.zeros((num_queries,), dtype=torch.bool, device=device),
+            stats=stats, head_hist=head_hist)
+
+        supersteps, sync_s = 0, 0.0
+        while supersteps < cfg.max_supersteps:
+            t = time.perf_counter()
+            more = bool(_work_left(state))   # the per-superstep host sync
+            sync_s += time.perf_counter() - t
+            if not more:
+                break
+            state = _superstep(graph, spec, cfg, key, depth, sample, state)
+            supersteps += 1
+        result = WalkResult(paths=state.paths, lengths=state.lengths,
+                            stats=state.stats)
+        if supersteps == cfg.max_supersteps and device.type == "cuda":
+            torch.cuda.synchronize(device)   # the drain ended without a read
+        return result, Drain(time.perf_counter() - t0, sync_s)
+
+    return run
+
+
+def _run_walks(graph: CSRGraph, start_vertices, spec: SamplerSpec,
+               cfg: EngineConfig | None = None, seed=0) -> WalkResult:
+    """One-shot closed-system run (engine-internal reference path)."""
+    cfg = cfg or EngineConfig()
+    sv = torch.as_tensor(np.asarray(start_vertices, dtype=np.int32))
+    result, _ = build_engine(spec, cfg)(graph, sv, task_rng.stream_key(seed))
+    return result

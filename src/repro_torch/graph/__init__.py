@@ -1,0 +1,13 @@
+"""Graph substrate: CSR representation, generators, alias tables, datasets."""
+from repro_torch.graph.alias import build_alias_tables
+from repro_torch.graph.csr import (CSRGraph, build_csr, degrees,
+                                   from_reference_arrays, validate_csr)
+from repro_torch.graph.datasets import DATASET_SPECS, make_dataset
+from repro_torch.graph.generators import BALANCED, GRAPH500, rmat_edges
+
+__all__ = [
+    "CSRGraph", "build_csr", "degrees", "validate_csr",
+    "from_reference_arrays",
+    "rmat_edges", "GRAPH500", "BALANCED",
+    "build_alias_tables", "make_dataset", "DATASET_SPECS",
+]

@@ -1,0 +1,100 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each library is one ``.cu`` source with a plain C interface, compiled by
+``nvcc`` for ``sm_90a`` into a shared library on first use and loaded with
+``ctypes``.  Builds land in ``build/repro_torch_kernels/`` at the root of
+the checkout, named by a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one is reused.  Nothing is built when the
+package is imported: only a launch on a CUDA tensor asks for a library.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+
+_KERNELS = pathlib.Path(__file__).resolve().parent
+BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: Library name -> its CUDA source, relative to this directory.
+SOURCES = {"walk_step": "walk_step/csrc/walk_step.cu"}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        nvcc = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and under $CUDA_HOME or "
+            "/usr/local/cuda): the CUDA toolkit is needed to build the "
+            "kernels")
+    return nvcc
+
+
+def library_path(name: str) -> pathlib.Path:
+    """Where library ``name`` lives once built (keyed by source + flags)."""
+    src = (_KERNELS / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names=None) -> dict[str, float]:
+    """Compile every named library that is not built yet, one ``nvcc`` per
+    source, all started together.  Returns the seconds each build took
+    (0.0 for one already built).  A failed build raises RuntimeError with
+    nvcc's output; ptxas' register report is kept beside the library in a
+    ``.log`` file."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs, seconds = {}, {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            seconds[name] = 0.0
+            continue
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_KERNELS / SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, out, time.perf_counter())
+    failures = []
+    for name, (proc, tmp, out, t0) in jobs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"nvcc failed for {name} "
+                            f"(exit {proc.returncode}):\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib
+
+
+def build_log(name: str) -> str:
+    """nvcc/ptxas output of the build of library ``name``."""
+    return library_path(name).with_suffix(".log").read_text()

@@ -1,0 +1,98 @@
+"""compile(program, backend=...) — the walker entry point.
+
+:func:`compile` binds a :class:`~repro_torch.walker.WalkProgram` to a
+backend and returns a :class:`Walker`:
+
+    walker = compile(WalkProgram.deepwalk(), execution=ExecutionConfig(
+        num_slots=4096, step_impl="cuda"))
+    result = walker.run(graph, starts, seed=0)        # closed batch
+
+The walk runs where the graph lives.  Paths are a pure function of
+(seed, query_id, hop), so they are bit-identical to the reference package
+for the same graph, starts and seed, under either step implementation.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import rng as task_rng
+from repro_torch.core.tasks import WalkResult
+from repro_torch.core.walk_engine import Drain, build_engine
+from repro_torch.walker.execution import ExecutionConfig
+from repro_torch.walker.program import WalkProgram
+
+BACKENDS = ("single", "sharded")
+
+
+def compile(program: WalkProgram, backend: str = "single",
+            execution: Optional[ExecutionConfig] = None) -> "Walker":
+    """Bind ``program`` to an execution backend.
+
+    backend:
+      ``single``  — one device: slot-pool engine with zero-bubble refill.
+      ``sharded`` — not ported yet (raises NotImplementedError).
+    """
+    if not isinstance(program, WalkProgram):
+        raise TypeError(
+            f"compile expects a WalkProgram, got {type(program).__name__}; "
+            "build one with WalkProgram.urw()/ppr()/deepwalk() or "
+            "WalkProgram(spec=...)")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    if backend == "sharded":
+        raise NotImplementedError(
+            "backend='sharded' is not ported yet: ROADMAP.md queue 1 item 9")
+    return Walker(program, backend, execution or ExecutionConfig())
+
+
+class Walker:
+    """A compiled walk program on the single backend."""
+
+    def __init__(self, program: WalkProgram, backend: str,
+                 execution: ExecutionConfig):
+        self.program = program
+        self.backend = backend
+        self.execution = execution
+        self._engine = None
+        #: Host timing of the last :meth:`run` (wall and per-superstep sync).
+        self.last_drain: Optional[Drain] = None
+
+    def run(self, graph, starts, seed=0) -> WalkResult:
+        """Closed system: drain the batch of ``starts`` to completion on
+        the graph's device.
+
+        ``seed`` may be an int or a key pair (two 32-bit words, e.g.
+        ``rng.stream_key(s, e)``)."""
+        self.program.requires(graph)
+        if self._engine is None:
+            self._engine = build_engine(
+                self.program.spec, self.execution.engine_config(self.program))
+        if isinstance(starts, torch.Tensor):
+            sv = starts.to(device=graph.device, dtype=torch.int32)
+        else:
+            sv = torch.as_tensor(np.asarray(starts, dtype=np.int32),
+                                 device=graph.device)
+        result, self.last_drain = self._engine(graph, sv,
+                                               task_rng.stream_key(seed))
+        return result
+
+    def stream(self, graph, capacity: int = 4096, seed=0):
+        """Open system — not ported yet."""
+        raise NotImplementedError(
+            "Walker.stream (the open system) is not ported yet: ROADMAP.md "
+            "queue 1 item 3")
+
+    def serve(self, graph, capacity: int = 4096, chunk: int = 16, seed=0):
+        """Multi-tenant service — not ported yet."""
+        raise NotImplementedError(
+            "Walker.serve is not ported yet: ROADMAP.md queue 1 item 6")
+
+    def train_embeddings(self, graph, **kwargs):
+        """Walks → embeddings pipeline — not ported yet."""
+        raise NotImplementedError(
+            "Walker.train_embeddings is not ported yet: ROADMAP.md queue 1 "
+            "item 7")

@@ -1,0 +1,63 @@
+"""Declarative walk programs (the algorithm half of the walker API).
+
+A :class:`WalkProgram` — sampler + termination + hop budget — carries no
+machine knobs (those live in :class:`repro_torch.walker.ExecutionConfig`),
+so one program runs bit-identically under any execution configuration.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core.samplers import SamplerSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkProgram:
+    """One graph-random-walk algorithm, decoupled from the machine.
+
+    Attributes:
+      spec:      the sampling module configuration (paper Table I).
+      max_hops:  hop budget per query (paper §VIII-A4: 80).
+      name:      optional label for logs / benchmark rows.
+    """
+
+    spec: SamplerSpec = SamplerSpec(kind="uniform")
+    max_hops: int = 80
+    name: str = ""
+
+    def __post_init__(self):
+        # Sampler-level constraints are validated by SamplerSpec itself;
+        # only the program-level hop budget is checked here.
+        if self.max_hops <= 0:
+            raise ValueError(
+                f"WalkProgram.max_hops must be positive, got {self.max_hops}; "
+                "a walk needs at least one hop of budget")
+
+    @staticmethod
+    def urw(max_hops: int = 80) -> "WalkProgram":
+        """Unbiased random walk: uniform neighbor sampling."""
+        return WalkProgram(SamplerSpec(kind="uniform"), max_hops, "urw")
+
+    @staticmethod
+    def ppr(alpha: float = 0.15, max_hops: int = 80) -> "WalkProgram":
+        """Personalized PageRank walks: geometric termination with teleport
+        probability α; endpoints estimate PPR mass."""
+        return WalkProgram(SamplerSpec(kind="uniform", stop_prob=alpha),
+                           max_hops, "ppr")
+
+    @staticmethod
+    def deepwalk(max_hops: int = 80) -> "WalkProgram":
+        """DeepWalk: Walker alias sampling over weighted neighbor lists.
+        The graph must carry alias tables."""
+        return WalkProgram(SamplerSpec(kind="alias"), max_hops, "deepwalk")
+
+    def requires(self, graph) -> None:
+        """Validate that ``graph`` carries the payloads this program samples
+        from; raises ValueError with an actionable message otherwise."""
+        if self.spec.kind == "alias" and not graph.has_alias:
+            raise ValueError(
+                "alias (DeepWalk) programs need alias tables on the graph — "
+                "build it with with_alias=True / graph.build_alias_tables")
+        if self.spec.kind == "metapath" and not graph.typed:
+            raise ValueError(
+                "metapath programs need a typed graph (num_edge_types > 0)")
