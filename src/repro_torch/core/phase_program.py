@@ -6,9 +6,9 @@ A :class:`SamplerSpec` lowers once (:func:`lower`) into a
 (``draw`` / ``gather`` / ``score`` / ``commit``) with explicit operand
 residency (owner of ``v_curr`` or of ``v_prev``).  The lowering is pure
 data and covers every sampler kind; :func:`make_sampler` executes a
-program over one superstep's lane pool.  The uniform and alias executors
-are ported; the kinds that need the typed gather, the rejection score or
-the reservoir loop raise until theirs are.
+program over one superstep's lane pool.  The uniform, alias and metapath
+(typed gather) executors are ported; the kinds that need the rejection
+score or the reservoir loop raise until theirs are.
 
 Phase vocabulary
 ----------------
@@ -129,13 +129,15 @@ class _Ctx:
     """Mutable interpretation state threaded through one hop's phases."""
 
     __slots__ = ("spec", "g", "addr", "deg", "slots", "base_key", "u",
-                 "index", "ok")
+                 "seg_base", "seg_cnt", "index", "ok")
 
     def __init__(self, spec, g, addr, deg, slots, base_key):
         self.spec, self.g = spec, g
         self.addr, self.deg = addr, deg
         self.slots, self.base_key = slots, base_key
         self.u = None
+        self.seg_base = None     # typed sub-segment base offset
+        self.seg_cnt = None      # typed sub-segment length
         self.index = None        # chosen neighbor offset
         self.ok = None           # lane has a valid continuation
 
@@ -152,10 +154,26 @@ def _exec_gather_alias(ph: Phase, ctx: _Ctx):
     pass
 
 
+def _exec_gather_typed(ph: Phase, ctx: _Ctx):
+    """MetaPath sub-segment bounds for hop t's scheduled edge type."""
+    g, s, spec = ctx.g, ctx.slots, ctx.spec
+    sched = torch.tensor(spec.metapath, dtype=torch.int32, device=s.hop.device)
+    t = sched[(s.hop % len(spec.metapath)).long()].long()
+    row = torch.clamp(s.v_curr, 0, g.num_vertices - 1).long()
+    base = g.type_offsets[row, t]
+    ctx.seg_base = base
+    ctx.seg_cnt = g.type_offsets[row, t + 1] - base
+
+
 def _exec_score_pick_uniform(ph: Phase, ctx: _Ctx):
-    """index = min(floor(u·deg), deg-1) over the CSR segment."""
-    ctx.index = _uniform_index(ctx.deg, ctx.u[:, 0])
-    ctx.ok = ctx.deg > 0
+    """index = min(floor(u·n), n-1) over the CSR segment or, when a typed
+    gather ran, over the scheduled sub-segment (no match → dead lane)."""
+    if ctx.seg_base is not None:
+        ctx.index = ctx.seg_base + _uniform_index(ctx.seg_cnt, ctx.u[:, 0])
+        ctx.ok = (ctx.seg_cnt > 0) & (ctx.deg > 0)
+    else:
+        ctx.index = _uniform_index(ctx.deg, ctx.u[:, 0])
+        ctx.ok = ctx.deg > 0
 
 
 def _exec_score_alias_accept(ph: Phase, ctx: _Ctx):
@@ -181,6 +199,7 @@ def _exec_commit(ph: Phase, ctx: _Ctx):
 _EXEC = {
     ("draw", ""): _exec_draw,
     ("gather", "alias"): _exec_gather_alias,
+    ("gather", "typed"): _exec_gather_typed,
     ("score", "pick_uniform"): _exec_score_pick_uniform,
     ("score", "alias_accept"): _exec_score_alias_accept,
     ("commit", ""): _exec_commit,
@@ -192,7 +211,7 @@ def make_sampler(spec: SamplerSpec):
     ``sample(g, addr, deg, slots, base_key) -> (index, ok)``.
 
     Raises NotImplementedError for a program whose executors are not
-    ported yet (typed gather, rejection score, reservoir loop).
+    ported yet (rejection score, reservoir loop).
     """
     prog = lower(spec)
     missing = [f"{p.op}:{p.variant}" for p in prog.phases

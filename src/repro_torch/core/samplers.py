@@ -12,8 +12,9 @@ sampling module (p, q, α, mode bits).  A spec lowers into a phase program
 | Node2Vec       | yes      | reservoir (E-S)    |
 | MetaPath       | either   | typed uniform      |
 
-Every kind validates and lowers; the uniform and alias kinds execute
-(the others raise in ``make_sampler`` until their executors are ported).
+Every kind validates and lowers; the uniform, alias and metapath kinds
+execute (the Node2Vec kinds raise in ``make_sampler`` until their
+executors are ported).
 """
 from __future__ import annotations
 

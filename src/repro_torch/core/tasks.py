@@ -6,8 +6,9 @@ either live (carrying a task) or free, and the zero-bubble scheduler keeps
 every lane live whenever work exists.  ``epoch`` salts the RNG of a reused
 query slot; a closed batch carries epoch 0 everywhere.
 
-All state is NamedTuples of tensors on one device; the engine replaces
-fields rather than mutating them, except the path buffers (see
+All state is NamedTuples of tensors on one device; the per-hop engine
+replaces fields rather than mutating them, except the path buffers, and
+the fused launch updates every field in place (see
 ``core/walk_engine.py``).
 """
 from __future__ import annotations
@@ -105,8 +106,9 @@ class WalkStats(NamedTuple):
     supersteps: torch.Tensor    # wall supersteps executed
     route_waits: torch.Tensor   # sharded backend only (0 here)
     drops: torch.Tensor         # tasks lost to capacity overflow (0)
-    launches: torch.Tensor      # superstep dispatches (one per superstep on
-                                # the per-hop paths)
+    launches: torch.Tensor      # device dispatches: one per superstep on
+                                # the per-hop paths, one per launch of k
+                                # supersteps on the fused path
     cache_hits: torch.Tensor    # hot-vertex cache counters: 0 until the
     cache_misses: torch.Tensor  # cache is ported
     cache_coalesced: torch.Tensor

@@ -18,17 +18,26 @@ watermark, advanced by a feedback controller that observes ``head`` C
 supersteps late; `scheduler.min_queue_depth` sizes the stage-ahead depth
 (Theorem VI.1).
 
-Two step implementations, bit-identical in every output:
+Three step implementations, bit-identical in every output but
+``stats.launches``:
   * ``torch`` — the plain tensor superstep (row access, the sampler's
     phase program, column access);
   * ``cuda``  — the same superstep with row access, sampling and column
     access done by the hand-written one-hop kernel
-    (`repro_torch.kernels.walk_step`) for the uniform and alias kinds.
+    (`repro_torch.kernels.walk_step`) for the uniform and alias kinds
+    (other kinds run the plain superstep, as the reference's ``pallas``
+    does);
+  * ``fused`` — ``hops_per_launch`` whole supersteps per launch of the
+    device-resident kernel (`repro_torch.kernels.fused_superstep`): lane
+    pool, RNG, termination, controller and refill stay on the device.
 
-The closed batch drains in a host loop that reads ``_work_left`` once per
-superstep — one device→host sync per superstep, which keeps ``supersteps``
-and ``slot_steps`` exact.  The path buffers are written in place (they are
-the largest state, (Q, max_hops+1) int32); every other tensor is replaced.
+The per-hop impls drain the closed batch in a host loop that reads
+``_work_left`` once per superstep and count one launch per superstep; the
+``fused`` drain reads one (work left, supersteps) word pair once per
+launch and counts one launch per launch.  Either way ``supersteps`` and
+``slot_steps`` stay exact.  The per-hop superstep writes the path buffers
+in place (they are the largest state, (Q, max_hops+1) int32) and replaces
+every other tensor; the fused launch updates every state tensor in place.
 """
 from __future__ import annotations
 
@@ -50,7 +59,7 @@ from repro_torch.graph.csr import CSRGraph, column_access, row_access
 from repro_torch.kernels.walk_step import ops as walk_ops
 
 MODES = ("zero_bubble", "static")
-STEP_IMPLS = ("torch", "cuda")
+STEP_IMPLS = ("torch", "cuda", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +71,9 @@ class EngineConfig:
     injection_delay: int = 0       # C supersteps of host->device latency
     queue_depth_factor: float = 1.0  # × Theorem VI.1 depth D
     max_supersteps: int = 1 << 20  # safety bound for the drain loop
-    step_impl: str = "torch"       # torch | cuda (one-hop kernel)
+    step_impl: str = "torch"       # torch | cuda (one-hop kernel) | fused
+                                   # (device-resident multi-hop kernel)
+    hops_per_launch: int = 16      # fused only: supersteps per launch
 
     def __post_init__(self):
         if self.num_slots <= 0:
@@ -89,18 +100,19 @@ class EngineConfig:
         if self.max_supersteps <= 0:
             raise ValueError(
                 f"max_supersteps must be positive, got {self.max_supersteps}")
+        if self.hops_per_launch <= 0:
+            raise ValueError(
+                f"hops_per_launch must be a positive superstep count per "
+                f"fused-kernel launch, got {self.hops_per_launch}")
 
 
 def check_step_impl(step_impl: str) -> None:
     """Raise unless ``step_impl`` is one this package runs."""
-    if step_impl == "fused":
-        raise NotImplementedError(
-            "step_impl='fused' (the device-resident multi-superstep kernel) "
-            "is not ported yet: ROADMAP.md queue 2 item 1")
     if step_impl not in STEP_IMPLS:
         raise ValueError(
             f"step_impl must be one of {STEP_IMPLS}, got {step_impl!r} "
-            "('torch' is the plain superstep, 'cuda' the one-hop kernel)")
+            "('torch' is the plain superstep, 'cuda' the one-hop kernel, "
+            "'fused' the multi-superstep kernel)")
 
 
 class StreamState(NamedTuple):
@@ -118,7 +130,7 @@ class StreamState(NamedTuple):
 class Drain(NamedTuple):
     """Host-side timing of one closed-batch drain: its wall time (ending
     with the device idle) and the part of it spent blocked in the
-    per-superstep ``_work_left`` read."""
+    progress read (once per superstep, or once per launch for ``fused``)."""
 
     wall_s: float
     sync_s: float
@@ -259,8 +271,6 @@ def _superstep(graph, spec, cfg, key, depth, sample,
         starved=stats.starved + idle * upstream,
         terminations=stats.terminations + (terminated & slots.active).sum(),
         supersteps=stats.supersteps + 1,
-        # The per-hop impls dispatch one device program per superstep.
-        launches=stats.launches + 1,
     )
 
     queue, head_hist = _advance_controller(queue, head_hist, cfg, depth)
@@ -270,8 +280,37 @@ def _superstep(graph, spec, cfg, key, depth, sample,
                        head_hist)
 
 
+def _count_launch(state: StreamState) -> StreamState:
+    """One more device dispatch: after every superstep on the per-hop
+    impls, once per launch of the fused kernel."""
+    stats = state.stats
+    return state._replace(stats=stats._replace(launches=stats.launches + 1))
+
+
 def _work_left(state: StreamState) -> torch.Tensor:
     return (state.queue.head < state.queue.tail) | state.slots.active.any()
+
+
+def init_state(cfg: EngineConfig, depth: int,
+               start_vertices: torch.Tensor) -> StreamState:
+    """The state a closed batch of ``start_vertices`` (a non-empty int32
+    tensor, on the run's device) drains from: the queue staged to
+    ``depth``, and the first lanes loaded (the initial injection, so that
+    the lanes of superstep 1 are live)."""
+    device = start_vertices.device
+    num_queries = int(start_vertices.shape[0])
+    paths, lengths = _fresh_buffers(cfg, num_queries, device)
+    queue = make_queue(start_vertices, staged=min(depth, num_queries))
+    head_hist = torch.zeros((cfg.injection_delay + 1,), dtype=torch.int64,
+                            device=device)
+    queue, head_hist = _advance_controller(queue, head_hist, cfg, depth)
+    slots, queue, paths, lengths = _refill(
+        empty_slots(cfg.num_slots, device), queue, paths, lengths, cfg,
+        torch.zeros((cfg.num_slots,), dtype=torch.bool, device=device))
+    return StreamState(
+        slots=slots, queue=queue, paths=paths, lengths=lengths,
+        done=torch.zeros((num_queries,), dtype=torch.bool, device=device),
+        stats=zero_stats(device), head_hist=head_hist)
 
 
 def build_engine(spec: SamplerSpec, cfg: EngineConfig):
@@ -279,8 +318,15 @@ def build_engine(spec: SamplerSpec, cfg: EngineConfig):
     closed system, draining a fixed query batch to completion on the
     graph's device.  ``key`` is a base key pair (`rng.stream_key`).
 
+    ``fused`` drains in launches of at most ``hops_per_launch``
+    supersteps, never past ``max_supersteps``, reading the progress pair
+    once per launch.
+
     Raises NotImplementedError for a sampler kind that is not ported.
     """
+    if cfg.step_impl == "fused":
+        from repro_torch.kernels.fused_superstep import ops as fused_ops
+        fused_ops.check_kind(spec)
     sample = make_sampler(spec)
     depth = _stage_depth(cfg)
 
@@ -289,38 +335,40 @@ def build_engine(spec: SamplerSpec, cfg: EngineConfig):
         device = graph.device
         key = tuple(int(k) for k in key)
         sv = start_vertices.to(device=device, dtype=torch.int32)
-        num_queries = int(sv.shape[0])
-        paths, lengths = _fresh_buffers(cfg, num_queries, device)
-        stats = zero_stats(device)
-        if num_queries == 0:
-            return (WalkResult(paths=paths, lengths=lengths, stats=stats),
+        if sv.shape[0] == 0:
+            paths, lengths = _fresh_buffers(cfg, 0, device)
+            return (WalkResult(paths=paths, lengths=lengths,
+                               stats=zero_stats(device)),
                     Drain(time.perf_counter() - t0, 0.0))
-        queue = make_queue(sv, staged=min(depth, num_queries))
-        head_hist = torch.zeros((cfg.injection_delay + 1,), dtype=torch.int64,
-                                device=device)
-        # Initial injection so lanes processed in superstep 1 are live.
-        queue, head_hist = _advance_controller(queue, head_hist, cfg, depth)
-        slots, queue, paths, lengths = _refill(
-            empty_slots(cfg.num_slots, device), queue, paths, lengths, cfg,
-            torch.zeros((cfg.num_slots,), dtype=torch.bool, device=device))
-        state = StreamState(
-            slots=slots, queue=queue, paths=paths, lengths=lengths,
-            done=torch.zeros((num_queries,), dtype=torch.bool, device=device),
-            stats=stats, head_hist=head_hist)
+        state = init_state(cfg, depth, sv)
 
         supersteps, sync_s = 0, 0.0
-        while supersteps < cfg.max_supersteps:
-            t = time.perf_counter()
-            more = bool(_work_left(state))   # the per-superstep host sync
-            sync_s += time.perf_counter() - t
-            if not more:
-                break
-            state = _superstep(graph, spec, cfg, key, depth, sample, state)
-            supersteps += 1
+        if cfg.step_impl == "fused":
+            state, block = fused_ops.pack(state)   # the drain's control block
+            while True:
+                t = time.perf_counter()
+                more, supersteps = fused_ops.progress(block)   # per launch
+                sync_s += time.perf_counter() - t
+                if not more or supersteps >= cfg.max_supersteps:
+                    break
+                state = fused_ops.fused_superstep(
+                    graph, spec, cfg, depth, state, key,
+                    min(cfg.hops_per_launch, cfg.max_supersteps - supersteps),
+                    block)
+        else:
+            while supersteps < cfg.max_supersteps:
+                t = time.perf_counter()
+                more = bool(_work_left(state))   # once per superstep
+                sync_s += time.perf_counter() - t
+                if not more:
+                    break
+                state = _count_launch(_superstep(graph, spec, cfg, key, depth,
+                                                 sample, state))
+                supersteps += 1
+            if supersteps == cfg.max_supersteps and device.type == "cuda":
+                torch.cuda.synchronize(device)   # ended without a read
         result = WalkResult(paths=state.paths, lengths=state.lengths,
                             stats=state.stats)
-        if supersteps == cfg.max_supersteps and device.type == "cuda":
-            torch.cuda.synchronize(device)   # the drain ended without a read
         return result, Drain(time.perf_counter() - t0, sync_s)
 
     return run

@@ -3,8 +3,10 @@
 Each library is one ``.cu`` source with a plain C interface, compiled by
 ``nvcc`` for ``sm_90a`` into a shared library on first use and loaded with
 ``ctypes``.  Builds land in ``build/repro_torch_kernels/`` at the root of
-the checkout, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  Nothing is built when the
+the checkout, named by a hash of the source, of every header it includes
+(``#include "..."``, found beside the source or in ``kernels/csrc/``,
+followed recursively) and of the flags, so an edited source or header
+rebuilds and an unchanged one is reused.  Nothing is built when the
 package is imported: only a launch on a CUDA tensor asks for a library.
 """
 from __future__ import annotations
@@ -13,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,8 +26,14 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: Headers shared by the kernels (``walk_common.cuh``).
+INCLUDE_DIR = _KERNELS / "csrc"
+
 #: Library name -> its CUDA source, relative to this directory.
-SOURCES = {"walk_step": "walk_step/csrc/walk_step.cu"}
+SOURCES = {"walk_step": "walk_step/csrc/walk_step.cu",
+           "fused_superstep": "fused_superstep/csrc/fused_superstep.cu"}
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -42,11 +51,34 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _sources(path: pathlib.Path) -> list[pathlib.Path]:
+    """``path`` and every local header it includes, transitively, each
+    once.  A quoted include must resolve beside the including file or in
+    ``INCLUDE_DIR``, as nvcc resolves it."""
+    seen, todo = [], [path]
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.append(f)
+        for inc in _INCLUDE.findall(f.read_text()):
+            for d in (f.parent, INCLUDE_DIR):
+                if (d / inc).is_file():
+                    todo.append((d / inc).resolve())
+                    break
+            else:
+                raise FileNotFoundError(f"{f}: included header {inc!r} not "
+                                        f"found beside it or in {INCLUDE_DIR}")
+    return seen
+
+
 def library_path(name: str) -> pathlib.Path:
-    """Where library ``name`` lives once built (keyed by source + flags)."""
-    src = (_KERNELS / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where library ``name`` lives once built (keyed by the bytes of its
+    source and of every header it includes, and by the flags)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _sources((_KERNELS / SOURCES[name]).resolve()):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict[str, float]:
@@ -65,7 +97,8 @@ def build(names=None) -> dict[str, float]:
             continue
         fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_KERNELS / SOURCES[name])]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", tmp,
+               str(_KERNELS / SOURCES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, out, time.perf_counter())

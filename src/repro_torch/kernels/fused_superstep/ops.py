@@ -1,0 +1,237 @@
+"""Wrapper of the fused superstep CUDA kernel.
+
+:func:`fused_superstep` advances the engine's :class:`StreamState` by at
+most ``k`` supersteps in one launch.  It checks every tensor (device,
+dtype, shape, contiguity) and raises on anything the kernel does not take.
+For tensors on the CPU it runs the plain version in ``ref.py``; for CUDA
+tensors it launches the kernel on PyTorch's current stream or raises —
+there is no fallback.
+
+The launch updates every state tensor **in place**, on the card and on
+the CPU alike.  The state's scalars (queue counters, the 12 stats, the
+controller's head history) live in one int64 *control block*: a drain
+calls :func:`pack` once, which moves them into a new block and returns
+the state viewing it, passes the block to every launch, and reads
+:func:`progress` (the block's first two words: work left, supersteps)
+between launches.  Only this module and the kernel's source know the
+block's layout.  ``LAUNCHES`` counts kernel launches (nothing else adds to
+it), so a run can show that it went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import walk_engine as engine
+from repro_torch.core.tasks import WalkStats
+from repro_torch.kernels import build
+from repro_torch.kernels.fused_superstep import ref
+
+#: Kernel launches since the last :func:`reset_launches`.
+LAUNCHES = {"fused_superstep": 0}
+
+# Control block layout (int64 words).
+CTL_WORK, CTL_SUPERSTEPS = 0, 1   # written by every launch; the host's read
+CTL_QUEUE = 2                     # head, staged, tail
+CTL_STATS = 5                     # the WalkStats counters, in field order
+CTL_HIST = CTL_STATS + len(WalkStats._fields)   # head_hist, C+1 words
+
+#: Sampler kinds the kernel runs, and their template ids in the source.
+KINDS = {"uniform": 0, "alias": 1, "metapath": 2}
+_UNPORTED = {"rejection_n2v": "1c", "reservoir_n2v": "1d"}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = ([_P] * 19 + [_I] * 9 + [ctypes.c_longlong]
+             + [ctypes.c_uint] * 2 + [ctypes.c_float] + [_I] * 3 + [_P])
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def check_kind(spec, cache=None) -> None:
+    """Raise NotImplementedError for what the kernel does not run yet."""
+    if spec.kind in _UNPORTED:
+        raise NotImplementedError(
+            f"the fused kernel's {spec.kind} branch is not ported yet: "
+            f"ROADMAP.md queue 2 item {_UNPORTED[spec.kind]}")
+    if cache is not None:
+        raise NotImplementedError(
+            "the fused kernel's hot-vertex cache tier is not ported yet: "
+            "ROADMAP.md queue 2 item 1e")
+
+
+def _scalars(state):
+    return (state.queue.head, state.queue.staged, state.queue.tail,
+            *state.stats)
+
+
+def pack(state):
+    """``(state, block)``: a new control block on the state's device that
+    holds the progress pair, the state's scalars and its head history,
+    and ``state`` with those scalars replaced by views of the block."""
+    words = [engine._work_left(state), state.stats.supersteps, *_scalars(state)]
+    block = torch.cat([torch.stack([t.to(torch.int64) for t in words]),
+                       state.head_hist.to(torch.int64)])
+    q = state.queue
+    packed = state._replace(
+        queue=q._replace(head=block[CTL_QUEUE], staged=block[CTL_QUEUE + 1],
+                         tail=block[CTL_QUEUE + 2]),
+        stats=WalkStats(*block[CTL_STATS:CTL_HIST].unbind()),
+        head_hist=block[CTL_HIST:])
+    return packed, block
+
+
+def progress(block) -> tuple[bool, int]:
+    """(work left, supersteps run): one device-to-host read of the
+    block's first two words."""
+    more, supersteps = block[:2].tolist()
+    return bool(more), int(supersteps)
+
+
+def _check(graph, spec, cfg, depth, state, key, k, block) -> torch.device:
+    """Every tensor on one device, of the kernel's dtype and shape, and
+    contiguous; the state's scalars views of ``block``; the scalars in
+    int32 range.  Returns the device."""
+    s, q = state.slots, state.queue
+    W, Q, H = cfg.num_slots, q.capacity, cfg.max_hops
+    i32, i64 = torch.int32, torch.int64
+    want = {f"slots.{f}": (getattr(s, f), i32, (W,))
+            for f in ("v_curr", "v_prev", "query_id", "hop", "epoch")}
+    want["slots.active"] = (s.active, torch.bool, (W,))
+    for f in ("start_vertex", "order", "epoch"):
+        want[f"queue.{f}"] = (getattr(q, f), i32, (Q,))
+    for f in ("head", "staged", "tail"):
+        want[f"queue.{f}"] = (getattr(q, f), i64, ())
+    for f in WalkStats._fields:
+        want[f"stats.{f}"] = (getattr(state.stats, f), i64, ())
+    want["head_hist"] = (state.head_hist, i64, (cfg.injection_delay + 1,))
+    want["block"] = (block, i64, (CTL_HIST + cfg.injection_delay + 1,))
+    want["done"] = (state.done, torch.bool, (Q,))
+    rec = cfg.record_paths
+    want["paths"] = (state.paths, i32, (Q, H + 1) if rec else (1, 1))
+    want["lengths"] = (state.lengths, i32, (Q,) if rec else (1,))
+    V, E = graph.num_vertices, graph.num_edges
+    want["graph.row_ptr"] = (graph.row_ptr, i32, (V + 1,))
+    want["graph.col"] = (graph.col, i32, (E,))
+    if spec.kind == "alias":
+        if not graph.has_alias:
+            raise ValueError("alias sampling needs the graph's alias tables")
+        want["graph.alias_prob"] = (graph.alias_prob, torch.float32, (E,))
+        want["graph.alias_idx"] = (graph.alias_idx, i32, (E,))
+    if spec.kind == "metapath":
+        to = graph.type_offsets
+        if to is None or to.dim() != 2 or max(spec.metapath) + 2 > to.shape[1]:
+            raise ValueError(
+                f"metapath schedule {spec.metapath} needs type_offsets of "
+                f"shape (V, T+1) with T > {max(spec.metapath)}")
+        want["graph.type_offsets"] = (to, i32, (V, to.shape[1]))
+    devices = {t.device for t, _, _ in want.values()}
+    if len(devices) != 1:
+        raise ValueError(f"fused-superstep inputs span devices "
+                         f"{sorted(map(str, devices))}")
+    (device,) = devices
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused-superstep inputs must be on cpu or cuda, "
+                         f"got {device}")
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if (q.head.data_ptr() != block.data_ptr() + 8 * CTL_QUEUE
+            or state.head_hist.data_ptr() != block.data_ptr() + 8 * CTL_HIST):
+        raise ValueError("the state's scalars must view the control block: "
+                         "pass the pair that pack() returned")
+    for name, n in (("num_slots", W), ("queue capacity", Q), ("edges", E),
+                    ("vertices", V), ("k", k), ("depth", depth)):
+        if not 0 <= n < 2**31:
+            raise ValueError(f"{name} = {n} is outside the kernel's int32 "
+                             "range")
+    if V < 1:
+        raise ValueError("the graph needs at least one vertex")
+    if len(key) != 2:
+        raise ValueError(f"key must be a pair of 32-bit words, got {key!r}")
+    return device
+
+
+@functools.lru_cache(maxsize=32)
+def _schedule(metapath: tuple, device: str) -> torch.Tensor:
+    """The metapath schedule on ``device`` (made once per schedule)."""
+    return torch.tensor(metapath, dtype=torch.int32, device=device)
+
+
+def _entry():
+    fn = build.load("fused_superstep").fused_superstep
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    return fn
+
+
+def _flat(x):
+    """The tensors of a (nested) NamedTuple state, in field order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for f in x for t in _flat(f)]
+
+
+def fused_superstep(graph, spec, cfg, depth, state, key, k, block,
+                    cache=None):
+    """Advance ``state`` by at most ``k`` supersteps (stopping early when no
+    work is left) in one launch, and count one launch in its stats.
+
+    ``state`` and ``block`` are a pair that :func:`pack` returned (or that
+    earlier launches updated).  ``key`` is the base key pair (two 32-bit
+    words); ``depth`` is the Theorem VI.1 stage-ahead depth.  Every state
+    tensor and the block are updated in place, and ``state`` is returned.
+    Raises NotImplementedError for the Node2Vec kinds and for a hot-vertex
+    cache.
+    """
+    check_kind(spec, cache)
+    device = _check(graph, spec, cfg, depth, state, key, k, block)
+    if device.type == "cpu":
+        new = ref.fused_superstep_ref(graph, spec, cfg, depth, state, key, k)
+        for old, t in zip(_flat(state), _flat(new)):
+            if t is not old:
+                old.copy_(t)
+        block[CTL_WORK] = engine._work_left(state)
+        block[CTL_SUPERSTEPS] = state.stats.supersteps
+        return state
+    s, q = state.slots, state.queue
+    alias, metapath = spec.kind == "alias", spec.kind == "metapath"
+    sched = _schedule(spec.metapath, str(device)) if metapath else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(device):
+        rc = _entry()(
+            ptr(s.v_curr), ptr(s.v_prev), ptr(s.query_id), ptr(s.hop),
+            ptr(s.active), ptr(s.epoch),
+            ptr(q.start_vertex), ptr(q.order), ptr(q.epoch),
+            ptr(state.done), ptr(state.lengths), ptr(state.paths), ptr(block),
+            ptr(graph.row_ptr), ptr(graph.col),
+            ptr(graph.alias_prob) if alias else None,
+            ptr(graph.alias_idx) if alias else None,
+            ptr(graph.type_offsets) if metapath else None, ptr(sched),
+            cfg.num_slots, q.capacity, cfg.max_hops, graph.num_vertices,
+            graph.num_edges,
+            graph.type_offsets.shape[1] if metapath else 0,
+            len(spec.metapath) if metapath else 0,
+            cfg.injection_delay, int(k), int(depth),
+            int(key[0]) & 0xFFFFFFFF, int(key[1]) & 0xFFFFFFFF,
+            float(np.float32(spec.stop_prob)),
+            KINDS[spec.kind], int(cfg.record_paths),
+            int(cfg.mode == "static"),
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_superstep kernel launch failed: "
+                           f"cudaError {rc}")
+    LAUNCHES["fused_superstep"] += 1
+    return state

@@ -19,23 +19,19 @@
 // The bounds mirror the reference's clips exactly: v clamps into
 // [0, V-1]; an edge offset clamps into [0, E-1]; deg == 0 gives -1; with
 // E == 0 no col/prob/alias word is read at all.  k is computed in float32
-// as floor(u * float(deg)), rounded to nearest with no contraction.
+// as floor(u * float(deg)), rounded to nearest with no contraction
+// (`walk::uniform_index`, shared with the fused superstep kernel).
 
 #include <cuda_runtime.h>
 
+#include "walk_common.cuh"
+
 namespace {
 
+using walk::clampi;
+using walk::uniform_index;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return min(max(x, lo), hi);
-}
-
-// index = min(floor(u * deg), deg - 1), never below 0.
-__device__ __forceinline__ int uniform_index(int deg, float u) {
-  const int idx = static_cast<int>(floorf(__fmul_rn(u, __int2float_rn(deg))));
-  return clampi(idx, 0, max(deg - 1, 0));
-}
 
 // Row access: (addr, deg) of the clamped vertex; false when V == 0.
 __device__ __forceinline__ bool row_access(const int* __restrict__ row_ptr,

@@ -1,11 +1,12 @@
 """GRW closed-batch runner on the walker API (`repro_torch.walker.compile`).
 
   PYTHONPATH=src python -m repro_torch.launch.walk --algo deepwalk \
-      --dataset WG --queries 2000 --slots 1024 --step-impl cuda
+      --dataset WG --queries 2000 --slots 1024 --step-impl fused \
+      --hops-per-launch 16
   PYTHONPATH=src python -m repro_torch.launch.walk --device cpu --scale 9
 
-Prints the graph's size and one summary line (steps, supersteps, MStep/s,
-occupancy, starved lane-supersteps, drops).  Throughput is wall time around
+Prints the graph's size and one summary line (steps, supersteps, launches,
+MStep/s, occupancy, starved lane-supersteps, drops).  Throughput is wall time around
 the drain, on the device named by ``--device``.
 """
 from __future__ import annotations
@@ -34,7 +35,10 @@ def main():
     ap.add_argument("--max-hops", type=int, default=QUERY_LENGTH)
     ap.add_argument("--mode", default="zero_bubble",
                     choices=["zero_bubble", "static"])
-    ap.add_argument("--step-impl", default="torch", choices=["torch", "cuda"])
+    ap.add_argument("--step-impl", default="torch",
+                    choices=["torch", "cuda", "fused"])
+    ap.add_argument("--hops-per-launch", type=int, default=16,
+                    help="fused only: supersteps per kernel launch")
     ap.add_argument("--backend", default="single",
                     choices=list(walker.BACKENDS))
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -47,7 +51,7 @@ def main():
                                  name=args.algo)
     execution = walker.ExecutionConfig(
         num_slots=args.slots, record_paths=args.record_paths, mode=args.mode,
-        step_impl=args.step_impl)
+        step_impl=args.step_impl, hops_per_launch=args.hops_per_launch)
     w = walker.compile(program, backend=args.backend, execution=execution)
     g = make_dataset(args.dataset, weighted=spec.kind == "alias",
                      with_alias=spec.kind == "alias",
@@ -64,7 +68,7 @@ def main():
         torch.cuda.synchronize(g.device)
     dt = time.perf_counter() - t0
     a = analyze_run(res.stats, dt)
-    print(f"steps={a.steps} supersteps={a.supersteps} "
+    print(f"steps={a.steps} supersteps={a.supersteps} launches={a.launches} "
           f"throughput={a.msteps_per_s:.3f} MStep/s "
           f"occupancy={a.occupancy:.3f} starved={a.starved} drops={a.drops}")
 

@@ -7,9 +7,12 @@ backend and returns a :class:`Walker`:
         num_slots=4096, step_impl="cuda"))
     result = walker.run(graph, starts, seed=0)        # closed batch
 
-The walk runs where the graph lives.  Paths are a pure function of
-(seed, query_id, hop), so they are bit-identical to the reference package
-for the same graph, starts and seed, under either step implementation.
+The walk runs where the graph lives: on the card, ``step_impl="cuda"``
+and ``"fused"`` launch their kernels; on the CPU they run the kernels'
+plain versions.  Paths are a pure function of (seed, query_id, hop), so
+they are bit-identical to the reference package for the same graph,
+starts and seed, under every step implementation; the stats differ only
+in ``launches`` (one per superstep, or one per fused launch).
 """
 from __future__ import annotations
 
@@ -63,7 +66,8 @@ class Walker:
 
     def run(self, graph, starts, seed=0) -> WalkResult:
         """Closed system: drain the batch of ``starts`` to completion on
-        the graph's device.
+        the graph's device (per superstep, or in fused launches of
+        ``hops_per_launch`` supersteps).
 
         ``seed`` may be an int or a key pair (two 32-bit words, e.g.
         ``rng.stream_key(s, e)``)."""

@@ -28,8 +28,14 @@ class ExecutionConfig:
       injection_delay:  C — host→device staging latency in supersteps.
       queue_depth_factor: × the Theorem VI.1 stage-ahead depth D.
       max_supersteps:   safety bound for the drain loop.
-      step_impl:        ``torch`` (plain tensor superstep) or ``cuda``
-                        (the hand-written one-hop walk-step kernel).
+      step_impl:        ``torch`` (plain tensor superstep), ``cuda`` (the
+                        hand-written one-hop walk-step kernel; kinds it
+                        does not cover run the plain superstep) or
+                        ``fused`` (the hand-written kernel that runs
+                        ``hops_per_launch`` whole supersteps per launch;
+                        uniform, alias and metapath kinds).
+      hops_per_launch:  ``fused`` only — supersteps per kernel launch
+                        (``stats.launches`` counts the launches).
       cache_budget:     byte budget of the hot-vertex cache; only 0 (off)
                         runs until the cache is ported.
     """
@@ -41,10 +47,12 @@ class ExecutionConfig:
     queue_depth_factor: float = 1.0
     max_supersteps: int = 1 << 20
     step_impl: str = "torch"
+    hops_per_launch: int = 16
     cache_budget: int = 0
 
     def __post_init__(self):
-        for knob in ("num_slots", "queue_depth_factor", "cache_budget"):
+        for knob in ("num_slots", "queue_depth_factor", "hops_per_launch",
+                     "cache_budget"):
             if getattr(self, knob) == AUTO:
                 raise NotImplementedError(
                     f"{knob}='auto' needs the tuner, which is not ported yet: "
@@ -68,6 +76,9 @@ class ExecutionConfig:
         if self.max_supersteps <= 0:
             raise ValueError(f"max_supersteps must be positive, got "
                              f"{self.max_supersteps}")
+        if self.hops_per_launch <= 0:
+            raise ValueError(f"hops_per_launch must be positive, got "
+                             f"{self.hops_per_launch}")
         if self.cache_budget < 0:
             raise ValueError(
                 f"cache_budget is a byte budget and cannot be negative, got "
@@ -88,4 +99,5 @@ class ExecutionConfig:
             queue_depth_factor=self.queue_depth_factor,
             max_supersteps=self.max_supersteps,
             step_impl=self.step_impl,
+            hops_per_launch=self.hops_per_launch,
         )

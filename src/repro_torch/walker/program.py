@@ -7,6 +7,7 @@ so one program runs bit-identically under any execution configuration.
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 from repro_torch.core.samplers import SamplerSpec
 
@@ -51,6 +52,15 @@ class WalkProgram:
         The graph must carry alias tables."""
         return WalkProgram(SamplerSpec(kind="alias"), max_hops, "deepwalk")
 
+    @staticmethod
+    def metapath(schedule: Sequence[int], max_hops: int = 80) -> "WalkProgram":
+        """MetaPath walks: hop t samples uniformly among neighbors of edge
+        type schedule[t mod len]; no match → early termination."""
+        return WalkProgram(
+            SamplerSpec(kind="metapath",
+                        metapath=tuple(int(t) for t in schedule)),
+            max_hops, "metapath")
+
     def requires(self, graph) -> None:
         """Validate that ``graph`` carries the payloads this program samples
         from; raises ValueError with an actionable message otherwise."""
@@ -61,3 +71,8 @@ class WalkProgram:
         if self.spec.kind == "metapath" and not graph.typed:
             raise ValueError(
                 "metapath programs need a typed graph (num_edge_types > 0)")
+        if self.spec.kind == "metapath" and max(
+                self.spec.metapath) >= graph.num_edge_types:
+            raise ValueError(
+                f"metapath schedule {self.spec.metapath} names an edge type "
+                f"the graph lacks (it has {graph.num_edge_types})")

@@ -1,4 +1,5 @@
-"""On-card checks of the CUDA walk-step kernels and the ``cuda`` step.
+"""On-card checks of the CUDA kernels (walk-step, fused superstep) and the
+``cuda`` and ``fused`` steps.
 
 Marked ``gpu``: each test skips, with the reason, where CUDA is not
 available (the decision is made inside the fixture, never at import).
@@ -6,15 +7,25 @@ Run them on a card with ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_cuda.py``.
 
 Every comparison is exact: the kernels' outputs are int32 vertex ids and
-degrees, and the walker's paths, lengths and stats are integers.
+degrees, the fused kernel's state is integers, and the walker's paths,
+lengths and stats are integers.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import walk_engine
+from repro_torch.core.walk_engine import EngineConfig
 from repro_torch.graph import make_dataset
+from repro_torch.kernels.fused_superstep import LAUNCHES as FUSED_LAUNCHES
+from repro_torch.kernels.fused_superstep import ops as fused_ops
+from repro_torch.kernels.fused_superstep import ref as fused_ref
 from repro_torch.kernels.walk_step import LAUNCHES, ops, ref
 from repro_torch.walker import ExecutionConfig, WalkProgram, compile
+
+PROGRAMS = {"urw": WalkProgram.urw(20), "ppr": WalkProgram.ppr(0.15, 20),
+            "deepwalk": WalkProgram.deepwalk(20),
+            "metapath": WalkProgram.metapath((0, 1, 2), 20)}
 
 pytestmark = pytest.mark.gpu
 
@@ -76,3 +87,87 @@ def test_cuda_step_equals_cpu_plain_step(cuda_graph, name):
     assert all(int(a) == int(b) for a, b in zip(got.stats, want.stats))
     kernel = "walk_step_alias" if name == "deepwalk" else "walk_step_uniform"
     assert LAUNCHES[kernel] - before[kernel] == int(got.stats.supersteps)
+
+
+@pytest.fixture(scope="module")
+def typed_graphs():
+    """The scale-10 WG stand-in with alias tables and 3 edge types, on the
+    card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kw = dict(weighted=True, with_alias=True, num_edge_types=3,
+              scale_override=10)
+    return make_dataset("WG", **kw), make_dataset("WG", device="cpu", **kw)
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return type(x)(*(_clone(f) for f in x))
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for f in x for t in _tensors(f)]
+
+
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+@pytest.mark.parametrize("width,mode,delay,queued", [
+    (1000, "zero_bubble", 0, 1), (4096, "zero_bubble", 0, 1),
+    (1000, "static", 2, 1), (4096, "zero_bubble", 0, 17)])
+def test_fused_kernel_bit_equal_to_plain_version(typed_graphs, name, width,
+                                                 mode, delay, queued):
+    """One k = 16 launch of the kernel leaves every state tensor equal to
+    the plain version's: from a mid-drain state (queue dry, some lanes
+    idle; queued = 1), or from a state one superstep into a batch of
+    17 W starts, whose queue refills every lane through the launch."""
+    g, _ = typed_graphs
+    prog = PROGRAMS[name]
+    cfg = EngineConfig(num_slots=width, max_hops=20, mode=mode,
+                       injection_delay=delay, step_impl="fused")
+    depth = walk_engine._stage_depth(cfg)
+    n = width * queued + (width // 16 if queued == 1 else 0)
+    starts = torch.from_numpy(np.random.default_rng(width).integers(
+        0, g.num_vertices, n).astype(np.int32)).cuda()
+    state = fused_ref.fused_superstep_ref(
+        g, prog.spec, cfg, depth,
+        walk_engine.init_state(cfg, depth, starts), (3, 4), 1)
+    while queued == 1 and bool(state.slots.active.all()):
+        state = fused_ref.fused_superstep_ref(g, prog.spec, cfg, depth, state,
+                                              (3, 4), 1)
+    want = fused_ref.fused_superstep_ref(g, prog.spec, cfg, depth,
+                                         _clone(state), (3, 4), 16)
+    before = FUSED_LAUNCHES["fused_superstep"]
+    work, block = fused_ops.pack(_clone(state))
+    got = fused_ops.fused_superstep(g, prog.spec, cfg, depth, work, (3, 4), 16,
+                                    block)
+    torch.cuda.synchronize()
+    assert FUSED_LAUNCHES["fused_superstep"] == before + 1
+    assert queued == 1 or int(got.queue.head) < int(got.queue.tail)
+    for a, b in zip(_tensors(got), _tensors(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant", [
+    {}, {"mode": "static", "injection_delay": 2}, {"record_paths": False}])
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_fused_step_equals_cpu_plain_version(typed_graphs, name, variant):
+    """A whole fused drain on the card equals the CPU's, all 12 stats
+    included: zero-bubble, static with a delay (bulk reloads of a drained
+    pool), and without path records."""
+    g, g_cpu = typed_graphs
+    starts = np.random.default_rng(0).integers(
+        0, g.num_vertices, 700).astype(np.int32)
+    execution = ExecutionConfig(num_slots=256, step_impl="fused",
+                                hops_per_launch=4, **variant)
+    want = compile(PROGRAMS[name], execution=execution).run(g_cpu, starts,
+                                                            seed=1)
+    before = dict(LAUNCHES), FUSED_LAUNCHES["fused_superstep"]
+    got = compile(PROGRAMS[name], execution=execution).run(g, starts, seed=1)
+    assert torch.equal(got.paths.cpu(), want.paths)
+    assert torch.equal(got.lengths.cpu(), want.lengths)
+    assert all(int(a) == int(b) for a, b in zip(got.stats, want.stats))
+    assert dict(LAUNCHES) == before[0]
+    assert (FUSED_LAUNCHES["fused_superstep"] - before[1]
+            == int(got.stats.launches) < int(got.stats.supersteps))

@@ -86,6 +86,8 @@ def test_build_alias_tables_equal():
 @pytest.mark.parametrize("name,kw", [
     ("WG", {"weighted": True, "with_alias": True}),
     ("AS", {}),
+    ("WG", {"weighted": True, "with_alias": True, "num_edge_types": 3}),
+    ("WG", {"num_edge_types": 3}),
 ])
 def test_make_dataset_equal(name, kw):
     ref = ref_make_dataset(name, scale_override=9, **kw)

@@ -131,9 +131,12 @@ def test_cli_runs_on_cpu():
 def test_unported_paths_raise_not_implemented(graphs, starts, monkeypatch):
     _, pg = graphs
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-        walker.ExecutionConfig(step_impl="fused")
+        build_engine(SamplerSpec(kind="rejection_n2v"),
+                     EngineConfig(step_impl="fused"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         walker.ExecutionConfig(num_slots="auto")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        walker.ExecutionConfig(step_impl="fused", hops_per_launch="auto")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         walker.ExecutionConfig(cache_budget=1024)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
@@ -143,8 +146,7 @@ def test_unported_paths_raise_not_implemented(graphs, starts, monkeypatch):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             method(pg)
     for spec in (SamplerSpec(kind="rejection_n2v"),
-                 SamplerSpec(kind="reservoir_n2v"),
-                 SamplerSpec(kind="metapath", metapath=(0,))):
+                 SamplerSpec(kind="reservoir_n2v")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             build_engine(spec, EngineConfig())
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
