@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  Phases, in order; any failure raises and
-the script exits non-zero (no phase catches another's error):
+the script exits non-zero (no phase catches another's error).  Each prints
+its seconds.
 
 1. Build the CUDA kernels (walk_step, fused_superstep) from the checkout's
    sources with nvcc, one process each, started together; print the build
@@ -14,21 +15,27 @@ the script exits non-zero (no phase catches another's error):
    the main path's graph (lanes include dangling vertices, the max-degree
    hub and idle lanes), timed with CUDA events around CUDA-graph replays
    (median of 60 replays of 10 calls each: device time per call).  The
-   fused superstep kernel for URW, PPR, DeepWalk and MetaPath: one launch
-   of k = 16 through the kernel and through its plain version, on copies
-   of one state, must leave every state tensor equal.  The states: the
-   main path's batch one superstep in (W = 4096, every lane live and the
-   queue full, so every superstep refills), and the drain's tail at
-   W = 4096, 1000 and 12288 (live, idle and just-refilled lanes; plus PPR
-   in static mode with an injection delay).  The launch is timed with
-   CUDA events (median of 30, the state restored outside the timed
+   fused superstep kernel for URW, PPR, DeepWalk, MetaPath and Node2Vec
+   (rejection and reservoir): one launch of k = 16 (k = 4 for the
+   reservoir, whose plain launch is slow) through the kernel and through
+   its plain version, on copies of one state, must leave every state
+   tensor equal.  The states: the main path's batch one superstep in
+   (W = 4096, every lane live and the queue full, so every superstep
+   refills), the drain's tail at W = 4096, 1000 and 12288 (live, idle and
+   just-refilled lanes; plus PPR in static mode with an injection delay),
+   and for Node2Vec a tail state with lanes placed on the max-degree hub
+   (after a hop, and at hop 0) and on a vertex whose degree is not a
+   multiple of the reservoir chunk.  The launch is timed with CUDA events
+   (median of 30, 10 for Node2Vec, the state restored outside the timed
    region, host enqueue hidden behind a device sleep); the plain version
    and the bound from the main-path state.
 3. Drive the main path: ``compile(program).run(graph, starts)`` for URW,
    PPR and DeepWalk on the WG stand-in at its Table II size (scale 20,
    weighted, alias tables) under ``step_impl`` torch, cuda, fused, fused,
-   cuda, torch, and MetaPath (0, 1, 2) on the typed WG stand-in (scale 20,
-   3 edge types) under torch, fused, fused, torch; 65,536 starts, 4,096
+   cuda, torch; MetaPath (0, 1, 2) on the typed WG stand-in (scale 20,
+   3 edge types) and Node2Vec (p = 2, q = 0.5, K = 12) under torch, fused,
+   fused, torch; weighted Node2Vec (CH = 64) under fused, fused, and
+   torch on the first 1,024 starts at 16 hops; 65,536 starts, 4,096
    slots, 80 hops, 16 supersteps per fused launch.  Every run zeroes the
    kernels' launch counts before it and reads them after: the impls must
    agree bit for bit in paths, lengths and the 11 stats other than
@@ -65,11 +72,21 @@ MAX_HOPS = 80
 WG_SCALE = 20
 HOPS_PER_LAUNCH = 16
 METAPATH = (0, 1, 2)
+N2V = ("node2vec", "node2vec_w")  # the Node2Vec programs (p = 2, q = 0.5)
+N2V_TORCH_STARTS = 1_024         # node2vec_w's torch run: starts and slots,
+N2V_TORCH_HOPS = 16              # and hops (its plain scan is slow)
 KERNEL_WIDTHS = (4_096, 1_000)   # the main path's W, and a ragged W
 FUSED_WIDTHS = (4_096, 1_000, 12_288)
 TIMED_REPS = 60                  # graph replays timed per function
 GRAPH_CALLS = 10                 # calls captured per graph (600 timed)
 FUSED_TIMED_REPS = 30            # fused launches timed per version
+N2V_KERNEL_REPS = 10             # ... of the Node2Vec kinds (the plain
+                                 # version's time is its one checked launch)
+# Phase 2's supersteps per launch: 16, but 4 for node2vec_w, whose plain
+# launch of 16 from the main-path state took 60 s on an H100 (its plain
+# superstep scans every chunk of the live lanes' largest degree).
+PHASE2_K = {"node2vec_w": 4}
+PROFILE_SUPERSTEPS = 16          # per-hop impls: supersteps profiled
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 CUDA_CORE_OPS_PER_S = 67e12      # H100 SXM float32 outside tensor cores
 # int32 rate of the whole card: 132 SMs x 64 int32 lanes per SM per clock
@@ -77,11 +94,15 @@ CUDA_CORE_OPS_PER_S = 67e12      # H100 SXM float32 outside tensor cores
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 THREEFRY_OPS = 80                # int32 ops per Threefry-2x32 block
 LANE_OPS = 40                    # other int32 ops per live lane-superstep
+BISECT_OPS = 4                   # int32 ops per bisection halving
 SECTOR = 32                      # bytes the memory system moves per gather
 RUN_ORDER = {"urw": ("torch", "cuda", "fused", "fused", "cuda", "torch"),
              "ppr": ("torch", "cuda", "fused", "fused", "cuda", "torch"),
              "deepwalk": ("torch", "cuda", "fused", "fused", "cuda", "torch"),
-             "metapath": ("torch", "fused", "fused", "torch")}
+             "metapath": ("torch", "fused", "fused", "torch"),
+             "node2vec": ("torch", "fused", "fused", "torch"),
+             # plus a torch run of 1,024 starts at 16 hops (run_main_path)
+             "node2vec_w": ("fused", "fused")}
 
 KERNELS = {
     "walk_step_uniform": {
@@ -123,7 +144,10 @@ def programs():
     return {"urw": WalkProgram.urw(MAX_HOPS),
             "ppr": WalkProgram.ppr(0.15, MAX_HOPS),
             "deepwalk": WalkProgram.deepwalk(MAX_HOPS),
-            "metapath": WalkProgram.metapath(METAPATH, MAX_HOPS)}
+            "metapath": WalkProgram.metapath(METAPATH, MAX_HOPS),
+            "node2vec": WalkProgram.node2vec(2.0, 0.5, MAX_HOPS),
+            "node2vec_w": WalkProgram.node2vec(2.0, 0.5, MAX_HOPS,
+                                               weighted=True)}
 
 
 def kernel_inputs(g, width: int, seed: int):
@@ -313,24 +337,31 @@ def main_path_state(g, prog, cfg, key, starts_np):
     return ref.fused_superstep_ref(g, prog.spec, cfg, depth, state, key, 1), depth
 
 
-def fused_bound(prog, cfg, before, after):
+def fused_bound(prog, cfg, before, after, gather_work=None):
     """(bound ms, bound_by, int32 ops, bytes) of one fused launch, counted
     from what this launch's data needed: its live lane-supersteps,
-    advancing hops, terminations and refills."""
+    advancing hops, terminations and refills.  For a Node2Vec kind,
+    ``gather_work`` is :func:`n2v_work`'s (int32 ops, gather bytes) of the
+    launch, in place of the per-lane draws and gathers."""
     def d(field):
         return int(getattr(after.stats, field)) - int(getattr(before.stats,
                                                               field))
     from repro_torch.kernels.fused_superstep import ops
     live = d("slot_steps") - d("bubbles")
     refills = int(after.queue.head) - int(before.queue.head)
-    # Threefry blocks per live lane: 2 fold query id and hop (epoch 0
-    # throughout a closed batch), shared by the draws; each draw then folds
-    # its salt and runs its block.  PPR draws twice.
-    blocks = 2 + 2 * (2 if prog.spec.stop_prob > 0 else 1)
-    ops_count = live * (blocks * THREEFRY_OPS + LANE_OPS)
-    gather = {"uniform": 12, "alias": 20, "metapath": 24}[prog.spec.kind]
+    if gather_work is None:
+        # Threefry blocks per live lane: 2 fold query id and hop (epoch 0
+        # throughout a closed batch), shared by the draws; each draw then
+        # folds its salt and runs its block.  PPR draws twice.
+        blocks = 2 + 2 * (2 if prog.spec.stop_prob > 0 else 1)
+        ops_count = live * (blocks * THREEFRY_OPS + LANE_OPS)
+        gather = {"uniform": 12, "alias": 20, "metapath": 24}[prog.spec.kind]
+        gather_bytes = live * gather           # row_ptr pair, column, probes
+    else:
+        ops_count, gather_bytes = gather_work
+        ops_count += live * LANE_OPS
     nbytes = (2 * cfg.num_slots * 21           # lane state in and out
-              + live * gather                  # row_ptr pair, column, probes
+              + gather_bytes
               + d("steps") * 8                 # path record + length
               + d("terminations")              # done bytes
               + refills * 20                   # order/start/epoch, path, length
@@ -339,6 +370,147 @@ def fused_bound(prog, cfg, before, after):
     t_ops = ops_count / INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             ops_count, nbytes)
+
+
+def bisect_trace(g, vp, y):
+    """(probe offsets, halvings) of ``samplers.edge_exists``'s bisection of
+    each ``y`` in N(``vp``) (``vp >= 0``): every halving with lo < hi reads
+    col[mid], and the membership test reads col[lo] where lo < hi0."""
+    import torch
+
+    from repro_torch.core.samplers import bisect_iters
+    lo = g.row_ptr[vp.long()]
+    hi0 = g.row_ptr[vp.long() + 1]
+    hi, probes, steps = hi0, [], 0
+    for _ in range(bisect_iters(g.max_degree)):
+        active = lo < hi
+        n = int(active.sum())
+        if n == 0:
+            break
+        steps += n
+        mid = (lo + hi) // 2
+        probes.append(mid[active])
+        go = g.col[mid.clamp(0, g.num_edges - 1).long()] < y
+        lo = torch.where(active & go, mid + 1, lo)
+        hi = torch.where(active & ~go, mid, hi)
+    probes.append(lo[lo < hi0])
+    return torch.cat(probes), steps
+
+
+def n2v_work(g, spec, key, slots_seq):
+    """(int32 ops, gather bytes) that one launch of a Node2Vec kind needs,
+    from the slots at the start of each of its supersteps: the live lanes
+    with a neighbor to take.  Ops: 80 per Threefry block (2 fold query id
+    and hop, one folds each salt; rejection: one block per round up to the
+    first accept; reservoir: one per pair of candidates) and BISECT_OPS
+    per bisection halving (rejection: each round before the last, where
+    v_prev >= 0 and the candidate is not v_prev; reservoir: every
+    candidate, where v_prev >= 0).  Bytes: the distinct 32-byte sectors of
+    row_ptr (v_curr's and v_prev's pairs), col (proposals or candidates,
+    probes, membership reads) and weights (the reservoir's candidates)
+    that the launch touches."""
+    import torch
+
+    from repro_torch.core import rng
+    from repro_torch.core.rng import SALT_COLUMN
+    from repro_torch.core.samplers import (_uniform_index, n2v_bias,
+                                           rejection_choose)
+    from repro_torch.graph.csr import row_access
+    ops_count = 0
+    touched = {"row_ptr": [], "col": [], "weights": []}
+    for s in slots_seq:
+        addr, deg = row_access(g, s.v_curr)
+        run = s.active.bool() & (deg > 0)
+        addr, deg, vp = addr[run], deg[run], s.v_prev[run]
+        vc = s.v_curr[run]
+        touched["row_ptr"] += [vc, vc + 1, vp[vp >= 0], vp[vp >= 0] + 1]
+        lanes = int(run.sum())
+        if spec.kind == "rejection_n2v":
+            K = spec.rejection_rounds
+            u = rng.task_uniforms(key, s.query_id[run], s.hop[run], 2 * K,
+                                  SALT_COLUMN, epoch=s.epoch[run])
+            idx = _uniform_index(deg[:, None], u[:, :K])
+            e = torch.clamp(addr[:, None] + idx, 0, g.num_edges - 1)
+            cand = g.col[e.long()]
+            first = rejection_choose(spec, u[:, K:],
+                                     n2v_bias(spec, g, vp, cand))
+            j = torch.arange(K, device=cand.device)[None, :]
+            used = j <= first[:, None]
+            touched["col"].append(e[used])
+            need = used & (j < K - 1) & (vp[:, None] >= 0) & (
+                cand != vp[:, None])
+            blocks = 3 * lanes + int(used.sum())
+            vp_b, y_b = vp[:, None].expand_as(cand)[need], cand[need]
+        else:
+            CH = spec.reservoir_chunk
+            pairs = (CH + 1) // 2
+            n_chunks = (deg + CH - 1) // CH
+            last = deg - (n_chunks - 1) * CH
+            blocks = (2 * lanes + int(n_chunks.sum())
+                      + int(((n_chunks - 1) * pairs
+                             + torch.clamp(last, max=pairs)).sum()))
+            lane = torch.repeat_interleave(
+                torch.arange(lanes, device=deg.device), deg.long())
+            start = torch.cumsum(deg, 0) - deg
+            pos = torch.arange(lane.numel(), device=deg.device) - start[lane]
+            e = addr[lane] + pos
+            touched["col"].append(e)
+            touched["weights"].append(e)
+            need = vp[lane] >= 0
+            vp_b, y_b = vp[lane][need], g.col[e[need].long()]
+        probes, steps = bisect_trace(g, vp_b, y_b)
+        touched["col"].append(probes)
+        ops_count += blocks * THREEFRY_OPS + steps * BISECT_OPS
+    sectors = 0
+    for name, words in touched.items():
+        if words and (name != "weights" or g.weights is not None):
+            word = torch.cat([w.reshape(-1).long() for w in words])
+            sectors += int(torch.unique(word * 4 // SECTOR).numel())
+    return ops_count, SECTOR * sectors
+
+
+def busiest_thread(g, W, slots_seq):
+    """(mean, max) over a launch's supersteps of the candidates that the
+    kernel's busiest thread scans in one superstep: thread t owns lanes
+    [t * per, (t + 1) * per) of the W, and scans the whole neighbor list
+    of each live lane it owns (the reservoir's work per lane-superstep)."""
+    import torch
+
+    from repro_torch.graph.csr import row_access
+    threads = min(1024, (W + 31) // 32 * 32)
+    per = -(-W // threads)
+    loads = []
+    for s in slots_seq:
+        deg = torch.where(s.active.bool(), row_access(g, s.v_curr)[1], 0)
+        deg = torch.nn.functional.pad(deg, (0, threads * per - W))
+        loads.append(int(deg.view(threads, per).sum(1).max()))
+    return float(np.mean(loads)), max(loads)
+
+
+def hub_state(g, state, chunk):
+    """Place the first three live lanes of ``state`` (in place): on the
+    max-degree hub after a hop from one of its in-neighbors, on the hub at
+    hop 0, and on a vertex of degree above ``chunk`` and not a multiple of
+    it, after a hop from an in-neighbor."""
+    import torch
+    deg = g.row_ptr[1:] - g.row_ptr[:-1]
+    hub = int(torch.argmax(deg))
+    ragged = (deg > chunk) & (deg % chunk != 0)
+    ragged[hub] = False
+    ragged = int(torch.nonzero(ragged)[0])
+
+    def in_neighbor(v):
+        """A vertex other than v with an edge to v."""
+        rows = torch.searchsorted(g.row_ptr, torch.nonzero(g.col == v)[:, 0],
+                                  right=True) - 1
+        return int(rows[rows != v][0])
+    s = state.slots
+    lanes = torch.nonzero(s.active)[:3, 0].tolist()
+    for lane, (v, vp, hop) in zip(lanes, ((hub, in_neighbor(hub), 3),
+                                          (hub, -1, 0),
+                                          (ragged, in_neighbor(ragged), 2))):
+        s.v_curr[lane], s.v_prev[lane], s.hop[lane] = v, vp, hop
+    return [(hub, int(deg[hub])), (ragged, int(deg[ragged]))]
 
 
 def time_fused(launch, pristine, device_only, reps=FUSED_TIMED_REPS) -> float:
@@ -372,13 +544,32 @@ def time_fused(launch, pristine, device_only, reps=FUSED_TIMED_REPS) -> float:
     return float(np.median(samples[2:]))
 
 
+def launch_slots(kernel, pristine, k):
+    """The slots at the start of each superstep of one k-superstep launch
+    from ``pristine``, replayed as k one-superstep kernel launches (which
+    phase 2 has just held equal to the plain version)."""
+    from repro_torch.kernels.fused_superstep import ops
+    work, block = ops.pack(clone_state(pristine))
+    seq = []
+    for _ in range(k):
+        if not ops.progress(block)[0]:
+            break
+        seq.append(clone_state(work.slots))
+        kernel(work, block, 1)
+    return seq
+
+
 def check_fused(graphs, starts_np) -> dict:
-    """Phase 2, fused: one k = 16 launch of the kernel equals its plain
-    version in every state tensor, per program, from two kinds of state:
+    """Phase 2, fused: one launch of the kernel (k = 16; ``PHASE2_K`` for
+    node2vec_w) equals its plain version in every state tensor, per
+    program, from three kinds of state:
     the main path's batch one superstep in (W = 4,096, the queue full:
     timed against the plain version and the bound; PPR's is the JSON
-    row), and the drain's tail (W = 4,096, 1,000 and 12,288, plus PPR in
-    static mode with a delay; the kernel timed, to show its scaling)."""
+    row, every program's in its ``per_kind``), the drain's tail (W =
+    4,096, 1,000 and 12,288, plus PPR in static mode with a delay; the
+    kernel timed, to show its scaling), and for the Node2Vec kinds a tail
+    state whose first live lanes sit on the max-degree hub (after a hop,
+    and at hop 0) and on a vertex of degree not a multiple of the chunk."""
     import torch
 
     from repro_torch.core.rng import stream_key
@@ -388,32 +579,43 @@ def check_fused(graphs, starts_np) -> dict:
     cases += [(name, W, "zero_bubble", 0, "tail") for name in graphs
               for W in FUSED_WIDTHS]
     cases.append(("ppr", 1_000, "static", 2, "tail"))
-    max_err, row = 0, None
+    cases += [(name, NUM_SLOTS, "zero_bubble", 0, "hub") for name in N2V]
+    max_err, row, per_kind = 0, None, {}
     for name, W, mode, delay, where in cases:
+        t_case = time.perf_counter()
         prog, g = programs()[name], graphs[name]
+        K = PHASE2_K.get(name, HOPS_PER_LAUNCH)
         cfg = EngineConfig(num_slots=W, max_hops=MAX_HOPS, mode=mode,
                            injection_delay=delay, step_impl="fused",
                            hops_per_launch=HOPS_PER_LAUNCH)
+        placed = ""
         if where == "main":
             key = tuple(int(k) for k in stream_key(0))   # the main path's
             state, depth = main_path_state(g, prog, cfg, key, starts_np)
         else:
             key = tuple(int(k) for k in stream_key(7))
             state, depth = mid_drain_state(g, prog, cfg, key, seed=W)
+        if where == "hub":
+            placed = (" (lanes placed on (vertex, degree) "
+                      f"{hub_state(g, state, prog.spec.reservoir_chunk)})")
         live = int(state.slots.active.sum())
         fresh = int((state.slots.active & (state.slots.hop == 0)).sum())
-        if not (0 < live < W if where == "tail" else live == W):
+        if not (live == W if where == "main" else 0 < live < W):
             raise AssertionError(f"fused {name} W={W} {where}: the state "
                                  f"has {live} live lanes of {W}")
 
-        def plain(st, prog=prog, g=g, cfg=cfg, depth=depth, key=key):
+        def plain(st, prog=prog, g=g, cfg=cfg, depth=depth, key=key, k=K):
             return ref.fused_superstep_ref(g, prog.spec, cfg, depth, st, key,
-                                           HOPS_PER_LAUNCH)
+                                           k)
 
-        def kernel(st, block, prog=prog, g=g, cfg=cfg, depth=depth, key=key):
-            return ops.fused_superstep(g, prog.spec, cfg, depth, st, key,
-                                       HOPS_PER_LAUNCH, block)
+        def kernel(st, block, k=K, prog=prog, g=g, cfg=cfg, depth=depth,
+                   key=key):
+            return ops.fused_superstep(g, prog.spec, cfg, depth, st, key, k,
+                                       block)
+        t0 = time.perf_counter()
         want = plain(clone_state(state))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
         work, block = ops.pack(clone_state(state))
         n0 = LAUNCHES["fused_superstep"]
         got = kernel(work, block)
@@ -431,60 +633,77 @@ def check_fused(graphs, starts_np) -> dict:
         ran = int(got.stats.supersteps) - int(state.stats.supersteps)
         idle = int(got.stats.bubbles) - int(state.stats.bubbles)
         refills = int(got.queue.head) - int(state.queue.head)
-        if where == "main" and (idle != 0 or ran != HOPS_PER_LAUNCH
+        if where == "main" and (idle != 0 or ran != K
                                 or int(got.queue.head) >= int(got.queue.tail)):
             raise AssertionError(f"fused {name}: the main-path launch was not "
                                  f"full ({idle} idle lane-supersteps)")
         print(f"fused_superstep {name} W={W} mode={mode} delay={delay} "
-              f"{where}: bit-equal to the plain version in every state "
-              f"tensor (tolerance 0: integer state) over {ran} supersteps "
-              f"from {live} live / {W - live} idle / {fresh} just-refilled "
-              f"lanes; {refills} refills, {idle} idle lane-supersteps")
-        if mode != "zero_bubble":
-            continue
-        ms = time_fused(kernel, state, device_only=True)
-        if where == "tail":    # the kernel's scaling with W; no plain time
-            print(f"fused_superstep {name} W={W} k={HOPS_PER_LAUNCH} tail: "
-                  f"kernel {ms:.6f} ms/launch ({ms / max(ran, 1) * 1e3:.3f} "
-                  f"us per superstep)")
-            continue
-        plain_ms = time_fused(plain, state, device_only=False)
-        bound_ms, bound_by, n_ops, nbytes = fused_bound(prog, cfg, state, got)
-        print(f"fused_superstep {name} W={W} k={HOPS_PER_LAUNCH} main: kernel "
-              f"{ms:.6f} ms/launch ({ms / max(ran, 1) * 1e3:.3f} us per "
-              f"superstep), plain {plain_ms:.6f} ms, bound {bound_ms:.6f} ms "
-              f"by {bound_by} ({n_ops} int32 ops at "
-              f"{INT32_OPS_PER_S / 1e12:.2f} Tops/s, {nbytes} bytes at "
-              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
-        if name == FUSED_TIMED:
-            row = {"name": "fused_superstep", "route": "cuda",
-                   "source": FUSED_SOURCE, "replaces": FUSED_REPLACES,
-                   "launches": None, "max_abs_err": None, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": None}
+              f"{where}{placed}: bit-equal to the plain version in every "
+              f"state tensor (tolerance 0: integer state) over {ran} "
+              f"supersteps from {live} live / {W - live} idle / {fresh} "
+              f"just-refilled lanes; {refills} refills, {idle} idle "
+              f"lane-supersteps; plain launch {plain_s:.2f} s")
+        n2v = name in N2V
+        if mode == "zero_bubble":
+            ms = time_fused(kernel, state, device_only=True,
+                            reps=N2V_KERNEL_REPS if n2v else FUSED_TIMED_REPS)
+            seq = launch_slots(kernel, state, K) if n2v else None
+            if name == "node2vec_w":
+                mean, top = busiest_thread(g, W, seq)
+                print(f"fused_superstep {name} W={W} {where}: the busiest "
+                      f"thread scans {mean:.0f} candidates a superstep "
+                      f"(mean over the launch, most {top}): "
+                      f"{ms / len(seq) / mean * 1e6:.1f} ns per candidate")
+            if where == "main":
+                plain_ms = (plain_s * 1e3 if n2v else
+                            time_fused(plain, state, device_only=False))
+                gather_work = n2v_work(g, prog.spec, key, seq) if n2v else None
+                bound_ms, bound_by, n_ops, nbytes = fused_bound(
+                    prog, cfg, state, got, gather_work)
+                print(f"fused_superstep {name} W={W} k={K} "
+                      f"main: kernel {ms:.6f} ms/launch "
+                      f"({ms / max(ran, 1) * 1e3:.3f} us per superstep), "
+                      f"plain {plain_ms:.6f} ms, bound {bound_ms:.6f} ms by "
+                      f"{bound_by} ({n_ops} int32 ops at "
+                      f"{INT32_OPS_PER_S / 1e12:.2f} Tops/s, {nbytes} bytes "
+                      f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+                per_kind[name] = {"k": K, "ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": bound_ms, "bound_by": bound_by}
+                if name == FUSED_TIMED:
+                    row = {"name": "fused_superstep", "route": "cuda",
+                           "source": FUSED_SOURCE, "replaces": FUSED_REPLACES,
+                           "launches": None, "max_abs_err": None, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "library_ms": None}
+            else:    # the kernel's scaling with W; no plain time
+                print(f"fused_superstep {name} W={W} k={K} "
+                      f"{where}: kernel {ms:.6f} ms/launch "
+                      f"({ms / max(ran, 1) * 1e3:.3f} us per superstep)")
+        print(f"  case time {time.perf_counter() - t_case:.1f} s")
     row["max_abs_err"] = max_err
+    row["per_kind"] = per_kind
     return row
 
 
-def check_paths(g, starts, res, schedule=None) -> None:
+def check_paths(g, starts, res, schedule=None, max_hops=MAX_HOPS) -> None:
     """Every recorded walk starts at its start vertex and every recorded hop
     is an edge of the graph (with ``schedule``: of the type scheduled for
     that hop); lengths and steps agree."""
     import torch
     paths, lengths = res.paths, res.lengths
     q = paths.shape[0]
-    if paths.shape != (q, MAX_HOPS + 1) or lengths.shape != (q,):
+    if paths.shape != (q, max_hops + 1) or lengths.shape != (q,):
         raise AssertionError(f"result shapes {tuple(paths.shape)}, "
                              f"{tuple(lengths.shape)}")
     if not torch.equal(paths[:, 0], starts):
         raise AssertionError("paths do not begin at their start vertices")
-    if int(lengths.min()) < 1 or int(lengths.max()) > MAX_HOPS + 1:
+    if int(lengths.min()) < 1 or int(lengths.max()) > max_hops + 1:
         raise AssertionError("lengths out of [1, max_hops + 1]")
     if int(res.stats.steps) != int((lengths - 1).sum()):
         raise AssertionError("stats.steps != recorded hops")
     if int(res.stats.terminations) != q:
         raise AssertionError("not every query terminated")
-    t = torch.arange(MAX_HOPS, device=paths.device)
+    t = torch.arange(max_hops, device=paths.device)
     hop = t[None, :] < (lengths[:, None] - 1)
     src, dst = paths[:, :-1][hop].long(), paths[:, 1:][hop].long()
     n = g.num_vertices
@@ -519,9 +738,10 @@ def same_walks(a, b) -> bool:
 
 def run_main_path(graphs, starts_np) -> dict:
     """Phase 3: each program under each of its impls, in turns, through
-    the Walker.  Every run zeroes the launch counts just before it and
-    reads them just after; returns each kernel's launches summed over the
-    runs of its path."""
+    the Walker, and node2vec_w's reduced torch run (:func:`run_n2vw_torch`).
+    Every run zeroes the launch counts just before it and reads them just
+    after; returns each kernel's launches summed over the runs of its
+    path."""
     import torch
 
     from repro_torch.core.scheduler import analyze_run
@@ -533,6 +753,7 @@ def run_main_path(graphs, starts_np) -> dict:
     totals = {**step_ops.LAUNCHES, **fused_ops.LAUNCHES}
     totals = {k: 0 for k in totals}
     for name, prog in programs().items():
+        t_prog = time.perf_counter()
         g = graphs[name]
         starts = torch.from_numpy(starts_np).to(g.device)
         walkers = {impl: compile(prog, execution=ExecutionConfig(
@@ -582,19 +803,69 @@ def run_main_path(graphs, starts_np) -> dict:
                   f"wall_s={wall:.4f} kernel_launches={launched}")
         for impl, res in zip(RUN_ORDER[name][1:], results[1:]):
             if not same_walks(results[0], res):
-                raise AssertionError(f"{name}: {impl} differs from torch")
+                raise AssertionError(f"{name}: {impl} differs from "
+                                     f"{RUN_ORDER[name][0]}")
         print(f"main {name}: {' == '.join(dict.fromkeys(RUN_ORDER[name]))} "
               f"in paths, lengths and the {len(res.stats) - 1} stats other "
               f"than launches")
+        if name == "node2vec_w":
+            run_n2vw_torch(g, starts, results[0])
+        print(f"  {name} time {time.perf_counter() - t_prog:.1f} s")
     return totals
+
+
+def run_n2vw_torch(g, starts, fused):
+    """node2vec_w's torch run, cut to the first 1,024 starts at 1,024 slots
+    and 16 hops (its plain scan repeats the chunk loop's tensor ops for
+    every chunk of the live lanes' largest degree): paths and lengths
+    equal the full fused run's first 1,024 rows cut to 17 columns, since a
+    walk is a function of (seed, query id, hop) alone."""
+    import torch
+
+    from repro_torch.core.scheduler import analyze_run
+    from repro_torch.kernels.fused_superstep import ops as fused_ops
+    from repro_torch.kernels.walk_step import ops as step_ops
+    from repro_torch.walker import ExecutionConfig, WalkProgram, compile
+    prog = WalkProgram.node2vec(2.0, 0.5, N2V_TORCH_HOPS, weighted=True)
+    w = compile(prog, execution=ExecutionConfig(
+        num_slots=N2V_TORCH_STARTS, record_paths=True, step_impl="torch"))
+    sv = starts[:N2V_TORCH_STARTS]
+    step_ops.reset_launches()
+    fused_ops.reset_launches()
+    t0 = time.perf_counter()
+    res = w.run(g, sv, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {**step_ops.LAUNCHES, **fused_ops.LAUNCHES}
+    if any(launched.values()):
+        raise AssertionError(f"node2vec_w/torch launched kernels {launched}")
+    check_paths(g, sv, res, max_hops=N2V_TORCH_HOPS)
+    cols = N2V_TORCH_HOPS + 1
+    if not (torch.equal(res.paths, fused.paths[:N2V_TORCH_STARTS, :cols])
+            and torch.equal(res.lengths, torch.clamp(
+                fused.lengths[:N2V_TORCH_STARTS], max=cols))):
+        raise AssertionError("node2vec_w: torch (1,024 starts, 16 hops) "
+                             "differs from the fused run's first rows")
+    a = analyze_run(res.stats, wall)
+    print(f"main node2vec_w step_impl=torch starts={N2V_TORCH_STARTS} "
+          f"slots={N2V_TORCH_STARTS} hops={N2V_TORCH_HOPS}: "
+          f"walks/s={N2V_TORCH_STARTS / wall:.1f} "
+          f"MSteps/s={a.msteps_per_s:.4f} supersteps={a.supersteps} "
+          f"steps={a.steps} wall_ms_per_superstep="
+          f"{wall / a.supersteps * 1e3:.4f} wall_s={wall:.4f}; paths and "
+          f"lengths == the fused run's first {N2V_TORCH_STARTS} rows cut to "
+          f"{cols} columns")
 
 
 def profile_supersteps(graphs, starts_np) -> None:
     """Where the time goes: ``torch.profiler`` over a one-batch run of each
-    program under each step impl — device busy time (the sum of the device
-    activities' times) against the run's wall time, device launches per
-    superstep, and the top kernels.  The profiler's own overhead inflates
-    the wall time, so the busy share printed is a lower bound."""
+    program under each step impl (the per-hop impls' first 16 supersteps
+    only: with their ~1,000 device launches per superstep, whole batches
+    made this phase take about 7 minutes on an H100) — device busy time
+    (the sum of the device activities' times) against the run's wall time,
+    device launches per superstep, and the top kernels.  The profiler's
+    own overhead inflates the wall time, so the busy share printed is a
+    lower bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -604,9 +875,11 @@ def profile_supersteps(graphs, starts_np) -> None:
         g = graphs[name]
         starts = torch.from_numpy(starts_np[:NUM_SLOTS]).to(g.device)
         for impl in dict.fromkeys(RUN_ORDER[name]):
+            cap = {} if impl == "fused" else {
+                "max_supersteps": PROFILE_SUPERSTEPS}
             w = compile(prog, execution=ExecutionConfig(
                 num_slots=NUM_SLOTS, step_impl=impl,
-                hops_per_launch=HOPS_PER_LAUNCH))
+                hops_per_launch=HOPS_PER_LAUNCH, **cap))
             w.run(g, starts[:NUM_SLOTS // 4], seed=0)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
@@ -661,21 +934,28 @@ def check_small_against_cpu() -> None:
                                          injection_delay=2),
                 "fused no paths": dict(step_impl="fused", record_paths=False)}
     for prog in (WalkProgram.urw(16), WalkProgram.ppr(0.15, 16),
-                 WalkProgram.deepwalk(16), WalkProgram.metapath(METAPATH, 16)):
+                 WalkProgram.deepwalk(16), WalkProgram.metapath(METAPATH, 16),
+                 WalkProgram.node2vec(2.0, 0.5, 16),
+                 WalkProgram.node2vec(2.0, 0.5, 16, weighted=True)):
         for label, knobs in variants.items():
             def run(dev, knobs=knobs, prog=prog):
                 return compile(prog, execution=ExecutionConfig(
                     num_slots=64, hops_per_launch=4, **knobs)).run(
                     graphs[dev], starts, seed=3)
             want, got = run("cpu"), run("cuda")
-            if not (torch.equal(want.paths, got.paths.cpu())
-                    and torch.equal(want.lengths, got.lengths.cpu())
-                    and all(int(x) == int(y)
-                            for x, y in zip(want.stats, got.stats))):
-                raise AssertionError(f"{prog.name}/{label}: card differs "
-                                     "from the CPU")
+            rows = torch.nonzero((want.paths != got.paths.cpu()).any(1)
+                                 | (want.lengths != got.lengths.cpu()))
+            if len(rows) or not all(int(x) == int(y)
+                                    for x, y in zip(want.stats, got.stats)):
+                q = int(rows[0]) if len(rows) else None
+                raise AssertionError(
+                    f"{prog.name}/{label}: card differs from the CPU"
+                    + (f" first at query {q}: CPU {want.paths[q].tolist()}, "
+                       f"card {got.paths[q].tolist()}" if q is not None
+                       else " in the stats"))
     print("small batch: card == CPU in paths, lengths and all 12 stats for "
-          f"urw, ppr, deepwalk, metapath x {{{', '.join(variants)}}}")
+          "urw, ppr, deepwalk, metapath, node2vec, node2vec_w x "
+          f"{{{', '.join(variants)}}}")
 
 
 def main() -> int:
@@ -695,7 +975,7 @@ def main() -> int:
     from repro_torch.kernels import build
 
     # Phase 1: build.
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     secs = build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s {secs}")
     for lib in build.SOURCES:
@@ -712,20 +992,35 @@ def main() -> int:
           f"|E|={g.num_edges} max_deg={g.max_degree}; typed (3 edge types): "
           f"|E|={gt.num_edges} max_deg={gt.max_degree}; built in "
           f"{time.perf_counter() - t0:.1f} s")
-    graphs = {"urw": g, "ppr": g, "deepwalk": g, "metapath": gt}
+    deg = (g.row_ptr[1:] - g.row_ptr[:-1]).double()
+    hubs, dangling = deg > 5_000, float((deg == 0).double().mean())
+    print(f"WG degrees: dangling share {dangling:.4f}, "
+          f"E[d^2]/E[d] {float((deg * deg).sum() / deg.sum()):.1f} (the "
+          f"mean degree of a walk's next vertex), {int(hubs.sum())} vertices "
+          f"above degree 5,000 holding "
+          f"{float(deg[hubs].sum() / deg.sum()):.4f} of the edges")
+    graphs = {"urw": g, "ppr": g, "deepwalk": g, "metapath": gt,
+              "node2vec": g, "node2vec_w": g}
 
     starts = np.random.default_rng(0).integers(
         0, g.num_vertices, NUM_STARTS).astype(np.int32)
-    rows = check_kernels(g)                                  # phase 2
-    rows["fused_superstep"] = check_fused(graphs, starts)
-    launches = run_main_path(graphs, starts)                 # phase 3
-    profile_supersteps(graphs, starts)
-    check_small_against_cpu()
+
+    def phase(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {label}: {time.perf_counter() - t:.1f} s")
+        return out
+    rows = phase("2 walk_step", check_kernels, g)
+    rows["fused_superstep"] = phase("2 fused", check_fused, graphs, starts)
+    launches = phase("3 main path", run_main_path, graphs, starts)
+    phase("3 profile", profile_supersteps, graphs, starts)
+    phase("3 small batch vs CPU", check_small_against_cpu)
     for name, row in rows.items():
         row["launches"] = launches[name]
         if row["launches"] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
 
+    print(f"total: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """The paper's walk workloads: GRW algorithms × graph datasets (Table II /
-§VIII-A4), for the algorithms this package runs."""
+§VIII-A4)."""
 from repro_torch.core.samplers import SamplerSpec
 from repro_torch.core.walk_engine import EngineConfig
 
@@ -7,6 +7,8 @@ ALGORITHMS = {
     "urw": SamplerSpec(kind="uniform"),
     "ppr": SamplerSpec(kind="uniform", stop_prob=0.15),
     "deepwalk": SamplerSpec(kind="alias"),
+    "node2vec": SamplerSpec(kind="rejection_n2v", p=2.0, q=0.5),
+    "node2vec_w": SamplerSpec(kind="reservoir_n2v", p=2.0, q=0.5),
 }
 QUERY_LENGTH = 80          # paper §VIII-A4
 ENGINE = EngineConfig(num_slots=4096, max_hops=QUERY_LENGTH,

@@ -6,9 +6,8 @@ A :class:`SamplerSpec` lowers once (:func:`lower`) into a
 (``draw`` / ``gather`` / ``score`` / ``commit``) with explicit operand
 residency (owner of ``v_curr`` or of ``v_prev``).  The lowering is pure
 data and covers every sampler kind; :func:`make_sampler` executes a
-program over one superstep's lane pool.  The uniform, alias and metapath
-(typed gather) executors are ported; the kinds that need the rejection
-score or the reservoir loop raise until theirs are.
+program over one superstep's lane pool: the loop-free programs phase by
+phase, the looping reservoir program through :func:`reservoir_scan`.
 
 Phase vocabulary
 ----------------
@@ -34,9 +33,13 @@ import torch
 
 from repro_torch.core import rng as task_rng
 from repro_torch.core.rng import SALT_CHUNK0, SALT_COLUMN
-from repro_torch.core.samplers import SamplerSpec, _uniform_index
+from repro_torch.core.samplers import (SamplerSpec, _uniform_index,
+                                       es_chunk_score, es_merge,
+                                       es_num_chunks, n2v_bias,
+                                       rejection_choose)
 
-__all__ = ["Phase", "PhaseProgram", "lower", "make_sampler"]
+__all__ = ["Phase", "PhaseProgram", "lower", "make_sampler",
+           "reservoir_scan", "chunk_gather"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,13 +132,15 @@ class _Ctx:
     """Mutable interpretation state threaded through one hop's phases."""
 
     __slots__ = ("spec", "g", "addr", "deg", "slots", "base_key", "u",
-                 "seg_base", "seg_cnt", "index", "ok")
+                 "cand_idx", "cand", "seg_base", "seg_cnt", "index", "ok")
 
     def __init__(self, spec, g, addr, deg, slots, base_key):
         self.spec, self.g = spec, g
         self.addr, self.deg = addr, deg
         self.slots, self.base_key = slots, base_key
         self.u = None
+        self.cand_idx = None     # (W, K) neighbor offsets
+        self.cand = None         # (W, K) candidate vertices
         self.seg_base = None     # typed sub-segment base offset
         self.seg_cnt = None      # typed sub-segment length
         self.index = None        # chosen neighbor offset
@@ -165,6 +170,18 @@ def _exec_gather_typed(ph: Phase, ctx: _Ctx):
     ctx.seg_cnt = g.type_offsets[row, t + 1] - base
 
 
+def _exec_gather_csr(ph: Phase, ctx: _Ctx):
+    """K proposal columns from N(v_curr) (rejection sampling phase A).  A
+    graph with no edges has no column to read: every candidate is -1."""
+    K, g = ph.width, ctx.g
+    ctx.cand_idx = _uniform_index(ctx.deg[:, None], ctx.u[:, :K])
+    if g.num_edges == 0:
+        ctx.cand = torch.full_like(ctx.cand_idx, -1)
+        return
+    e = torch.clamp(ctx.addr[:, None] + ctx.cand_idx, 0, g.num_edges - 1)
+    ctx.cand = g.col[e.long()]
+
+
 def _exec_score_pick_uniform(ph: Phase, ctx: _Ctx):
     """index = min(floor(u·n), n-1) over the CSR segment or, when a typed
     gather ran, over the scheduled sub-segment (no match → dead lane)."""
@@ -192,6 +209,16 @@ def _exec_score_alias_accept(ph: Phase, ctx: _Ctx):
                               torch.clamp(ctx.deg - 1, min=0))
 
 
+def _exec_score_first_accept(ph: Phase, ctx: _Ctx):
+    """Bounded-round rejection: the first proposal whose (p, q) bias
+    survives the accept test wins; the last round is forced."""
+    K = ph.width
+    w = n2v_bias(ctx.spec, ctx.g, ctx.slots.v_prev, ctx.cand)
+    first = rejection_choose(ctx.spec, ctx.u[:, K:], w)
+    ctx.index = ctx.cand_idx.gather(1, first[:, None])[:, 0]
+    ctx.ok = ctx.deg > 0
+
+
 def _exec_commit(ph: Phase, ctx: _Ctx):
     pass  # column access + hop advance are engine-owned
 
@@ -200,26 +227,74 @@ _EXEC = {
     ("draw", ""): _exec_draw,
     ("gather", "alias"): _exec_gather_alias,
     ("gather", "typed"): _exec_gather_typed,
+    ("gather", "csr"): _exec_gather_csr,
     ("score", "pick_uniform"): _exec_score_pick_uniform,
     ("score", "alias_accept"): _exec_score_alias_accept,
+    ("score", "first_accept"): _exec_score_first_accept,
     ("commit", ""): _exec_commit,
 }
+
+
+def reservoir_scan(spec: SamplerSpec, g, addr, deg, slots, base_key):
+    """The looping (draw, gather-chunk, score-chunk) program: the whole
+    Efraimidis–Spirakis reservoir scan of N(v_curr), one chunk of
+    ``reservoir_chunk`` candidates per trip, keeping the largest key
+    ``log(u)/w'`` over the bias-scaled weights w' (weighted Node2Vec).
+
+    Degree-adaptive scan (``spec.adaptive_chunks`` True, or "auto", which
+    the reference's engine also treats as true without a tuner): the loop
+    runs ``ceil(max(live deg)/chunk)`` trips, read on the host once per
+    superstep, instead of ``ceil(max_degree/chunk)``.  Chunks past a
+    lane's degree contribute only -inf keys, so paths are the same
+    either way."""
+    CH = spec.reservoir_chunk
+    n_chunks = es_num_chunks(g.max_degree, CH)
+    W = addr.shape[0]
+    if spec.adaptive_chunks:
+        live_deg = int(torch.where(slots.active, deg, 0).max())
+        n_chunks = min(max(-(-live_deg // CH), 1), n_chunks)
+    best_key = torch.full((W,), -torch.inf, device=addr.device)
+    best_idx = torch.zeros((W,), dtype=torch.int32, device=addr.device)
+    for c in range(n_chunks):
+        u = task_rng.task_uniforms(base_key, slots.query_id, slots.hop, CH,
+                                   SALT_CHUNK0 + c, epoch=slots.epoch)
+        y, w_edge = chunk_gather(g, addr, deg, torch.full_like(addr, c), CH)
+        w = w_edge * n2v_bias(spec, g, slots.v_prev, y)
+        c_best, c_key = es_chunk_score(u, y >= 0, w)
+        best_key, best_idx = es_merge(best_key, best_idx, c, CH, c_best,
+                                      c_key)
+    index = torch.minimum(torch.clamp(best_idx, min=0),
+                          torch.clamp(deg - 1, min=0))
+    return index, deg > 0
+
+
+def chunk_gather(g, addr, deg, chunk, width):
+    """Chunk ``chunk`` (per lane) of (candidate vertex, edge weight) from
+    the CSR segment at ``addr``; positions past the lane's degree carry
+    ``(-1, 0.0)``, which the score keys to -inf.  A graph without weights
+    weighs every edge 1.0."""
+    pos = chunk[:, None] * width + torch.arange(
+        width, dtype=torch.int32, device=addr.device)[None, :]
+    valid = pos < deg[:, None]
+    if g.num_edges == 0:   # every degree is 0: no column to read
+        return torch.full_like(pos, -1), torch.zeros(pos.shape,
+                                                     device=pos.device)
+    e = torch.clamp(addr[:, None] + pos, 0, g.num_edges - 1).long()
+    y = torch.where(valid, g.col[e], -1)
+    w_edge = g.weights[e] if g.weights is not None else torch.ones(
+        pos.shape, device=pos.device)
+    return y, torch.where(valid, w_edge, 0.0)
 
 
 def make_sampler(spec: SamplerSpec):
     """Lower ``spec`` for the plain tensor superstep: returns
     ``sample(g, addr, deg, slots, base_key) -> (index, ok)``.
 
-    Raises NotImplementedError for a program whose executors are not
-    ported yet (rejection score, reservoir loop).
+    A looping program runs :func:`reservoir_scan`.
     """
     prog = lower(spec)
-    missing = [f"{p.op}:{p.variant}" for p in prog.phases
-               if (p.op, p.variant) not in _EXEC]
-    if missing:
-        raise NotImplementedError(
-            f"sampler kind {spec.kind!r} needs phases {missing} "
-            "that are not ported yet (ROADMAP.md queue 1 item 2)")
+    if prog.loop:
+        return functools.partial(reservoir_scan, spec)
     execs = [(_EXEC[(p.op, p.variant)], p) for p in prog.phases]
 
     def sample(g, addr, deg, slots, base_key):

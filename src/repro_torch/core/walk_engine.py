@@ -321,12 +321,9 @@ def build_engine(spec: SamplerSpec, cfg: EngineConfig):
     ``fused`` drains in launches of at most ``hops_per_launch``
     supersteps, never past ``max_supersteps``, reading the progress pair
     once per launch.
-
-    Raises NotImplementedError for a sampler kind that is not ported.
     """
     if cfg.step_impl == "fused":
         from repro_torch.kernels.fused_superstep import ops as fused_ops
-        fused_ops.check_kind(spec)
     sample = make_sampler(spec)
     depth = _stage_depth(cfg)
 

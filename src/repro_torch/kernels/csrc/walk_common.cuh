@@ -19,6 +19,7 @@ namespace walk {
 // Salt channels (repro_torch.core.rng).
 constexpr uint32_t kSaltColumn = 0;
 constexpr uint32_t kSaltStop = 2;
+constexpr uint32_t kSaltChunk0 = 8;   // reservoir chunk c draws at 8 + c
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);

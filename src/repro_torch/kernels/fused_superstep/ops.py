@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import walk_engine as engine
+from repro_torch.core.samplers import bisect_iters, n2v_constants
 from repro_torch.core.tasks import WalkStats
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_superstep import ref
@@ -40,12 +41,12 @@ CTL_STATS = 5                     # the WalkStats counters, in field order
 CTL_HIST = CTL_STATS + len(WalkStats._fields)   # head_hist, C+1 words
 
 #: Sampler kinds the kernel runs, and their template ids in the source.
-KINDS = {"uniform": 0, "alias": 1, "metapath": 2}
-_UNPORTED = {"rejection_n2v": "1c", "reservoir_n2v": "1d"}
+KINDS = {"uniform": 0, "alias": 1, "metapath": 2, "rejection_n2v": 3,
+         "reservoir_n2v": 4}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = ([_P] * 19 + [_I] * 9 + [ctypes.c_longlong]
-             + [ctypes.c_uint] * 2 + [ctypes.c_float] + [_I] * 3 + [_P])
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = ([_P] * 20 + [_I] * 9 + [ctypes.c_longlong]
+             + [ctypes.c_uint] * 2 + [_F] * 4 + [_I] * 6 + [_P])
 
 
 def reset_launches() -> None:
@@ -55,10 +56,6 @@ def reset_launches() -> None:
 
 def check_kind(spec, cache=None) -> None:
     """Raise NotImplementedError for what the kernel does not run yet."""
-    if spec.kind in _UNPORTED:
-        raise NotImplementedError(
-            f"the fused kernel's {spec.kind} branch is not ported yet: "
-            f"ROADMAP.md queue 2 item {_UNPORTED[spec.kind]}")
     if cache is not None:
         raise NotImplementedError(
             "the fused kernel's hot-vertex cache tier is not ported yet: "
@@ -130,6 +127,8 @@ def _check(graph, spec, cfg, depth, state, key, k, block) -> torch.device:
                 f"metapath schedule {spec.metapath} needs type_offsets of "
                 f"shape (V, T+1) with T > {max(spec.metapath)}")
         want["graph.type_offsets"] = (to, i32, (V, to.shape[1]))
+    if spec.kind == "reservoir_n2v" and graph.weights is not None:
+        want["graph.weights"] = (graph.weights, torch.float32, (E,))
     devices = {t.device for t, _, _ in want.values()}
     if len(devices) != 1:
         raise ValueError(f"fused-superstep inputs span devices "
@@ -151,10 +150,16 @@ def _check(graph, spec, cfg, depth, state, key, k, block) -> torch.device:
         raise ValueError("the state's scalars must view the control block: "
                          "pass the pair that pack() returned")
     for name, n in (("num_slots", W), ("queue capacity", Q), ("edges", E),
-                    ("vertices", V), ("k", k), ("depth", depth)):
+                    ("vertices", V), ("k", k), ("depth", depth),
+                    ("2 * rejection_rounds", 2 * spec.rejection_rounds),
+                    ("reservoir_chunk", spec.reservoir_chunk),
+                    ("edges + reservoir_chunk", E + spec.reservoir_chunk)):
         if not 0 <= n < 2**31:
             raise ValueError(f"{name} = {n} is outside the kernel's int32 "
                              "range")
+    if spec.second_order and not np.isfinite(n2v_constants(spec)).all():
+        raise ValueError(f"1/p, 1/q of p={spec.p}, q={spec.q} overflow "
+                         "float32")
     if V < 1:
         raise ValueError("the graph needs at least one vertex")
     if len(key) != 2:
@@ -190,8 +195,7 @@ def fused_superstep(graph, spec, cfg, depth, state, key, k, block,
     earlier launches updated).  ``key`` is the base key pair (two 32-bit
     words); ``depth`` is the Theorem VI.1 stage-ahead depth.  Every state
     tensor and the block are updated in place, and ``state`` is returned.
-    Raises NotImplementedError for the Node2Vec kinds and for a hot-vertex
-    cache.
+    Raises NotImplementedError for a hot-vertex cache.
     """
     check_kind(spec, cache)
     device = _check(graph, spec, cfg, depth, state, key, k, block)
@@ -206,6 +210,8 @@ def fused_superstep(graph, spec, cfg, depth, state, key, k, block,
     s, q = state.slots, state.queue
     alias, metapath = spec.kind == "alias", spec.kind == "metapath"
     sched = _schedule(spec.metapath, str(device)) if metapath else None
+    weights = graph.weights if spec.kind == "reservoir_n2v" else None
+    n2v = n2v_constants(spec) if spec.second_order else (1.0, 1.0, 1.0)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -220,13 +226,16 @@ def fused_superstep(graph, spec, cfg, depth, state, key, k, block,
             ptr(graph.alias_prob) if alias else None,
             ptr(graph.alias_idx) if alias else None,
             ptr(graph.type_offsets) if metapath else None, ptr(sched),
+            ptr(weights),
             cfg.num_slots, q.capacity, cfg.max_hops, graph.num_vertices,
             graph.num_edges,
             graph.type_offsets.shape[1] if metapath else 0,
             len(spec.metapath) if metapath else 0,
             cfg.injection_delay, int(k), int(depth),
             int(key[0]) & 0xFFFFFFFF, int(key[1]) & 0xFFFFFFFF,
-            float(np.float32(spec.stop_prob)),
+            float(np.float32(spec.stop_prob)), *n2v,
+            spec.rejection_rounds, spec.reservoir_chunk,
+            bisect_iters(graph.max_degree),
             KINDS[spec.kind], int(cfg.record_paths),
             int(cfg.mode == "static"),
             torch.cuda.current_stream(device).cuda_stream)

@@ -53,7 +53,8 @@ def main():
         num_slots=args.slots, record_paths=args.record_paths, mode=args.mode,
         step_impl=args.step_impl, hops_per_launch=args.hops_per_launch)
     w = walker.compile(program, backend=args.backend, execution=execution)
-    g = make_dataset(args.dataset, weighted=spec.kind == "alias",
+    g = make_dataset(args.dataset,
+                     weighted=spec.kind in ("alias", "reservoir_n2v"),
                      with_alias=spec.kind == "alias",
                      scale_override=args.scale, seed=args.seed,
                      device=args.device)

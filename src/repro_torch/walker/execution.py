@@ -33,7 +33,7 @@ class ExecutionConfig:
                         does not cover run the plain superstep) or
                         ``fused`` (the hand-written kernel that runs
                         ``hops_per_launch`` whole supersteps per launch;
-                        uniform, alias and metapath kinds).
+                        every sampler kind).
       hops_per_launch:  ``fused`` only — supersteps per kernel launch
                         (``stats.launches`` counts the launches).
       cache_budget:     byte budget of the hot-vertex cache; only 0 (off)

@@ -53,6 +53,19 @@ class WalkProgram:
         return WalkProgram(SamplerSpec(kind="alias"), max_hops, "deepwalk")
 
     @staticmethod
+    def node2vec(p: float = 2.0, q: float = 0.5, max_hops: int = 80,
+                 weighted: bool = False,
+                 rejection_rounds: int = 12) -> "WalkProgram":
+        """Node2Vec: bounded-round rejection sampling (unweighted) or
+        Efraimidis–Spirakis reservoir sampling (weighted), paper
+        Table I."""
+        kind = "reservoir_n2v" if weighted else "rejection_n2v"
+        return WalkProgram(
+            SamplerSpec(kind=kind, p=p, q=q,
+                        rejection_rounds=rejection_rounds),
+            max_hops, "node2vec_w" if weighted else "node2vec")
+
+    @staticmethod
     def metapath(schedule: Sequence[int], max_hops: int = 80) -> "WalkProgram":
         """MetaPath walks: hop t samples uniformly among neighbors of edge
         type schedule[t mod len]; no match → early termination."""
@@ -60,6 +73,11 @@ class WalkProgram:
             SamplerSpec(kind="metapath",
                         metapath=tuple(int(t) for t in schedule)),
             max_hops, "metapath")
+
+    @property
+    def second_order(self) -> bool:
+        """Whether sampling conditions on ``v_prev`` (Node2Vec family)."""
+        return self.spec.second_order
 
     def requires(self, graph) -> None:
         """Validate that ``graph`` carries the payloads this program samples

@@ -1,5 +1,6 @@
-"""On-card checks of the CUDA kernels (walk-step, fused superstep) and the
-``cuda`` and ``fused`` steps.
+"""On-card checks of the CUDA kernels (walk-step, fused superstep, its
+Node2Vec rejection and reservoir branches included) and the ``cuda`` and
+``fused`` steps.
 
 Marked ``gpu``: each test skips, with the reason, where CUDA is not
 available (the decision is made inside the fixture, never at import).
@@ -25,7 +26,9 @@ from repro_torch.walker import ExecutionConfig, WalkProgram, compile
 
 PROGRAMS = {"urw": WalkProgram.urw(20), "ppr": WalkProgram.ppr(0.15, 20),
             "deepwalk": WalkProgram.deepwalk(20),
-            "metapath": WalkProgram.metapath((0, 1, 2), 20)}
+            "metapath": WalkProgram.metapath((0, 1, 2), 20),
+            "node2vec": WalkProgram.node2vec(2.0, 0.5, 20),
+            "node2vec_w": WalkProgram.node2vec(2.0, 0.5, 20, weighted=True)}
 
 pytestmark = pytest.mark.gpu
 
@@ -171,3 +174,52 @@ def test_fused_step_equals_cpu_plain_version(typed_graphs, name, variant):
     assert dict(LAUNCHES) == before[0]
     assert (FUSED_LAUNCHES["fused_superstep"] - before[1]
             == int(got.stats.launches) < int(got.stats.supersteps))
+
+
+@pytest.mark.parametrize("name", ["node2vec", "node2vec_w"])
+def test_fused_node2vec_on_the_hub_bit_equal_to_plain_version(cuda_graph,
+                                                               name):
+    """One k = 16 launch from a state whose lanes sit on the max-degree hub
+    (after a hop from an in-neighbor, and at hop 0), on a vertex whose
+    degree is not a multiple of the reservoir chunk, and elsewhere: every
+    state tensor equal to the plain version's."""
+    g = cuda_graph
+    prog = PROGRAMS[name]
+    cfg = EngineConfig(num_slots=256, max_hops=20, step_impl="fused")
+    depth = walk_engine._stage_depth(cfg)
+    starts = torch.from_numpy(np.random.default_rng(5).integers(
+        0, g.num_vertices, 300).astype(np.int32)).cuda()
+    state = walk_engine.init_state(cfg, depth, starts)
+    hub_state(g, state, prog.spec.reservoir_chunk)
+    want = fused_ref.fused_superstep_ref(g, prog.spec, cfg, depth,
+                                         _clone(state), (3, 4), 16)
+    work, block = fused_ops.pack(_clone(state))
+    got = fused_ops.fused_superstep(g, prog.spec, cfg, depth, work, (3, 4), 16,
+                                    block)
+    torch.cuda.synchronize()
+    for a, b in zip(_tensors(got), _tensors(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def hub_state(g, state, chunk):
+    """Place the first three live lanes of ``state`` (in place): on the
+    max-degree hub after a hop from one of its in-neighbors, on the hub at
+    hop 0, and on a vertex of degree above ``chunk`` and not a multiple of
+    it, after a hop from an in-neighbor."""
+    deg = g.row_ptr[1:] - g.row_ptr[:-1]
+    hub = int(torch.argmax(deg))
+    ragged = (deg > chunk) & (deg % chunk != 0)
+    ragged[hub] = False
+    ragged = int(torch.nonzero(ragged)[0])
+
+    def in_neighbor(v):
+        """A vertex other than v with an edge to v."""
+        rows = torch.searchsorted(g.row_ptr, torch.nonzero(g.col == v)[:, 0],
+                                  right=True) - 1
+        return int(rows[rows != v][0])
+    s = state.slots
+    lanes = torch.nonzero(s.active)[:3, 0].tolist()
+    for lane, (v, vp, hop) in zip(lanes, ((hub, in_neighbor(hub), 3),
+                                          (hub, -1, 0),
+                                          (ragged, in_neighbor(ragged), 2))):
+        s.v_curr[lane], s.v_prev[lane], s.hop[lane] = v, vp, hop

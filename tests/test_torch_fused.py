@@ -184,7 +184,8 @@ def _state(cfg):
 @pytest.mark.parametrize("bad", ["hop_dtype", "active_dtype", "paths_shape",
                                  "hist_shape", "alias_dtype", "k_negative",
                                  "metapath_type", "block_unpacked",
-                                 "block_dtype"])
+                                 "block_dtype", "weights_dtype",
+                                 "inv_p_overflow"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(graphs, bad):
     _, pg = graphs
     cfg = EngineConfig(**CFG)
@@ -210,6 +211,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(graphs, bad):
         block = block.clone()
     elif bad == "block_dtype":
         block = block.int()
+    elif bad == "weights_dtype":
+        spec = SamplerSpec(kind="reservoir_n2v")
+        g = dataclasses.replace(pg, weights=pg.weights.double())
+    elif bad == "inv_p_overflow":   # 1/p beyond float32's range
+        spec = SamplerSpec(kind="rejection_n2v", p=1e-39)
     err = TypeError if bad.endswith("_dtype") else ValueError
     before = dict(LAUNCHES)
     with pytest.raises(err):
@@ -239,13 +245,6 @@ def test_unported_kinds_and_cache_raise(graphs):
     _, pg = graphs
     cfg = EngineConfig(**CFG)
     state, block = _state(cfg)
-    for kind, item in (("rejection_n2v", "1c"), ("reservoir_n2v", "1d")):
-        with pytest.raises(NotImplementedError, match=f"queue 2 item {item}"):
-            ops.fused_superstep(pg, SamplerSpec(kind=kind), cfg, 32, state,
-                                (0, 1), 4, block)
-        with pytest.raises(NotImplementedError, match=f"queue 2 item {item}"):
-            walk_engine.build_engine(SamplerSpec(kind=kind),
-                                     EngineConfig(step_impl="fused"))
     with pytest.raises(NotImplementedError, match="queue 2 item 1e"):
         ops.fused_superstep(pg, SamplerSpec(), cfg, 32, state, (0, 1), 4,
                             block, cache=object())

@@ -27,8 +27,7 @@ from repro_torch import walker
 from repro_torch.core.rng import stream_key
 from repro_torch.core.samplers import SamplerSpec
 from repro_torch.core.scheduler import analyze_run
-from repro_torch.core.walk_engine import (EngineConfig, _run_walks,
-                                          build_engine)
+from repro_torch.core.walk_engine import EngineConfig, _run_walks
 from repro_torch.graph import make_dataset
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -130,9 +129,6 @@ def test_cli_runs_on_cpu():
 
 def test_unported_paths_raise_not_implemented(graphs, starts, monkeypatch):
     _, pg = graphs
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-        build_engine(SamplerSpec(kind="rejection_n2v"),
-                     EngineConfig(step_impl="fused"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         walker.ExecutionConfig(num_slots="auto")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -145,13 +141,6 @@ def test_unported_paths_raise_not_implemented(graphs, starts, monkeypatch):
     for method in (w.stream, w.serve, w.train_embeddings):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             method(pg)
-    for spec in (SamplerSpec(kind="rejection_n2v"),
-                 SamplerSpec(kind="reservoir_n2v")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            build_engine(spec, EngineConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        walker.compile(walker.WalkProgram(
-            SamplerSpec(kind="rejection_n2v"), 4)).run(pg, starts)
     with pytest.raises(ValueError):
         walker.ExecutionConfig(step_impl="jnp")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
