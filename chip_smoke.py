@@ -28,7 +28,13 @@ its seconds.
    multiple of the reservoir chunk.  The launch is timed with CUDA events
    (median of 30, 10 for Node2Vec, the state restored outside the timed
    region, host enqueue hidden behind a device sleep); the plain version
-   and the bound from the main-path state.
+   and the bound from the main-path state.  At W = 4096 (main path, tail,
+   hub) each launch is repeated with the hot-vertex cache at 229,376 B,
+   which lands in shared memory, and for URW and DeepWalk from the
+   main-path state at 1 MiB, which is read from device memory: every
+   state tensor, the three cache counters included, equal to the plain
+   version with the cache; the cached launch timed next to the uncached
+   one, with its bound from the main-path state.
 3. Drive the main path: ``compile(program).run(graph, starts)`` for URW,
    PPR and DeepWalk on the WG stand-in at its Table II size (scale 20,
    weighted, alias tables) under ``step_impl`` torch, cuda, fused, fused,
@@ -46,7 +52,12 @@ its seconds.
    impl prints where the time goes.  A small batch on the card (cuda;
    fused, also static with a delay and without path records) equals the
    same batch on the CPU, whose plain path the CPU tests hold to the JAX
-   reference.
+   reference; the small batch also runs fused with an 8 KiB cache.  The
+   cached main path, after the main path: each program fused with the cache at 229,376 B
+   against the same without it, in turns, must equal it in paths, lengths
+   and every stat but ``launches`` and the three cache counters, with the
+   walks/s, hit rate and coalesced share printed; URW at 16 KiB and
+   64 KiB builds no cache and counts nothing.
 4. Print the kernels' JSON summary, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
@@ -119,6 +130,21 @@ FUSED_SOURCE = ("src/repro_torch/kernels/fused_superstep/csrc/"
                 "fused_superstep.cu")
 FUSED_REPLACES = "src/repro/kernels/fused_superstep/fused_superstep.py:805"
 FUSED_TIMED = "ppr"              # the program whose launch the JSON row times
+# The hot-vertex cache: the most that fits in one block's shared memory
+# (224 KiB of the H100's 227 KiB opt-in limit), and 1 MiB, which does not.
+CACHE_SHARED = 229_376
+CACHE_GLOBAL = 1_048_576
+CACHE_OFF = (16_384, 65_536)     # budgets that admit no vertex on WG 20
+# Phase 2's cached launches beside the uncached ones (W = NUM_SLOTS,
+# zero-bubble): every program from the main-path and tail states, the
+# Node2Vec kinds from the hub state too, all at CACHE_SHARED; URW and
+# DeepWalk also from the main-path state at CACHE_GLOBAL, and URW at
+# 80 KiB, which holds the hub alone (74,052 B of shared memory against
+# CACHE_SHARED's 213,752 B), to show how the launch's time follows the
+# shared memory the block takes from the SM's L1.
+CACHE_EXTRA = {("urw", "main"): (81_920, CACHE_GLOBAL),
+               ("deepwalk", "main"): (CACHE_GLOBAL,)}
+CACHE_LANE_OPS = 4               # tag fill + leader test, per lane-superstep
 
 
 def card_line() -> str:
@@ -337,12 +363,17 @@ def main_path_state(g, prog, cfg, key, starts_np):
     return ref.fused_superstep_ref(g, prog.spec, cfg, depth, state, key, 1), depth
 
 
-def fused_bound(prog, cfg, before, after, gather_work=None):
+def fused_bound(prog, cfg, before, after, gather_work=None, cache=None):
     """(bound ms, bound_by, int32 ops, bytes) of one fused launch, counted
     from what this launch's data needed: its live lane-supersteps,
     advancing hops, terminations and refills.  For a Node2Vec kind,
     ``gather_work`` is :func:`n2v_work`'s (int32 ops, gather bytes) of the
-    launch, in place of the per-lane draws and gathers."""
+    launch, in place of the per-lane draws and gathers.  With ``cache`` (a
+    cache block) the launch also reads the block once (its staging) and
+    every lane, idle or not, does the tag fill, the leader test and the
+    probe each superstep: ``probe_trips`` + 4 int32 ops (CACHE_LANE_OPS).
+    Cached reads replace graph reads one for one, so the gathers' bytes
+    stay as they are."""
     def d(field):
         return int(getattr(after.stats, field)) - int(getattr(before.stats,
                                                               field))
@@ -360,12 +391,16 @@ def fused_bound(prog, cfg, before, after, gather_work=None):
     else:
         ops_count, gather_bytes = gather_work
         ops_count += live * LANE_OPS
+    if cache is not None:
+        ops_count += (cfg.num_slots * d("supersteps")
+                      * (cache.probe_trips + CACHE_LANE_OPS))
     nbytes = (2 * cfg.num_slots * 21           # lane state in and out
               + gather_bytes
               + d("steps") * 8                 # path record + length
               + d("terminations")              # done bytes
               + refills * 20                   # order/start/epoch, path, length
-              + 2 * 8 * (ops.CTL_HIST + cfg.injection_delay + 1))
+              + 2 * 8 * (ops.CTL_HIST + cfg.injection_delay + 1)
+              + (0 if cache is None else cache.nbytes()))   # staging
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops_count / INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
@@ -559,6 +594,87 @@ def launch_slots(kernel, pristine, k):
     return seq
 
 
+def check_cached(name, g, cfg, depth, key, state, k, budget, where,
+                 uncached_ms, gather_work=None) -> dict:
+    """Phase 2, cached: one launch of k supersteps with the hot-vertex cache
+    of ``budget`` bytes, from ``state``, through the kernel and through the
+    plain version (``ref.py`` with the cache's hot ids): every state tensor
+    equal, the three cache counters included, and each live lane-superstep
+    counted once (a leader's hit or miss, or a follower).  The launch is
+    timed as the uncached one (``uncached_ms``, the same state, just
+    before); from the main-path state, with its bound.  Returns the
+    numbers."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.walk_engine import maybe_build_cache
+    from repro_torch.kernels.fused_superstep import LAUNCHES, ops, ref
+    prog = programs()[name]
+    ccfg = dataclasses.replace(cfg, cache_budget=budget)
+    t0 = time.perf_counter()
+    host = maybe_build_cache(prog.spec, ccfg, g)
+    block = ops.cache_block(host, g.device)
+    build_s = time.perf_counter() - t0
+    tier = ops.cache_tier(prog.spec, ccfg, block)
+    limit = ops.smem_limit(prog.spec, ccfg, g.device)
+
+    def plain(st):
+        return ref.fused_superstep_ref(g, prog.spec, ccfg, depth, st, key, k,
+                                       block.hot_ids)
+
+    def kernel(st, blk):
+        return ops.fused_superstep(g, prog.spec, ccfg, depth, st, key, k, blk,
+                                   cache=block)
+    t0 = time.perf_counter()
+    want = plain(clone_state(state))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    work, blk = ops.pack(clone_state(state))
+    n0 = LAUNCHES["fused_superstep"]
+    got = kernel(work, blk)
+    torch.cuda.synchronize()
+    if LAUNCHES["fused_superstep"] != n0 + 1:
+        raise AssertionError("cached fused launch not counted once")
+    err = state_err(got, want)
+    if err != 0:
+        raise AssertionError(f"cached fused_superstep {name} {where} budget "
+                             f"{budget} ({tier}) disagrees with its plain "
+                             f"version (max abs err {err})")
+
+    def d(f):
+        return int(getattr(got.stats, f)) - int(getattr(state.stats, f))
+    hits, misses, coal = (d("cache_hits"), d("cache_misses"),
+                          d("cache_coalesced"))
+    live = d("slot_steps") - d("bubbles")
+    if hits + misses + coal != live or hits <= 0:
+        raise AssertionError(f"cached {name} {where}: {hits} hits + {misses} "
+                             f"misses + {coal} coalesced for {live} live "
+                             f"lane-supersteps")
+    ms = time_fused(kernel, state, device_only=True,
+                    reps=N2V_KERNEL_REPS if name in N2V else FUSED_TIMED_REPS)
+    out = {"budget": budget, "tier": tier, "H": host.num_hot,
+           "P": host.num_entries, "nbytes": host.nbytes(), "ms": ms,
+           "uncached_ms": uncached_ms, "plain_ms": plain_s * 1e3,
+           "hits": hits, "misses": misses, "coalesced": coal}
+    text = ""
+    if where == "main":
+        out["bound_ms"], out["bound_by"], n_ops, nbytes = fused_bound(
+            prog, ccfg, state, got, gather_work, cache=block)
+        text = (f"; bound {out['bound_ms']:.6f} ms by {out['bound_by']} "
+                f"({n_ops} int32 ops, {nbytes} bytes)")
+    print(f"fused_superstep {name} W={cfg.num_slots} k={k} {where} cache "
+          f"{budget} B: H={host.num_hot} P={host.num_entries} "
+          f"nbytes={host.nbytes()} tier={tier} (shared-memory limit "
+          f"{limit} B; built in {build_s:.2f} s): "
+          f"bit-equal to the plain version in every state tensor, counters "
+          f"included; hits={hits} misses={misses} coalesced={coal} "
+          f"(hit rate {hits / max(hits + misses, 1):.6f}); kernel cached "
+          f"{ms:.6f} ms vs uncached {uncached_ms:.6f} ms a launch; plain "
+          f"{plain_s * 1e3:.3f} ms{text}")
+    return out
+
+
 def check_fused(graphs, starts_np) -> dict:
     """Phase 2, fused: one launch of the kernel (k = 16; ``PHASE2_K`` for
     node2vec_w) equals its plain version in every state tensor, per
@@ -569,7 +685,9 @@ def check_fused(graphs, starts_np) -> dict:
     4,096, 1,000 and 12,288, plus PPR in static mode with a delay; the
     kernel timed, to show its scaling), and for the Node2Vec kinds a tail
     state whose first live lanes sit on the max-degree hub (after a hop,
-    and at hop 0) and on a vertex of degree not a multiple of the chunk."""
+    and at hop 0) and on a vertex of degree not a multiple of the chunk.
+    At W = 4,096 in zero-bubble mode each launch is also run with the
+    hot-vertex cache (:func:`check_cached`), in its ``cached`` list."""
     import torch
 
     from repro_torch.core.rng import stream_key
@@ -580,7 +698,7 @@ def check_fused(graphs, starts_np) -> dict:
               for W in FUSED_WIDTHS]
     cases.append(("ppr", 1_000, "static", 2, "tail"))
     cases += [(name, NUM_SLOTS, "zero_bubble", 0, "hub") for name in N2V]
-    max_err, row, per_kind = 0, None, {}
+    max_err, row, per_kind, cached = 0, None, {}, []
     for name, W, mode, delay, where in cases:
         t_case = time.perf_counter()
         prog, g = programs()[name], graphs[name]
@@ -644,6 +762,7 @@ def check_fused(graphs, starts_np) -> dict:
               f"just-refilled lanes; {refills} refills, {idle} idle "
               f"lane-supersteps; plain launch {plain_s:.2f} s")
         n2v = name in N2V
+        gather_work = None
         if mode == "zero_bubble":
             ms = time_fused(kernel, state, device_only=True,
                             reps=N2V_KERNEL_REPS if n2v else FUSED_TIMED_REPS)
@@ -679,9 +798,23 @@ def check_fused(graphs, starts_np) -> dict:
                 print(f"fused_superstep {name} W={W} k={K} "
                       f"{where}: kernel {ms:.6f} ms/launch "
                       f"({ms / max(ran, 1) * 1e3:.3f} us per superstep)")
+            if W == NUM_SLOTS:
+                for budget in (CACHE_SHARED,
+                               *CACHE_EXTRA.get((name, where), ())):
+                    cached.append({"name": name, "where": where, **check_cached(
+                        name, g, cfg, depth, key, state, K, budget, where, ms,
+                        gather_work)})
         print(f"  case time {time.perf_counter() - t_case:.1f} s")
     row["max_abs_err"] = max_err
     row["per_kind"] = per_kind
+    tiers = sorted({c["tier"] for c in cached})
+    if tiers != ["global", "shared"]:
+        raise AssertionError(f"cached launches ran in tiers {tiers}")
+    row["cached"] = [c for c in cached if c["where"] == "main"]
+    row["checked"] = ("branches uniform, ppr, alias, metapath, rejection, "
+                      "reservoir; cache tiers " + ", ".join(
+                          sorted({f"{c['tier']} ({c['budget']} B)"
+                                  for c in cached})))
     return row
 
 
@@ -814,6 +947,114 @@ def run_main_path(graphs, starts_np) -> dict:
     return totals
 
 
+def run_cached_main_path(graphs, starts_np) -> int:
+    """Phase 3, cached: each program fused through the Walker with the
+    hot-vertex cache at CACHE_SHARED against the same without it, in turns
+    (off, on, on, off; node2vec_w, whose drain takes seconds: on, off), on
+    the main path's batch.  Every run zeroes the launch counts just before
+    it and reads them just after.  A cached run must equal the uncached one
+    in paths, lengths and the 8 stats other than ``launches`` and the
+    three cache counters; its cache must be in the shared tier, and every
+    live lane-superstep counted once.  URW also runs at the CACHE_OFF
+    budgets, which admit no vertex: no cache is built and the counters stay
+    0.  Returns the fused kernel's launches over these runs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.scheduler import analyze_run
+    from repro_torch.core.walk_engine import maybe_build_cache
+    from repro_torch.kernels.fused_superstep import ops as fused_ops
+    from repro_torch.kernels.walk_step import ops as step_ops
+    from repro_torch.walker import ExecutionConfig, compile
+    cache_only = ("launches", "cache_hits", "cache_misses", "cache_coalesced")
+    total = 0
+    for name, prog in programs().items():
+        t_prog = time.perf_counter()
+        g = graphs[name]
+        starts = torch.from_numpy(starts_np).to(g.device)
+        base = ExecutionConfig(num_slots=NUM_SLOTS, record_paths=True,
+                               step_impl="fused",
+                               hops_per_launch=HOPS_PER_LAUNCH)
+        budgets = {"off": 0, "on": CACHE_SHARED}
+        if name == "urw":
+            budgets.update({f"{b} B": b for b in CACHE_OFF})
+        walkers = {k: compile(prog, execution=dataclasses.replace(
+            base, cache_budget=b)) for k, b in budgets.items()}
+        for w in walkers.values():   # warm-up: builds each engine's cache
+            w.run(g, starts[:NUM_SLOTS], seed=0)
+        cfg = base.engine_config(prog)
+        for label, b in budgets.items():
+            host = maybe_build_cache(prog.spec, dataclasses.replace(
+                cfg, cache_budget=b), g)
+            if (host is None) != (label != "on"):
+                raise AssertionError(f"{name}: budget {b} built cache {host}")
+            if host is not None:
+                tier = fused_ops.cache_tier(prog.spec, cfg, fused_ops.cache_block(
+                    host, g.device))
+                if tier != "shared":
+                    raise AssertionError(f"{name}: {b} B cache in tier {tier}")
+                print(f"main {name} cache {b} B: H={host.num_hot} "
+                      f"P={host.num_entries} nbytes={host.nbytes()} "
+                      f"tier={tier}")
+        order = (["on", "off"] if name == "node2vec_w"
+                 else ["off", "on", "on", "off"]) + [
+            k for k in budgets if k not in ("on", "off")]
+        results = {}
+        torch.cuda.synchronize()
+        for label in order:
+            step_ops.reset_launches()
+            fused_ops.reset_launches()
+            t0 = time.perf_counter()
+            res = walkers[label].run(g, starts, seed=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {**step_ops.LAUNCHES, **fused_ops.LAUNCHES}
+            a = analyze_run(res.stats, wall)
+            want = {k: 0 for k in launched}
+            want["fused_superstep"] = a.launches
+            if launched != want:
+                raise AssertionError(f"{name}/cache {label}: kernel launches "
+                                     f"{launched}, expected {want}")
+            total += launched["fused_superstep"]
+            st = res.stats
+            hits, misses, coal = (int(st.cache_hits), int(st.cache_misses),
+                                  int(st.cache_coalesced))
+            live = int(st.slot_steps) - int(st.bubbles)
+            if label == "on" and hits + misses + coal != live:
+                raise AssertionError(f"{name}: cache counters {hits} + "
+                                     f"{misses} + {coal} != {live} live")
+            if label != "on" and hits + misses + coal != 0:
+                raise AssertionError(f"{name}/cache {label}: counters "
+                                     f"{hits}, {misses}, {coal} without a "
+                                     f"cache")
+            results.setdefault(label, res)
+            print(f"main {name} fused cache={label}: "
+                  f"walks/s={NUM_STARTS / wall:.1f} "
+                  f"MSteps/s={a.msteps_per_s:.4f} supersteps={a.supersteps} "
+                  f"launches={a.launches} hits={hits} misses={misses} "
+                  f"coalesced={coal} "
+                  f"hit_rate={float(st.cache_hit_rate()):.6f} "
+                  f"coalesced_share={coal / max(live, 1):.6f} "
+                  f"host_sync_share={walkers[label].last_drain.sync_s / walkers[label].last_drain.wall_s:.4f} "
+                  f"wall_s={wall:.4f}")
+        off = results["off"]
+        for label, res in results.items():
+            same = (torch.equal(res.paths, off.paths)
+                    and torch.equal(res.lengths, off.lengths)
+                    and all(int(x) == int(y) for f, x, y in zip(
+                        off.stats._fields, off.stats, res.stats)
+                        if f not in cache_only))
+            if not same:
+                raise AssertionError(f"{name}: cached ({label}) differs from "
+                                     f"uncached")
+        print(f"main {name}: fused with the cache == without it in paths, "
+              f"lengths and the {len(off.stats) - 4} stats other than "
+              f"launches and the cache counters; "
+              f"{time.perf_counter() - t_prog:.1f} s")
+    return total
+
+
 def run_n2vw_torch(g, starts, fused):
     """node2vec_w's torch run, cut to the first 1,024 starts at 1,024 slots
     and 16 hops (its plain scan repeats the chunk loop's tensor ops for
@@ -930,6 +1171,8 @@ def check_small_against_cpu() -> None:
               for dev in ("cpu", "cuda")}
     variants = {"cuda": dict(step_impl="cuda"),
                 "fused": dict(step_impl="fused"),
+                "fused cache 8 KiB": dict(step_impl="fused",
+                                          cache_budget=1 << 13),
                 "fused static C=2": dict(step_impl="fused", mode="static",
                                          injection_delay=2),
                 "fused no paths": dict(step_impl="fused", record_paths=False)}
@@ -1013,6 +1256,8 @@ def main() -> int:
     rows = phase("2 walk_step", check_kernels, g)
     rows["fused_superstep"] = phase("2 fused", check_fused, graphs, starts)
     launches = phase("3 main path", run_main_path, graphs, starts)
+    launches["fused_superstep"] += phase(
+        "3 cached main path", run_cached_main_path, graphs, starts)
     phase("3 profile", profile_supersteps, graphs, starts)
     phase("3 small batch vs CPU", check_small_against_cpu)
     for name, row in rows.items():

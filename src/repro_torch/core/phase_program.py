@@ -62,6 +62,17 @@ class Phase:
     width: int = 1
     salt: int = SALT_COLUMN
 
+    @property
+    def cacheable(self) -> bool:
+        """May this phase's graph operands be served from the hot-vertex
+        cache?  True exactly for ``v_curr``-resident ``gather``/``commit``
+        phases: their operands are slices of the current vertex's
+        adjacency payload, which is what `graph.hot_cache` packs.
+        ``v_prev``-resident phases (the rejection verify and the reservoir
+        bias/membership probes) address N(v_prev) and always read the
+        graph in device memory."""
+        return self.op in ("gather", "commit") and self.residency == "v_curr"
+
 
 @dataclasses.dataclass(frozen=True)
 class PhaseProgram:
@@ -82,6 +93,29 @@ class PhaseProgram:
         (single-residency programs over the plain/alias CSR segments)."""
         return all(p.residency == "v_curr" for p in self.phases) and not (
             self.loop or "typed" in self.requires)
+
+    @property
+    def cache_payloads(self) -> Tuple[str, ...]:
+        """Adjacency payload arrays the hot-vertex cache must pack for
+        this program — read off the cacheable (``v_curr``-resident)
+        gather/commit phases, so `graph.hot_cache.build_hot_cache` sizes
+        the block from the program, not a hand-kept list.
+
+        Every program needs ``col`` (the commit column access); the
+        alias probe adds ``alias_prob``/``alias_idx``, the typed gather
+        adds ``type_offsets``, and the reservoir chunk gather adds
+        ``weights``.  ``v_prev``-resident phases contribute nothing —
+        their operands stay in device memory.
+        """
+        payloads = ["col"]
+        for ph in self.phases:
+            if not ph.cacheable or ph.op != "gather":
+                continue
+            payloads += {"alias": ["alias_prob", "alias_idx"],
+                         "typed": ["type_offsets"],
+                         "chunk": ["weights"],
+                         "csr": []}[ph.variant]
+        return tuple(payloads)
 
 
 @functools.lru_cache(maxsize=None)

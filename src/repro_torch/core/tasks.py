@@ -109,15 +109,25 @@ class WalkStats(NamedTuple):
     launches: torch.Tensor      # device dispatches: one per superstep on
                                 # the per-hop paths, one per launch of k
                                 # supersteps on the fused path
-    cache_hits: torch.Tensor    # hot-vertex cache counters: 0 until the
-    cache_misses: torch.Tensor  # cache is ported
-    cache_coalesced: torch.Tensor
+    cache_hits: torch.Tensor    # live leader lanes whose v_curr probe hit
+                                # the hot-vertex cache (fused + cache only)
+    cache_misses: torch.Tensor  # live leader lanes whose probe missed
+    cache_coalesced: torch.Tensor  # live lanes that shared another lane's
+                                # gather because their v_curr coincided
+                                # within the superstep (same-vertex
+                                # coalescing); all three 0 with no cache
 
     def bubble_ratio(self):
         return self.bubbles / torch.clamp(self.slot_steps, min=1)
 
     def occupancy(self):
         return 1.0 - self.bubble_ratio()
+
+    def cache_hit_rate(self):
+        """Fraction of cache probes (leader gathers) served from the
+        cache."""
+        return self.cache_hits / torch.clamp(
+            self.cache_hits + self.cache_misses, min=1)
 
 
 def zero_stats(device) -> WalkStats:

@@ -30,6 +30,10 @@ Three step implementations, bit-identical in every output but
   * ``fused`` — ``hops_per_launch`` whole supersteps per launch of the
     device-resident kernel (`repro_torch.kernels.fused_superstep`): lane
     pool, RNG, termination, controller and refill stay on the device.
+    With ``cache_budget > 0`` its gathers keyed on a lane's current
+    vertex read the hottest vertices' rows from a packed copy
+    (`repro_torch.graph.hot_cache`), which changes only the three cache
+    counters of the stats.
 
 The per-hop impls drain the closed batch in a host loop that reads
 ``_work_left`` once per superstep and count one launch per superstep; the
@@ -74,6 +78,10 @@ class EngineConfig:
     step_impl: str = "torch"       # torch | cuda (one-hop kernel) | fused
                                    # (device-resident multi-hop kernel)
     hops_per_launch: int = 16      # fused only: supersteps per launch
+    cache_budget: int = 0          # fused only: byte budget of the
+                                   # hot-vertex adjacency cache (0 = off);
+                                   # gathers on cached hubs read the packed
+                                   # block, bit-identically
 
     def __post_init__(self):
         if self.num_slots <= 0:
@@ -104,6 +112,10 @@ class EngineConfig:
             raise ValueError(
                 f"hops_per_launch must be a positive superstep count per "
                 f"fused-kernel launch, got {self.hops_per_launch}")
+        if self.cache_budget < 0:
+            raise ValueError(
+                f"cache_budget is a byte budget (0 disables the hot-vertex "
+                f"cache) and cannot be negative, got {self.cache_budget}")
 
 
 def check_step_impl(step_impl: str) -> None:
@@ -139,6 +151,23 @@ class Drain(NamedTuple):
 def _stage_depth(cfg: EngineConfig) -> int:
     d = sched.min_queue_depth(cfg.num_slots, mu=1.0, delay=cfg.injection_delay)
     return max(1, int(round(cfg.queue_depth_factor * d)))
+
+
+def maybe_build_cache(spec: SamplerSpec, cfg: EngineConfig, graph: CSRGraph):
+    """Hot-vertex cache for this (spec, cfg, graph), or ``None``.
+
+    The cache only exists for the fused kernel with a positive byte
+    budget; its payload set comes from the phase program's declared
+    ``cache_payloads`` (columns always, plus weights / alias tables /
+    typed offsets as the sampler's gather phases require).  Building is
+    host-side numpy work — callers that rebind graphs should memoize on
+    graph identity (`repro_torch.walker.compile` does).
+    """
+    if cfg.step_impl != "fused" or cfg.cache_budget <= 0:
+        return None
+    from repro_torch.graph.hot_cache import build_hot_cache
+    payloads = lower_program(spec).cache_payloads
+    return build_hot_cache(graph, payloads, cfg.cache_budget)
 
 
 def _fresh_buffers(cfg: EngineConfig, num_queries: int, device):
@@ -313,19 +342,23 @@ def init_state(cfg: EngineConfig, depth: int,
         stats=zero_stats(device), head_hist=head_hist)
 
 
-def build_engine(spec: SamplerSpec, cfg: EngineConfig):
+def build_engine(spec: SamplerSpec, cfg: EngineConfig, cache=None):
     """Build ``run(graph, start_vertices, key) -> (WalkResult, Drain)``: the
     closed system, draining a fixed query batch to completion on the
     graph's device.  ``key`` is a base key pair (`rng.stream_key`).
 
     ``fused`` drains in launches of at most ``hops_per_launch``
     supersteps, never past ``max_supersteps``, reading the progress pair
-    once per launch.
+    once per launch.  ``cache`` is the graph-specific hot-vertex cache
+    from :func:`maybe_build_cache` (ignored by the per-hop impls); its
+    packed block is copied to a run's device once, at the first run
+    there, and every launch reads that copy.
     """
     if cfg.step_impl == "fused":
         from repro_torch.kernels.fused_superstep import ops as fused_ops
     sample = make_sampler(spec)
     depth = _stage_depth(cfg)
+    blocks = {}   # the cache's packed block, per device
 
     def run(graph: CSRGraph, start_vertices: torch.Tensor, key):
         t0 = time.perf_counter()
@@ -342,6 +375,9 @@ def build_engine(spec: SamplerSpec, cfg: EngineConfig):
         supersteps, sync_s = 0, 0.0
         if cfg.step_impl == "fused":
             state, block = fused_ops.pack(state)   # the drain's control block
+            if cache is not None and device not in blocks:
+                blocks[device] = fused_ops.cache_block(cache, device)
+            cached = blocks.get(device)
             while True:
                 t = time.perf_counter()
                 more, supersteps = fused_ops.progress(block)   # per launch
@@ -351,7 +387,7 @@ def build_engine(spec: SamplerSpec, cfg: EngineConfig):
                 state = fused_ops.fused_superstep(
                     graph, spec, cfg, depth, state, key,
                     min(cfg.hops_per_launch, cfg.max_supersteps - supersteps),
-                    block)
+                    block, cache=cached)
         else:
             while supersteps < cfg.max_supersteps:
                 t = time.perf_counter()
@@ -376,5 +412,6 @@ def _run_walks(graph: CSRGraph, start_vertices, spec: SamplerSpec,
     """One-shot closed-system run (engine-internal reference path)."""
     cfg = cfg or EngineConfig()
     sv = torch.as_tensor(np.asarray(start_vertices, dtype=np.int32))
-    result, _ = build_engine(spec, cfg)(graph, sv, task_rng.stream_key(seed))
+    run = build_engine(spec, cfg, cache=maybe_build_cache(spec, cfg, graph))
+    result, _ = run(graph, sv, task_rng.stream_key(seed))
     return result

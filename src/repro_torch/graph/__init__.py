@@ -4,10 +4,15 @@ from repro_torch.graph.csr import (CSRGraph, build_csr, degrees,
                                    from_reference_arrays, validate_csr)
 from repro_torch.graph.datasets import DATASET_SPECS, make_dataset
 from repro_torch.graph.generators import BALANCED, GRAPH500, rmat_edges
+from repro_torch.graph.hot_cache import (HotVertexCache, build_hot_cache,
+                                         edge_payload_bytes,
+                                         vertex_overhead_bytes)
 
 __all__ = [
     "CSRGraph", "build_csr", "degrees", "validate_csr",
     "from_reference_arrays",
     "rmat_edges", "GRAPH500", "BALANCED",
     "build_alias_tables", "make_dataset", "DATASET_SPECS",
+    "HotVertexCache", "build_hot_cache", "edge_payload_bytes",
+    "vertex_overhead_bytes",
 ]

@@ -16,10 +16,18 @@ the state viewing it, passes the block to every launch, and reads
 between launches.  Only this module and the kernel's source know the
 block's layout.  ``LAUNCHES`` counts kernel launches (nothing else adds to
 it), so a run can show that it went through the kernel.
+
+A hot-vertex cache (`repro_torch.graph.hot_cache`) rides along as a
+:class:`CacheBlock`: its packed block in one int32 tensor on the run's
+device, made once by :func:`cache_block`.  The kernel stages a block that
+fits in a thread block's shared memory there at the start of each launch,
+and reads a larger one in place in device memory (:func:`cache_tier`
+says which); the plain version adds the same three counters.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -45,8 +53,11 @@ KINDS = {"uniform": 0, "alias": 1, "metapath": 2, "rejection_n2v": 3,
          "reservoir_n2v": 4}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = ([_P] * 20 + [_I] * 9 + [ctypes.c_longlong]
-             + [ctypes.c_uint] * 2 + [_F] * 4 + [_I] * 6 + [_P])
+_ARGTYPES = ([_P] * 23 + [_I] * 9 + [ctypes.c_longlong]
+             + [ctypes.c_uint] * 2 + [_F] * 4 + [_I] * 15 + [_P])
+
+#: The packed edge payloads of a cache block after ``col``, in order.
+_CACHE_PAYLOADS = ("weights", "alias_prob", "alias_idx")
 
 
 def reset_launches() -> None:
@@ -54,12 +65,105 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def check_kind(spec, cache=None) -> None:
-    """Raise NotImplementedError for what the kernel does not run yet."""
-    if cache is not None:
-        raise NotImplementedError(
-            "the fused kernel's hot-vertex cache tier is not ported yet: "
-            "ROADMAP.md queue 2 item 1e")
+@dataclasses.dataclass(frozen=True, eq=False)
+class CacheBlock:
+    """A hot-vertex cache's packed block on one device, as the kernel reads
+    it: ``words`` (int32, ``nbytes() / 4`` of them) holds hot_ids (H),
+    hot_deg (H), hot_off (H + 1), col (P) from word ``3H + 1``, then the
+    payloads the cache packs, each at its word offset (-1 where absent):
+    ``weights``, ``alias_prob``, ``alias_idx`` (P each, floats as their
+    bits) and ``type_offsets`` (H rows of ``type_stride`` = T + 1)."""
+
+    words: torch.Tensor
+    num_hot: int
+    num_entries: int
+    probe_trips: int
+    type_stride: int
+    weights: int
+    alias_prob: int
+    alias_idx: int
+    type_offsets: int
+
+    @property
+    def hot_ids(self) -> torch.Tensor:
+        return self.words[:self.num_hot]
+
+    @property
+    def col(self) -> int:
+        return 3 * self.num_hot + 1
+
+    def nbytes(self) -> int:
+        return 4 * self.words.numel()
+
+
+def cache_block(cache, device) -> CacheBlock:
+    """The packed block of ``cache`` (a `HotVertexCache`) on ``device``:
+    one host-to-device copy, made once per engine and device."""
+    parts = [cache.hot_ids, cache.hot_deg, cache.hot_off, cache.col]
+    offsets, at = {}, sum(p.size for p in parts)
+    for name in (*_CACHE_PAYLOADS, "type_offsets"):
+        arr = getattr(cache, name)
+        offsets[name] = -1 if arr is None else at
+        if arr is not None:
+            parts.append(np.ascontiguousarray(arr).reshape(-1).view(np.int32))
+            at += arr.size
+    words = torch.from_numpy(np.concatenate(parts).astype(np.int32, copy=False))
+    to = cache.type_offsets
+    return CacheBlock(words=words.to(device), num_hot=cache.num_hot,
+                      num_entries=cache.num_entries,
+                      probe_trips=cache.probe_trips,
+                      type_stride=0 if to is None else int(to.shape[1]),
+                      **offsets)
+
+
+def _usable(spec, graph, cache):
+    """``cache``, or ``None`` when it lacks a payload the kind reads: the
+    alias tables, the typed offsets, or a weighted graph's weights for the
+    reservoir.  A cache without them is dropped, not half used."""
+    if cache is None:
+        return None
+    needed = {"alias": ("alias_prob", "alias_idx"),
+              "metapath": ("type_offsets",)}.get(spec.kind, ())
+    if spec.kind == "reservoir_n2v" and graph.weights is not None:
+        needed = ("weights",)
+    return None if any(getattr(cache, p) < 0 for p in needed) else cache
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(device_index: int, kind: int, stop: bool, record: bool,
+                static_mode: bool) -> int:
+    fn = build.load("fused_superstep").fused_superstep_smem_limit
+    fn.argtypes, fn.restype = [_I] * 4, _I
+    with torch.cuda.device(device_index):
+        limit = fn(kind, int(stop), int(record), int(static_mode))
+    if limit < 0:
+        raise RuntimeError(f"fused_superstep_smem_limit failed: cudaError "
+                           f"{-limit}")
+    return limit
+
+
+def smem_limit(spec, cfg, device) -> int:
+    """The dynamic shared memory (bytes) that the kernel's instantiation for
+    ``spec`` × ``cfg`` can take on CUDA ``device``: the device's opt-in
+    limit per block less the instantiation's static shared memory."""
+    device = torch.device(device)
+    return _smem_limit(device.index if device.index is not None
+                       else torch.cuda.current_device(), KINDS[spec.kind],
+                       spec.stop_prob > 0, cfg.record_paths,
+                       cfg.mode == "static")
+
+
+def cache_tier(spec, cfg, cache: CacheBlock) -> str:
+    """Where the kernel reads the block of ``cache`` (on a CUDA device) for
+    ``spec`` × ``cfg``: ``"shared"`` when it fits in :func:`smem_limit`,
+    where each launch stages it; else ``"global"``, read in place in
+    device memory by the same kernel."""
+    device = cache.words.device
+    if device.type != "cuda":
+        raise ValueError(f"a cache tier is the card's: the block is on "
+                         f"{device}")
+    return ("shared" if cache.nbytes() <= smem_limit(spec, cfg, device)
+            else "global")
 
 
 def _scalars(state):
@@ -90,10 +194,11 @@ def progress(block) -> tuple[bool, int]:
     return bool(more), int(supersteps)
 
 
-def _check(graph, spec, cfg, depth, state, key, k, block) -> torch.device:
+def _check(graph, spec, cfg, depth, state, key, k, block,
+           cache) -> torch.device:
     """Every tensor on one device, of the kernel's dtype and shape, and
     contiguous; the state's scalars views of ``block``; the scalars in
-    int32 range.  Returns the device."""
+    int32 range; a cache's block as its sizes say.  Returns the device."""
     s, q = state.slots, state.queue
     W, Q, H = cfg.num_slots, q.capacity, cfg.max_hops
     i32, i64 = torch.int32, torch.int64
@@ -129,6 +234,20 @@ def _check(graph, spec, cfg, depth, state, key, k, block) -> torch.device:
         want["graph.type_offsets"] = (to, i32, (V, to.shape[1]))
     if spec.kind == "reservoir_n2v" and graph.weights is not None:
         want["graph.weights"] = (graph.weights, torch.float32, (E,))
+    if cache is not None:
+        if cache.num_hot < 1 or cache.num_entries < 1 or cache.probe_trips < 1:
+            raise ValueError("a cache holds at least one vertex and entry")
+        if spec.kind == "metapath" and cache.type_stride != to.shape[1]:
+            raise ValueError(f"the cache's type_offsets rows have "
+                             f"{cache.type_stride} words, the graph's "
+                             f"{to.shape[1]}")
+        end = max(cache.col + cache.num_entries,
+                  *(getattr(cache, p) + cache.num_entries
+                    for p in _CACHE_PAYLOADS),
+                  cache.type_offsets + cache.num_hot * cache.type_stride)
+        want["cache.words"] = (cache.words, i32, (end,))
+        if cache.words.data_ptr() % 16:
+            raise ValueError("cache.words must start on a 16-byte boundary")
     devices = {t.device for t, _, _ in want.values()}
     if len(devices) != 1:
         raise ValueError(f"fused-superstep inputs span devices "
@@ -151,6 +270,7 @@ def _check(graph, spec, cfg, depth, state, key, k, block) -> torch.device:
                          "pass the pair that pack() returned")
     for name, n in (("num_slots", W), ("queue capacity", Q), ("edges", E),
                     ("vertices", V), ("k", k), ("depth", depth),
+                    ("cache words", 0 if cache is None else end),
                     ("2 * rejection_rounds", 2 * spec.rejection_rounds),
                     ("reservoir_chunk", spec.reservoir_chunk),
                     ("edges + reservoir_chunk", E + spec.reservoir_chunk)):
@@ -193,14 +313,18 @@ def fused_superstep(graph, spec, cfg, depth, state, key, k, block,
 
     ``state`` and ``block`` are a pair that :func:`pack` returned (or that
     earlier launches updated).  ``key`` is the base key pair (two 32-bit
-    words); ``depth`` is the Theorem VI.1 stage-ahead depth.  Every state
-    tensor and the block are updated in place, and ``state`` is returned.
-    Raises NotImplementedError for a hot-vertex cache.
+    words); ``depth`` is the Theorem VI.1 stage-ahead depth.  ``cache`` is
+    a :class:`CacheBlock` on the state's device, or ``None``; one that
+    lacks a payload the kind reads is dropped (see :func:`_usable`).
+    Every state tensor and the block are updated in place, and ``state``
+    is returned.
     """
-    check_kind(spec, cache)
-    device = _check(graph, spec, cfg, depth, state, key, k, block)
+    cache = _usable(spec, graph, cache)
+    device = _check(graph, spec, cfg, depth, state, key, k, block, cache)
     if device.type == "cpu":
-        new = ref.fused_superstep_ref(graph, spec, cfg, depth, state, key, k)
+        new = ref.fused_superstep_ref(
+            graph, spec, cfg, depth, state, key, k,
+            None if cache is None else cache.hot_ids)
         for old, t in zip(_flat(state), _flat(new)):
             if t is not old:
                 old.copy_(t)
@@ -216,6 +340,18 @@ def fused_superstep(graph, spec, cfg, depth, state, key, k, block,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    scratch = words = None
+    lay = (0,) * 9    # H, P, trips, staged words, 5 word offsets
+    if cache is not None:
+        words = cache.words
+        W = cfg.num_slots
+        scratch = torch.empty((3 * W,), dtype=torch.int32, device=device)
+        staged = (words.numel() if cache_tier(spec, cfg, cache) == "shared"
+                  else 0)
+        lay = (cache.num_hot, cache.num_entries, cache.probe_trips, staged,
+               cache.col, cache.weights, cache.alias_prob, cache.alias_idx,
+               cache.type_offsets)
+
     with torch.cuda.device(device):
         rc = _entry()(
             ptr(s.v_curr), ptr(s.v_prev), ptr(s.query_id), ptr(s.hop),
@@ -226,7 +362,8 @@ def fused_superstep(graph, spec, cfg, depth, state, key, k, block,
             ptr(graph.alias_prob) if alias else None,
             ptr(graph.alias_idx) if alias else None,
             ptr(graph.type_offsets) if metapath else None, ptr(sched),
-            ptr(weights),
+            ptr(weights), ptr(words), ptr(scratch),
+            None if scratch is None else ptr(scratch) + 8 * cfg.num_slots,
             cfg.num_slots, q.capacity, cfg.max_hops, graph.num_vertices,
             graph.num_edges,
             graph.type_offsets.shape[1] if metapath else 0,
@@ -235,7 +372,7 @@ def fused_superstep(graph, spec, cfg, depth, state, key, k, block,
             int(key[0]) & 0xFFFFFFFF, int(key[1]) & 0xFFFFFFFF,
             float(np.float32(spec.stop_prob)), *n2v,
             spec.rejection_rounds, spec.reservoir_chunk,
-            bisect_iters(graph.max_degree),
+            bisect_iters(graph.max_degree), *lay,
             KINDS[spec.kind], int(cfg.record_paths),
             int(cfg.mode == "static"),
             torch.cuda.current_stream(device).cuda_stream)

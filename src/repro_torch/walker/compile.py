@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.core import rng as task_rng
 from repro_torch.core.tasks import WalkResult
-from repro_torch.core.walk_engine import Drain, build_engine
+from repro_torch.core.walk_engine import (Drain, build_engine,
+                                          maybe_build_cache)
 from repro_torch.walker.execution import ExecutionConfig
 from repro_torch.walker.program import WalkProgram
 
@@ -60,7 +61,9 @@ class Walker:
         self.program = program
         self.backend = backend
         self.execution = execution
-        self._engine = None
+        # (spec, engine config, id(graph) when a cache is wanted) ->
+        # (engine, graph); see _single_engine.
+        self._engines = {}
         #: Host timing of the last :meth:`run` (wall and per-superstep sync).
         self.last_drain: Optional[Drain] = None
 
@@ -72,17 +75,28 @@ class Walker:
         ``seed`` may be an int or a key pair (two 32-bit words, e.g.
         ``rng.stream_key(s, e)``)."""
         self.program.requires(graph)
-        if self._engine is None:
-            self._engine = build_engine(
-                self.program.spec, self.execution.engine_config(self.program))
+        engine = self._single_engine(graph)
         if isinstance(starts, torch.Tensor):
             sv = starts.to(device=graph.device, dtype=torch.int32)
         else:
             sv = torch.as_tensor(np.asarray(starts, dtype=np.int32),
                                  device=graph.device)
-        result, self.last_drain = self._engine(graph, sv,
-                                               task_rng.stream_key(seed))
+        result, self.last_drain = engine(graph, sv, task_rng.stream_key(seed))
         return result
+
+    def _single_engine(self, graph):
+        """The engine for ``graph``, built once.  The hot-vertex cache is a
+        function of the graph, so graph identity keys the memo whenever a
+        cache would be built; the memo holds the graph, keeping its id()
+        stable for the entry's lifetime."""
+        spec = self.program.spec
+        cfg = self.execution.engine_config(self.program)
+        wants_cache = cfg.step_impl == "fused" and cfg.cache_budget > 0
+        key = (spec, cfg, id(graph) if wants_cache else None)
+        if key not in self._engines:
+            cache = maybe_build_cache(spec, cfg, graph)
+            self._engines[key] = (build_engine(spec, cfg, cache=cache), graph)
+        return self._engines[key][0]
 
     def stream(self, graph, capacity: int = 4096, seed=0):
         """Open system — not ported yet."""

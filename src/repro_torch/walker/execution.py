@@ -36,8 +36,12 @@ class ExecutionConfig:
                         every sampler kind).
       hops_per_launch:  ``fused`` only — supersteps per kernel launch
                         (``stats.launches`` counts the launches).
-      cache_budget:     byte budget of the hot-vertex cache; only 0 (off)
-                        runs until the cache is ported.
+      cache_budget:     ``fused`` only — byte budget of the hot-vertex
+                        adjacency cache (0 disables it).  The kernel keeps
+                        a block that fits in a thread block's shared
+                        memory there, and reads a larger one from device
+                        memory; either way only the three cache counters
+                        of the stats change.
     """
 
     num_slots: int = 1024
@@ -83,10 +87,6 @@ class ExecutionConfig:
             raise ValueError(
                 f"cache_budget is a byte budget and cannot be negative, got "
                 f"{self.cache_budget}")
-        if self.cache_budget > 0:
-            raise NotImplementedError(
-                "cache_budget > 0 (the hot-vertex cache) is not ported yet: "
-                "ROADMAP.md queue 1 item 5")
 
     def engine_config(self, program) -> EngineConfig:
         """Single-device engine view of these knobs for ``program``."""
@@ -100,4 +100,5 @@ class ExecutionConfig:
             max_supersteps=self.max_supersteps,
             step_impl=self.step_impl,
             hops_per_launch=self.hops_per_launch,
+            cache_budget=self.cache_budget,
         )

@@ -1,6 +1,6 @@
 """On-card checks of the CUDA kernels (walk-step, fused superstep, its
-Node2Vec rejection and reservoir branches included) and the ``cuda`` and
-``fused`` steps.
+Node2Vec rejection and reservoir branches and its hot-vertex cache tier
+included) and the ``cuda`` and ``fused`` steps.
 
 Marked ``gpu``: each test skips, with the reason, where CUDA is not
 available (the decision is made inside the fixture, never at import).
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch.core import walk_engine
-from repro_torch.core.walk_engine import EngineConfig
+from repro_torch.core.walk_engine import EngineConfig, maybe_build_cache
 from repro_torch.graph import make_dataset
 from repro_torch.kernels.fused_superstep import LAUNCHES as FUSED_LAUNCHES
 from repro_torch.kernels.fused_superstep import ops as fused_ops
@@ -223,3 +223,72 @@ def hub_state(g, state, chunk):
                                           (hub, -1, 0),
                                           (ragged, in_neighbor(ragged), 2))):
         s.v_curr[lane], s.v_prev[lane], s.hop[lane] = v, vp, hop
+
+
+@pytest.fixture(scope="module")
+def large_graph():
+    """The scale-14 WG stand-in with every payload: large enough that a
+    1 MiB cache block exceeds a thread block's shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return make_dataset("WG", weighted=True, with_alias=True,
+                        num_edge_types=3, scale_override=14)
+
+
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+@pytest.mark.parametrize("tier,budget", [("shared", 1 << 15),
+                                         ("global", 1 << 20)])
+@pytest.mark.parametrize("width", [1000, 4096])
+def test_fused_cached_kernel_bit_equal_to_plain_version(typed_graphs,
+                                                        large_graph, name,
+                                                        tier, budget, width):
+    """One k = 16 launch with the hot-vertex cache, its block in shared
+    memory (scale 10, 32 KiB) or read in place (scale 14, 1 MiB), from a
+    mid-drain state: every state tensor equal to the plain version's, the
+    three cache counters included, and some leader hits."""
+    g = typed_graphs[0] if tier == "shared" else large_graph
+    prog = PROGRAMS[name]
+    cfg = EngineConfig(num_slots=width, max_hops=20, step_impl="fused",
+                       cache_budget=budget)
+    cache = fused_ops.cache_block(maybe_build_cache(prog.spec, cfg, g),
+                                  g.device)
+    assert fused_ops.cache_tier(prog.spec, cfg, cache) == tier
+    depth = walk_engine._stage_depth(cfg)
+    starts = torch.from_numpy(np.random.default_rng(width).integers(
+        0, g.num_vertices, width + width // 16).astype(np.int32)).cuda()
+    state = walk_engine.init_state(cfg, depth, starts)
+    while bool(state.slots.active.all()):
+        state = fused_ref.fused_superstep_ref(g, prog.spec, cfg, depth, state,
+                                              (3, 4), 1, cache.hot_ids)
+    want = fused_ref.fused_superstep_ref(g, prog.spec, cfg, depth,
+                                         _clone(state), (3, 4), 16,
+                                         cache.hot_ids)
+    before = FUSED_LAUNCHES["fused_superstep"]
+    work, block = fused_ops.pack(_clone(state))
+    got = fused_ops.fused_superstep(g, prog.spec, cfg, depth, work, (3, 4), 16,
+                                    block, cache=cache)
+    torch.cuda.synchronize()
+    assert FUSED_LAUNCHES["fused_superstep"] == before + 1
+    for a, b in zip(_tensors(got), _tensors(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(got.stats.cache_hits) > int(state.stats.cache_hits)
+
+
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_fused_cached_step_equals_cpu_plain_version(typed_graphs, name):
+    """A cached fused drain on the card equals the CPU's in all 12 stats,
+    and equals the uncached drain but for the three cache counters."""
+    g, g_cpu = typed_graphs
+    starts = np.random.default_rng(0).integers(
+        0, g.num_vertices, 700).astype(np.int32)
+
+    def run(graph, budget):
+        return compile(PROGRAMS[name], execution=ExecutionConfig(
+            num_slots=256, step_impl="fused", hops_per_launch=4,
+            cache_budget=budget)).run(graph, starts, seed=1)
+    want, got, off = run(g_cpu, 1 << 14), run(g, 1 << 14), run(g, 0)
+    assert torch.equal(got.paths.cpu(), want.paths)
+    assert torch.equal(got.lengths.cpu(), want.lengths)
+    assert all(int(a) == int(b) for a, b in zip(got.stats, want.stats))
+    assert torch.equal(got.paths, off.paths)
+    assert int(got.stats.cache_hits) > 0 == int(off.stats.cache_hits)

@@ -29,9 +29,10 @@ from repro.core.walk_engine import _run_walks as ref_run_walks
 from repro.graph import make_dataset as ref_make_dataset
 from repro_torch import walker
 from repro_torch.core import walk_engine
+from repro_torch.core.phase_program import lower
 from repro_torch.core.samplers import SamplerSpec
 from repro_torch.core.walk_engine import EngineConfig, _run_walks
-from repro_torch.graph import make_dataset
+from repro_torch.graph import build_hot_cache, make_dataset
 from repro_torch.kernels.fused_superstep import LAUNCHES, ops
 from repro_torch.kernels.fused_superstep import ref as fused_ref
 from repro_torch.kernels.walk_step import LAUNCHES as WALK_STEP_LAUNCHES
@@ -185,7 +186,8 @@ def _state(cfg):
                                  "hist_shape", "alias_dtype", "k_negative",
                                  "metapath_type", "block_unpacked",
                                  "block_dtype", "weights_dtype",
-                                 "inv_p_overflow"])
+                                 "inv_p_overflow", "cache_dtype",
+                                 "cache_shape", "cache_type_stride"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(graphs, bad):
     _, pg = graphs
     cfg = EngineConfig(**CFG)
@@ -216,10 +218,24 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(graphs, bad):
         g = dataclasses.replace(pg, weights=pg.weights.double())
     elif bad == "inv_p_overflow":   # 1/p beyond float32's range
         spec = SamplerSpec(kind="rejection_n2v", p=1e-39)
+    cache = None
+    if bad.startswith("cache"):
+        cache = ops.cache_block(build_hot_cache(
+            pg, lower(spec).cache_payloads, 1 << 13), pg.device)
+    if bad == "cache_dtype":
+        cache = dataclasses.replace(cache, words=cache.words.long())
+    elif bad == "cache_shape":   # a block shorter than its layout says
+        cache = dataclasses.replace(cache, words=cache.words[:-1].clone())
+    elif bad == "cache_type_stride":   # a cache of another graph's types
+        spec = SamplerSpec(kind="metapath", metapath=(0, 1))
+        cache = ops.cache_block(build_hot_cache(
+            pg, lower(spec).cache_payloads, 1 << 13), pg.device)
+        cache = dataclasses.replace(cache, type_stride=3)
     err = TypeError if bad.endswith("_dtype") else ValueError
     before = dict(LAUNCHES)
     with pytest.raises(err):
-        ops.fused_superstep(g, spec, cfg, 32, state, (0, 1), k, block)
+        ops.fused_superstep(g, spec, cfg, 32, state, (0, 1), k, block,
+                            cache=cache)
     assert dict(LAUNCHES) == before
 
 
@@ -242,12 +258,28 @@ def test_cpu_launch_updates_the_packed_state_in_place(graphs):
 
 
 def test_unported_kinds_and_cache_raise(graphs):
+    """The wrapper takes a hot-vertex cache (the kernel's gather hierarchy
+    is ported): on the CPU it runs the plain version with the cache's hot
+    ids, counting the three cache counters.  A cache without a payload the
+    kind reads (DeepWalk's alias tables) is dropped, counting nothing."""
     _, pg = graphs
     cfg = EngineConfig(**CFG)
+    spec = SamplerSpec(kind="alias")
+    cache = ops.cache_block(build_hot_cache(
+        pg, ("col", "alias_prob", "alias_idx"), 1 << 13), pg.device)
     state, block = _state(cfg)
-    with pytest.raises(NotImplementedError, match="queue 2 item 1e"):
-        ops.fused_superstep(pg, SamplerSpec(), cfg, 32, state, (0, 1), 4,
-                            block, cache=object())
+    want = fused_ref.fused_superstep_ref(pg, spec, cfg, 32, _clone(state),
+                                         (0, 1), 4, cache.hot_ids)
+    got = ops.fused_superstep(pg, spec, cfg, 32, state, (0, 1), 4, block,
+                              cache=cache)
+    for a, b in zip(_tensors(got), _tensors(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(got.stats.cache_hits) > 0
+    bare = ops.cache_block(build_hot_cache(pg, ("col",), 1 << 13), pg.device)
+    state, block = _state(cfg)
+    got = ops.fused_superstep(pg, spec, cfg, 32, state, (0, 1), 4, block,
+                              cache=bare)
+    assert int(got.stats.cache_hits) + int(got.stats.cache_misses) == 0
 
 
 def test_cpu_launch_runs_the_plain_version_without_counting(graphs):

@@ -133,8 +133,8 @@ def test_unported_paths_raise_not_implemented(graphs, starts, monkeypatch):
         walker.ExecutionConfig(num_slots="auto")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         walker.ExecutionConfig(step_impl="fused", hops_per_launch="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        walker.ExecutionConfig(cache_budget=1024)
+    with pytest.raises(ValueError, match="cache_budget"):
+        walker.ExecutionConfig(cache_budget=-1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         walker.compile(walker.WalkProgram.urw(), backend="sharded")
     w = walker.compile(walker.WalkProgram.urw())
