@@ -7,9 +7,10 @@ Run from the root of a checkout.  Phases, in order; any failure raises and
 the script exits non-zero (no phase catches another's error).  Each prints
 its seconds.
 
-1. Build the CUDA kernels (walk_step, fused_superstep) from the checkout's
-   sources with nvcc, one process each, started together; print the build
-   times, both ptxas reports and the card's name and power limit.
+1. Build the CUDA kernels (walk_step, fused_superstep, embedding_bag,
+   segment_sum) from the checkout's sources with nvcc, one process each,
+   started together; print the build times, the four ptxas reports and
+   the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, bit for
    bit.  The one-hop walk-step kernels at W = 4096 and W = 1000 lanes over
    the main path's graph (lanes include dangling vertices, the max-degree
@@ -34,7 +35,12 @@ its seconds.
    main-path state at 1 MiB, which is read from device memory: every
    state tensor, the three cache counters included, equal to the plain
    version with the cache; the cached launch timed next to the uncached
-   one, with its bound from the main-path state.
+   one, with its bound from the main-path state.  The embedding-bag and
+   segment-sum kernels over the ids of a real SGNS batch (phase 4's
+   first, sampled from round 0's walks) and at a general shape
+   (:func:`check_embedding_bag`, :func:`check_segment_sum`): bit-equal to
+   their plain versions, the segment sum identical over two launches;
+   timed with their plain versions, bounds and library calls.
 3. Drive the main path: ``compile(program).run(graph, starts)`` for URW,
    PPR and DeepWalk on the WG stand-in at its Table II size (scale 20,
    weighted, alias tables) under ``step_impl`` torch, cuda, fused, fused,
@@ -58,8 +64,19 @@ its seconds.
    and every stat but ``launches`` and the three cache counters, with the
    walks/s, hit rate and coalesced share printed; URW at 16 KiB and
    64 KiB builds no cache and counts nothing.
-4. Print the kernels' JSON summary, the card line, and last the result
-   line ``{"ok": true, "device": {...}}``.
+4. Walks → embeddings: ``Walker.train_embeddings`` for DeepWalk (fused)
+   on the main path's graph at full width (EMB: 4 rounds of 65,536
+   80-hop walks, 4 × 48 SGNS steps of batch 4,096, dim 128, window 10,
+   5 negatives), overlapped, serial and overlapped again, each run with
+   the launch counts zeroed before it and read after (3 embedding-bag
+   and 3 segment-sum launches a step): all three equal, no recorded host
+   copy when overlapped (:func:`run_embeddings`); walks/s of the
+   producer, SGNS steps/s and each part of a step's wall and device busy
+   time; a checkpointed run resumed after step 96 equal to the
+   uninterrupted one (WG scale 16); a small run on the card against the
+   same run on the CPU.
+5. Print the kernels' JSON summary (five rows), the card line, and last
+   the result line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or when the
 script is run outside a checkout of the repository.
@@ -107,6 +124,7 @@ THREEFRY_OPS = 80                # int32 ops per Threefry-2x32 block
 LANE_OPS = 40                    # other int32 ops per live lane-superstep
 BISECT_OPS = 4                   # int32 ops per bisection halving
 SECTOR = 32                      # bytes the memory system moves per gather
+L2_FLUSH_BYTES = 256 << 20       # written ahead of a cold-L2 launch
 RUN_ORDER = {"urw": ("torch", "cuda", "fused", "fused", "cuda", "torch"),
              "ppr": ("torch", "cuda", "fused", "fused", "cuda", "torch"),
              "deepwalk": ("torch", "cuda", "fused", "fused", "cuda", "torch"),
@@ -252,6 +270,27 @@ def time_launches(fn, reps=TIMED_REPS, calls=GRAPH_CALLS) -> float:
         end.synchronize()
         samples.append(start.elapsed_time(end) / calls)
     return float(np.median(samples))
+
+
+def time_cold(fn, reps=FUSED_TIMED_REPS) -> float:
+    """Median device time of one call of ``fn`` in ms with a cold L2: each
+    sample first writes L2_FLUSH_BYTES (evicting the 50 MB L2), behind a
+    device sleep that hides the host's enqueue, then times the call alone
+    between CUDA events."""
+    import torch
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    samples = []
+    for _ in range(reps + 2):                 # the first two warm up
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(2_000_000)
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    return float(np.median(samples[2:]))
 
 
 def check_kernels(g) -> dict:
@@ -1098,6 +1137,21 @@ def run_n2vw_torch(g, starts, fused):
           f"{cols} columns")
 
 
+def device_rows(prof):
+    """(device µs, count, name) of each device activity (kernels, copies;
+    not the ops that launched them) in a ``torch.profiler`` trace, largest
+    first."""
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if e.device_type == DeviceType.CUDA and us > 0:
+            rows.append((us, e.count, e.key))
+    return sorted(rows, reverse=True)
+
+
 def profile_supersteps(graphs, starts_np) -> None:
     """Where the time goes: ``torch.profiler`` over a one-batch run of each
     program under each step impl (the per-hop impls' first 16 supersteps
@@ -1108,7 +1162,6 @@ def profile_supersteps(graphs, starts_np) -> None:
     own overhead inflates the wall time, so the busy share printed is a
     lower bound."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.walker import ExecutionConfig, compile
@@ -1127,14 +1180,7 @@ def profile_supersteps(graphs, starts_np) -> None:
                                      ProfilerActivity.CUDA]) as prof:
                 res = w.run(g, starts, seed=0)
                 torch.cuda.synchronize()
-            rows = []   # device activity (kernels, copies), not the ops
-            for e in prof.key_averages():    # that launched them
-                us = getattr(e, "self_device_time_total", None)
-                if us is None:
-                    us = e.self_cuda_time_total
-                if e.device_type == DeviceType.CUDA and us > 0:
-                    rows.append((us, e.count, e.key))
-            rows.sort(reverse=True)
+            rows = device_rows(prof)
             supersteps = int(res.stats.supersteps)
             busy_ms = sum(r[0] for r in rows) / 1e3
             wall_ms = w.last_drain.wall_s * 1e3
@@ -1201,6 +1247,559 @@ def check_small_against_cpu() -> None:
           f"{{{', '.join(variants)}}}")
 
 
+# ------------------------------------------------------- walks → embeddings
+
+# Phase 4's run: node2vec's published settings (d = 128, walk length 80,
+# window 10) with word2vec's 5 negatives, and the reference benchmark's
+# batch (benchmarks/e2e_embeddings.py).
+EMB = dict(seed=0, rounds=4, walks_per_round=65_536, steps_per_round=48,
+           batch_size=4_096, dim=128, window=10, num_negatives=5)
+EMB_RESUME_SCALE = 16            # the resume check's WG scale
+EMB_TIMED_STEPS = 48             # SGNS steps timed for steps/s
+EMB_SPLIT_STEPS = 8              # calls timed per part of a step
+EMB_LEARN_STEPS = 8              # steps taken on one batch at full width
+EMB_SMALL = dict(seed=3, rounds=2, walks_per_round=16, steps_per_round=8,
+                 batch_size=32, dim=8, window=3, num_negatives=4)
+TABLE_TOL = dict(rtol=1e-5, atol=1e-6)   # the CPU tests' table tolerance
+EB_SOURCE = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
+EB_REPLACES = "src/repro/kernels/embedding_bag/embedding_bag.py:41"
+SS_SOURCE = "src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu"
+SS_REPLACES = "src/repro/kernels/segment_sum/segment_sum.py:67"
+
+
+def embedding_walker():
+    from repro_torch.walker import ExecutionConfig, compile
+    return compile(programs()["deepwalk"], execution=ExecutionConfig(
+        num_slots=NUM_SLOTS, step_impl="fused",
+        hops_per_launch=HOPS_PER_LAUNCH))
+
+
+def sgns_batch(g):
+    """The first SGNS batch of phase 4's run, as the path hands its ids to
+    the kernels: recorded through ``batch_hook`` in a one-step
+    ``train_embeddings`` with EMB's sizes (step 0 samples round 0's walks
+    alone, so it is also the full run's first batch)."""
+    log = []
+    embedding_walker().train_embeddings(
+        g, **{**EMB, "rounds": 1, "steps_per_round": 1},
+        batch_hook=lambda step, batch: log.append(batch))
+    return log[0]
+
+
+def check_embedding_bag(g, batch) -> dict:
+    """Phase 2: the embedding-bag kernel bit-equal to its plain version on
+    the card, at the SGNS step's shapes (one-row bags of the ids of a real
+    batch: B = 4,096 centers and B = 20,480 negatives, D = 128, R = |V|)
+    and at a general one (B = 4,096, H = 7 with -1 pads and weights,
+    D = 100 for the scalar path; also against the CPU).  Each path shape
+    timed (CUDA-graph replays) with its plain version, its bound and
+    torch.nn.functional.embedding_bag; the JSON row is B = 20,480."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import ops, ref
+    gen = torch.Generator(device=g.device).manual_seed(0)
+    R, D = g.num_vertices, EMB["dim"]
+    table = torch.randn((R, D), generator=gen, device=g.device)
+    centers, _, negatives, _ = batch
+    rng = np.random.default_rng(7)
+    idx7 = rng.integers(-1, R, (4_096, 7)).astype(np.int32)
+    w7 = rng.random((4_096, 7), dtype=np.float32)
+    table100 = torch.randn((R, 100), generator=gen, device=g.device)
+    cases = {"path B=4096": (centers[:, None].contiguous(), table, None),
+             "path B=20480": (negatives.reshape(-1, 1), table, None),
+             "general B=4096 H=7 D=100": (
+                 torch.from_numpy(idx7).to(g.device), table100,
+                 torch.from_numpy(w7).to(g.device))}
+    row = None
+    for label, args in cases.items():
+        got, want = ops.embedding_bag(*args), ref.embedding_bag_ref(*args)
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"embedding_bag {label} disagrees with its "
+                                 f"plain version (max abs err {err})")
+        text = ""
+        if label.startswith("general"):
+            cpu = ref.embedding_bag_ref(*(a.cpu() for a in args))
+            if not torch.equal(got.cpu(), cpu):
+                raise AssertionError(f"embedding_bag {label} differs from "
+                                     "the plain version on the CPU")
+            text = "; equal to the plain version on the CPU"
+        print(f"embedding_bag {label}: bit-equal to the plain version "
+              f"(tolerance 0){text}")
+        if not label.startswith("path"):
+            continue
+        idx, tbl, _ = args
+        B = idx.shape[0]
+        ids = idx.clamp(0, R - 1).long()
+        fns = {"kernel": lambda: ops.embedding_bag(*args),
+               "plain": lambda: ref.embedding_bag_ref(*args),
+               "F.embedding_bag": lambda: F.embedding_bag(ids, tbl,
+                                                          mode="sum")}
+        cold = {k: time_cold(f) for k, f in fns.items()}
+        warm = {k: time_launches(f) for k, f in fns.items()}
+        ms, plain_ms, library_ms = cold.values()
+        rows = int(torch.unique(ids).numel())
+        nbytes = B * 4 + rows * D * 4 + B * D * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * B * D / CUDA_CORE_OPS_PER_S * 1e3
+        print(f"embedding_bag {label}: cold L2 (the path's case: the table "
+              f"was just rewritten by AdamW) " + ", ".join(
+                  f"{k} {v:.6f} ms" for k, v in cold.items())
+              + "; warm L2 (graph replays) " + ", ".join(
+                  f"{k} {v:.6f} ms" for k, v in warm.items())
+              + f"; bound {max(t_bytes, t_ops):.6f} ms ({nbytes} bytes: the "
+              f"ids, {rows} distinct rows of {D} floats, the output)")
+        row = {"name": "embedding_bag", "route": "cuda", "source": EB_SOURCE,
+               "replaces": EB_REPLACES, "launches": None, "max_abs_err": err,
+               "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": library_ms}
+    return row
+
+
+def check_segment_sum(g, batch) -> dict:
+    """Phase 2: the segment-sum kernel, over the ids of a real SGNS batch
+    (E = 4,096 centers, 20,480 negatives, 24,576 contexts and negatives;
+    S = |V|, D = 128) and a general case (E = 24,576, D = 100, one hub
+    segment holding 20% of the ids, empty segments, ids outside [0, S)),
+    each launched twice: the two results identical bytes, equal bit for
+    bit to the plain version on CPU copies, empty segments 0, and within
+    1e-3 of index_add_ on the card (atomics: another order of adds).  The
+    path shapes timed with the plain version on the card, the bound and
+    ``torch.zeros(S, D).index_add_``; the JSON row is E = 20,480."""
+    import torch
+
+    from repro_torch.kernels.segment_sum import ops, ref
+    gen = torch.Generator(device=g.device).manual_seed(1)
+    S, D = g.num_vertices, EMB["dim"]
+    _, contexts, negatives, _ = batch
+    rng = np.random.default_rng(8)
+    hub = rng.integers(0, S, 24_576).astype(np.int32)
+    hub[rng.random(24_576) < 0.2] = S // 3
+    hub[::97], hub[1::101] = -1, S
+    cases = {"path E=4096": (batch[0], D),
+             "path E=20480": (negatives.reshape(-1), D),
+             "path E=24576": (torch.cat([contexts, negatives.reshape(-1)]),
+                              D),
+             "general E=24576 D=100 hub 20%": (
+                 torch.from_numpy(hub).to(g.device), 100)}
+    row, max_err = None, 0.0
+    for label, (ids, dim) in cases.items():
+        data = torch.randn((ids.shape[0], dim), generator=gen,
+                           device=g.device)
+        got = ops.segment_sum(data, ids, S)
+        again = ops.segment_sum(data, ids, S)
+        want = ref.segment_sum_ref(data.cpu(), ids.cpu(), S)
+        if not torch.equal(got, again):
+            raise AssertionError(f"segment_sum {label}: two launches differ")
+        err = float((got.cpu() - want).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"segment_sum {label} disagrees with its "
+                                 f"plain version (max abs err {err})")
+        hit = torch.zeros(S, dtype=torch.bool, device=g.device)
+        hit[ids[(ids >= 0) & (ids < S)].long()] = True
+        if bool((got[~hit] != 0).any()):
+            raise AssertionError(f"segment_sum {label}: an empty segment "
+                                 "is not 0")
+        atomic = ref.segment_sum_ref(data, ids, S)
+        atomic_err = float((got - atomic).abs().max())
+        if atomic_err > 1e-3:
+            raise AssertionError(f"segment_sum {label}: {atomic_err} from "
+                                 "index_add_ on the card")
+        runs = torch.unique(ids[(ids >= 0) & (ids < S)], return_counts=True)
+        print(f"segment_sum {label}: identical bytes over two launches, "
+              f"bit-equal to the plain version on the CPU (tolerance 0), "
+              f"{int((~hit).sum())} empty segments 0, largest segment "
+              f"{int(runs[1].max())} rows; index_add_ on the card within "
+              f"{atomic_err:.3g} (tolerance 1e-3)")
+        if not label.startswith("path"):
+            continue
+        E = ids.shape[0]
+        ms = time_launches(lambda: ops.segment_sum(data, ids, S))
+        plain_ms = time_launches(lambda: ref.segment_sum_ref(data, ids, S))
+        lids = ids.long()
+        library_ms = time_launches(lambda: torch.zeros(
+            (S, dim), device=g.device).index_add_(0, lids, data))
+        nbytes = E * dim * 4 + E * 4 + S * dim * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = E * dim / CUDA_CORE_OPS_PER_S * 1e3
+        print(f"segment_sum {label}: kernel {ms:.6f} ms, plain (on the card, "
+              f"atomics) {plain_ms:.6f} ms, zeros + index_add_ "
+              f"{library_ms:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms "
+              f"({nbytes} bytes: the data and ids read, the dense output "
+              f"written)")
+        if label == "path E=20480":
+            row = {"name": "segment_sum", "route": "cuda",
+                   "source": SS_SOURCE, "replaces": SS_REPLACES,
+                   "launches": None, "max_abs_err": None, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": library_ms}
+    row["max_abs_err"] = max_err
+    return row
+
+
+def embedding_launches():
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.fused_superstep import ops as fused_ops
+    from repro_torch.kernels.segment_sum import ops as ss_ops
+    from repro_torch.kernels.walk_step import ops as step_ops
+    return {**step_ops.LAUNCHES, **fused_ops.LAUNCHES, **eb_ops.LAUNCHES,
+            **ss_ops.LAUNCHES}
+
+
+def reset_all_launches():
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.fused_superstep import ops as fused_ops
+    from repro_torch.kernels.segment_sum import ops as ss_ops
+    from repro_torch.kernels.walk_step import ops as step_ops
+    for ops in (step_ops, fused_ops, eb_ops, ss_ops):
+        ops.reset_launches()
+
+
+def run_embeddings(g) -> dict:
+    """Phase 4: ``Walker.train_embeddings`` at full width (EMB) on the main
+    path's graph, overlapped, serial and overlapped again, each run with
+    the launch counts zeroed just before it and read just after: 3
+    embedding-bag and 3 segment-sum launches a step, fused launches for
+    the producer, none of the walk-step kernels; no recorded host copy
+    when overlapped, one per round and per step when serial; the three
+    runs' tables, moments and rings equal; the ring holding the walks of
+    the last two rounds, as ``Walker.run`` gives them; the losses finite.
+    Then the producer's walks/s, SGNS steps/s and the per-step device time
+    of the sampler, forward + backward and AdamW.  Returns the launches
+    summed over the three runs."""
+    import torch
+
+    from repro_torch.core import corpus_ring
+    from repro_torch.core.rng import stream_key
+    w = embedding_walker()
+    steps = EMB["rounds"] * EMB["steps_per_round"]
+    want_launched = {k: 0 for k in embedding_launches()}
+    want_launched.update(embedding_bag=3 * steps, segment_sum=3 * steps)
+    totals = {k: 0 for k in want_launched}
+    outs = []
+    for label in ("overlap", "serial", "overlap"):
+        reset_all_launches()
+        copies = corpus_ring.host_copies()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if label == "overlap":
+            with corpus_ring.no_host_copies():
+                out = w.train_embeddings(g, **EMB,
+                                         log_every=EMB["steps_per_round"])
+        else:
+            out = w.train_embeddings(g, **EMB, overlap=False,
+                                     log_every=EMB["steps_per_round"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = embedding_launches()
+        copies = corpus_ring.host_copies() - copies
+        fused = launched["fused_superstep"]
+        if fused <= 0 or {**launched, "fused_superstep": 0} != want_launched:
+            raise AssertionError(f"embeddings {label}: kernel launches "
+                                 f"{launched}, expected {want_launched} and "
+                                 "fused launches")
+        if copies != (0 if label == "overlap" else EMB["rounds"] + steps):
+            raise AssertionError(f"embeddings {label}: {copies} host copies")
+        for k in totals:
+            totals[k] += launched[k]
+        losses = [h["loss"] for h in out["history"]]
+        if out["step"] != steps or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"embeddings {label}: step {out['step']}, "
+                                 f"losses {losses}")
+        print(f"embeddings {label}: {steps} steps, "
+              f"{EMB['rounds'] * EMB['walks_per_round']} walks in "
+              f"{wall:.3f} s; losses at steps "
+              f"{[h['step'] for h in out['history']]}: "
+              f"{[round(x, 6) for x in losses]}; host copies {copies}; "
+              f"kernel launches {launched}")
+        outs.append(out)
+    first = outs[0]
+    for label, out in zip(("serial", "overlap again"), outs[1:]):
+        same = (all(torch.equal(first["params"][k], out["params"][k])
+                    and torch.equal(first["opt_state"].nu[k],
+                                    out["opt_state"].nu[k])
+                    for k in first["params"])
+                and all(torch.equal(a, b)
+                        for a, b in zip(first["ring"], out["ring"])))
+        if not same:
+            raise AssertionError(f"embeddings: {label} differs from the "
+                                 "overlapped run")
+    for k, t in first["params"].items():
+        if t.shape != (g.num_vertices, EMB["dim"]) or not bool(
+                torch.isfinite(t).all()):
+            raise AssertionError(f"embeddings: {k} {tuple(t.shape)} not "
+                                 "finite")
+    n = EMB["walks_per_round"]
+    ring = first["ring"]
+    for r in (EMB["rounds"] - 2, EMB["rounds"] - 1):
+        starts = ((r * n + torch.arange(n, device=g.device))
+                  % g.num_vertices).int()
+        res = w.run(g, starts, seed=stream_key(EMB["seed"], r))
+        rows = slice((r * n) % ring.capacity, (r * n) % ring.capacity + n)
+        if not (torch.equal(ring.paths[rows], res.paths)
+                and torch.equal(ring.lengths[rows], res.lengths)):
+            raise AssertionError(f"embeddings: ring rows of round {r} differ "
+                                 "from Walker.run's walks")
+    print("embeddings: serial == overlap == overlap again in both tables, "
+          "the moments and the ring; the ring holds rounds "
+          f"{EMB['rounds'] - 2} and {EMB['rounds'] - 1} as Walker.run "
+          "gives them; tables finite")
+    del outs
+    measure_embeddings(g, w, first)
+    check_embeddings_step(g, first)
+    return totals
+
+
+def part_times(fn, reps=EMB_SPLIT_STEPS):
+    """(wall ms, device busy ms, device activities) per call of ``fn``:
+    the wall time from the host clock around ``reps`` calls ending in a
+    synchronize; the busy time and activity count from a
+    ``torch.profiler`` trace of ``reps`` more (the sum of the device
+    activities' times, so host gaps are not counted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return (wall, sum(r[0] for r in rows) / reps / 1e3,
+            sum(r[1] for r in rows) / reps)
+
+
+def measure_embeddings(g, w, out) -> None:
+    """The producer's walks/s (a round's drain, twice), SGNS steps/s
+    (EMB_TIMED_STEPS steps from the trained state, host clock around the
+    loop), and each part of a step — the sampler, forward + backward,
+    AdamW — alone: its wall time, its device busy time and its device
+    activities (:func:`part_times`)."""
+    import torch
+
+    from repro_torch.core import corpus_ring
+    from repro_torch.core.rng import stream_key
+    from repro_torch.models import embeddings as emb
+    from repro_torch.optim import adamw
+    n = EMB["walks_per_round"]
+    for r in range(2):
+        starts = ((r * n + torch.arange(n, device=g.device))
+                  % g.num_vertices).int()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w.run(g, starts, seed=stream_key(EMB["seed"], r))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"embeddings producer round {r}: {n} walks in {wall:.4f} s, "
+              f"walks/s={n / wall:.1f} "
+              f"host_sync_share={w.last_drain.sync_s / w.last_drain.wall_s:.4f}")
+    steps = EMB["rounds"] * EMB["steps_per_round"]
+    sg_cfg = emb.SkipGramConfig(num_vertices=g.num_vertices, dim=EMB["dim"],
+                                num_negatives=EMB["num_negatives"],
+                                window=EMB["window"])
+    opt_cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=max(1, steps // 10),
+                                total_steps=steps)
+    sample = corpus_ring.make_batch_sampler(
+        g.num_vertices, EMB["batch_size"], EMB["window"],
+        EMB["num_negatives"])
+    sgns = emb.make_sgns_step(sg_cfg, opt_cfg)
+    key = stream_key(EMB["seed"])
+    params, opt, ring = out["params"], out["opt_state"], out["ring"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(steps, steps + EMB_TIMED_STEPS):
+        params, opt, _ = sgns(params, opt, sample(ring, key, s))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / EMB_TIMED_STEPS * 1e3
+    print(f"embeddings SGNS: {EMB_TIMED_STEPS} steps, "
+          f"steps/s={1e3 / step_ms:.2f}, wall_ms_per_step={step_ms:.4f}")
+    keys = sorted(params)
+    batch = sample(ring, key, steps)
+
+    def forward_backward():
+        leaves = {k: params[k].detach().requires_grad_(True) for k in keys}
+        loss = emb.loss_fn(leaves, *batch[:3], mask=batch[3])
+        return dict(zip(keys, torch.autograd.grad(
+            loss, [leaves[k] for k in keys])))
+    grads = forward_backward()
+    parts = {"sampler": lambda: sample(ring, key, steps),
+             "forward+backward": forward_backward,
+             "adamw": lambda: adamw.apply_updates(params, grads, opt,
+                                                  opt_cfg)}
+    busy_total = 0.0
+    for name, fn in parts.items():
+        wall, busy, acts = part_times(fn)
+        busy_total += busy
+        print(f"embeddings part {name}: wall_ms={wall:.4f} "
+              f"device_busy_ms={busy:.4f} device_activities={acts:.1f}")
+    adam_bytes = 2 * 7 * g.num_vertices * EMB["dim"] * 4
+    print(f"embeddings step: device busy {busy_total:.4f} ms of a "
+          f"{step_ms:.4f} ms step (idle share "
+          f"{1 - busy_total / step_ms:.4f}); AdamW's bound "
+          f"{adam_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({adam_bytes} bytes: "
+          f"each table, its gradient and both moments read, the table and "
+          f"moments written)")
+
+
+def check_embeddings_step(g, out) -> None:
+    """Phase 4: a full-width SGNS step does what it should.  The runs'
+    losses stay near the untrained 6·ln 2 = 4.159: a step's 4,096 centers
+    are 0.4% of the 2^20 rows, so most rows of the next batch were never
+    trained.  So one batch sampled from the trained ring is taken
+    EMB_LEARN_STEPS times from the trained tables with fresh moments (lr
+    1e-2 held).  The first step is held to CPU copies in its two halves:
+    the gradients within rtol 1e-5 and an atol of 1e-6 of the largest
+    gradient (the loss's reductions add in another order, so each term
+    differs by ulps), and AdamW on the same gradients within TABLE_TOL.
+    The whole step is not compared: Adam's first step divides each
+    gradient by its own magnitude, so a gradient near ``eps`` turns an
+    ulp of the loss into up to ``lr`` of the table.  Then the batch's loss
+    must fall at every step."""
+    import torch
+
+    from repro_torch.core import corpus_ring
+    from repro_torch.core.rng import stream_key
+    from repro_torch.models import embeddings as emb
+    from repro_torch.optim import adamw
+    sg_cfg = emb.SkipGramConfig(num_vertices=g.num_vertices, dim=EMB["dim"],
+                                num_negatives=EMB["num_negatives"],
+                                window=EMB["window"])
+    opt_cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=1,
+                                total_steps=EMB_LEARN_STEPS, min_lr_ratio=1.0)
+    batch = corpus_ring.make_batch_sampler(
+        g.num_vertices, EMB["batch_size"], EMB["window"],
+        EMB["num_negatives"])(out["ring"], stream_key(EMB["seed"]),
+                              EMB["rounds"] * EMB["steps_per_round"])
+    keys = sorted(out["params"])
+
+    def loss_and_grads(tables, b):
+        leaves = {k: tables[k].detach().requires_grad_(True) for k in keys}
+        loss = emb.loss_fn(leaves, *b[:3], mask=b[3])
+        return loss.detach(), dict(zip(keys, torch.autograd.grad(
+            loss, [leaves[k] for k in keys])))
+
+    params = out["params"]
+    host = {k: v.to("cpu", copy=True) for k, v in params.items()}
+    t0 = time.perf_counter()
+    host_loss, host_grads = loss_and_grads(host, tuple(x.cpu() for x in batch))
+    cpu_s = time.perf_counter() - t0
+    loss, grads = loss_and_grads(params, batch)
+    torch.testing.assert_close(loss.cpu(), host_loss, rtol=1e-6, atol=0)
+    grad_err, table_err = 0.0, 0.0
+    for k in keys:
+        got, want = grads[k].cpu(), host_grads[k]
+        scale = float(want.abs().max())
+        grad_err = max(grad_err, float((got - want).abs().max()) / scale)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+        host_grads[k] = got
+    del got, want
+    host, _, _ = adamw.apply_updates(host, host_grads,
+                                     adamw.init_state(host), opt_cfg)
+    del host_grads
+    params, opt, _ = adamw.apply_updates(params, grads,
+                                         adamw.init_state(params), opt_cfg)
+    del grads
+    for k in keys:
+        got = params[k].cpu()
+        table_err = max(table_err, float((got - host[k]).abs().max()))
+        torch.testing.assert_close(got, host[k], **TABLE_TOL)
+    del host, got
+    sgns = emb.make_sgns_step(sg_cfg, opt_cfg)
+    losses = [float(loss)]
+    for _ in range(EMB_LEARN_STEPS - 1):
+        params, opt, aux = sgns(params, opt, batch)
+        losses.append(float(aux["loss"]))
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"embeddings: the loss of one batch did not fall "
+                             f"at every step: {losses}")
+    print(f"embeddings full-width step vs CPU copies: loss {float(loss):.8f} "
+          f"here, {float(host_loss):.8f} there; gradients within "
+          f"{grad_err:.3g} of the largest; AdamW on the same gradients within "
+          f"{table_err:.3g} (the CPU's forward + backward took {cpu_s:.2f} s)"
+          f"; one batch's loss over {EMB_LEARN_STEPS} steps: "
+          f"{[round(x, 6) for x in losses]}")
+
+
+def check_embeddings_resume() -> None:
+    """Phase 4: a checkpointed run stopped after step 96 (the later
+    checkpoints deleted) and resumed equals the uninterrupted run, tables,
+    moments and ring; at WG scale EMB_RESUME_SCALE, EMB's other sizes."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.graph import make_dataset
+    g = make_dataset("WG", weighted=True, with_alias=True,
+                     scale_override=EMB_RESUME_SCALE)
+    w = embedding_walker()
+    spr = EMB["steps_per_round"]
+    ref = w.train_embeddings(g, **EMB)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        w.train_embeddings(g, **EMB, ckpt_dir=d, ckpt_every=spr)
+        for name in os.listdir(d):
+            if int(name.split("_")[1]) > 2 * spr:
+                shutil.rmtree(os.path.join(d, name))
+        kept = sorted(os.listdir(d))
+        res = w.train_embeddings(g, **EMB, ckpt_dir=d, ckpt_every=spr)
+    same = (res["step"] == ref["step"]
+            and all(torch.equal(res["params"][k], ref["params"][k])
+                    and torch.equal(res["opt_state"].mu[k],
+                                    ref["opt_state"].mu[k])
+                    for k in ref["params"])
+            and all(torch.equal(a, b) for a, b in zip(res["ring"],
+                                                      ref["ring"])))
+    if not same:
+        raise AssertionError("embeddings: the resumed run differs")
+    print(f"embeddings resume (WG scale {EMB_RESUME_SCALE}, |V|="
+          f"{g.num_vertices}): resumed from {kept[-1]} of {kept}, bit-equal "
+          "to the uninterrupted run in tables, moments and ring")
+
+
+def check_embeddings_small_against_cpu() -> None:
+    """Phase 4: a small run (WG scale 9, dim 8, DeepWalk fused) on the card
+    against the same run on the CPU: every batch bit-equal, the tables
+    within the CPU tests' tolerance (TABLE_TOL: the loss's reductions add
+    in another order)."""
+    import torch
+
+    from repro_torch.graph import make_dataset
+    from repro_torch.walker import ExecutionConfig, WalkProgram, compile
+    logs, outs = {}, {}
+    for dev in ("cpu", "cuda"):
+        g = make_dataset("WG", weighted=True, with_alias=True,
+                         scale_override=9, device=dev)
+        log = logs[dev] = []
+        outs[dev] = compile(WalkProgram.deepwalk(10), execution=ExecutionConfig(
+            num_slots=64, step_impl="fused")).train_embeddings(
+            g, **EMB_SMALL, batch_hook=lambda s, b, log=log: log.append(
+                [x.cpu() for x in b]))
+    if not all(torch.equal(x, y) for a, b in zip(logs["cpu"], logs["cuda"])
+               for x, y in zip(a, b)):
+        raise AssertionError("embeddings small: a batch on the card differs "
+                             "from the CPU's")
+    err = 0.0
+    for k in ("in_embed", "out_embed"):
+        got, want = outs["cuda"]["params"][k].cpu(), outs["cpu"]["params"][k]
+        err = max(err, float((got - want).abs().max()))
+        torch.testing.assert_close(got, want, **TABLE_TOL)
+    print(f"embeddings small (WG scale 9, dim 8): {len(logs['cpu'])} batches "
+          f"bit-equal to the CPU's; tables within {err:.3g} (tolerance "
+          f"rtol {TABLE_TOL['rtol']}, atol {TABLE_TOL['atol']})")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: run it from the root of a checkout "
@@ -1255,11 +1854,21 @@ def main() -> int:
         return out
     rows = phase("2 walk_step", check_kernels, g)
     rows["fused_superstep"] = phase("2 fused", check_fused, graphs, starts)
+    batch = phase("2 SGNS batch", sgns_batch, g)
+    rows["embedding_bag"] = phase("2 embedding_bag", check_embedding_bag, g,
+                                  batch)
+    rows["segment_sum"] = phase("2 segment_sum", check_segment_sum, g, batch)
+    del batch
     launches = phase("3 main path", run_main_path, graphs, starts)
     launches["fused_superstep"] += phase(
         "3 cached main path", run_cached_main_path, graphs, starts)
     phase("3 profile", profile_supersteps, graphs, starts)
     phase("3 small batch vs CPU", check_small_against_cpu)
+    emb_launches = phase("4 embeddings", run_embeddings, g)
+    for name in ("fused_superstep", "embedding_bag", "segment_sum"):
+        launches[name] = launches.get(name, 0) + emb_launches[name]
+    phase("4 resume", check_embeddings_resume)
+    phase("4 small run vs CPU", check_embeddings_small_against_cpu)
     for name, row in rows.items():
         row["launches"] = launches[name]
         if row["launches"] <= 0:

@@ -1,0 +1,123 @@
+"""Checkpoints with an atomic commit, in the reference's on-disk format.
+
+One directory per step —
+  step_00000123.tmp/ -> (atomic rename) -> step_00000123/
+    manifest.json   — step, and per leaf its path, file, shape, dtype
+    arr_<k>.npy     — one file per leaf, copied to the host
+
+A checkpoint holds a tree of the port's own structures: dicts (keys in
+sorted order, as the reference's pytrees flatten them), NamedTuples
+(fields in order), tuples and lists, with tensors (or numpy arrays) as
+leaves.  :func:`restore` loads into the structure of a ``like`` tree and
+puts each leaf on the device and dtype of the matching ``like`` leaf.
+bfloat16 has no numpy dtype, so such a leaf is stored as float32 (exact)
+and cast back.  Writes are synchronous.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+
+def flatten_with_paths(tree, prefix: str = ""):
+    """``[(path, leaf)]`` of ``tree`` in the reference's leaf order."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in flatten_with_paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [item for name, v in zip(tree._fields, tree)
+                for item in flatten_with_paths(v, f"{prefix}{name}/")]
+    if isinstance(tree, (tuple, list)):
+        return [item for i, v in enumerate(tree)
+                for item in flatten_with_paths(v, f"{prefix}{i}/")]
+    return [(prefix.rstrip("/"), tree)]
+
+
+def unflatten(like, leaves):
+    """``like``'s structure with its leaves replaced, in order, by the
+    items of the iterator ``leaves``."""
+    if isinstance(like, dict):
+        return {k: unflatten(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(unflatten(v, leaves) for v in like))
+    if isinstance(like, (tuple, list)):
+        return type(like)(unflatten(v, leaves) for v in like)
+    return next(leaves)
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _dtype_name(leaf) -> str:
+    if isinstance(leaf, torch.Tensor):
+        return str(leaf.dtype).removeprefix("torch.")
+    return str(np.asarray(leaf).dtype)
+
+
+def save(ckpt_dir: str, step: int, tree: Any) -> None:
+    """Write a checkpoint.  Atomic: readers never see partial state."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    manifest = {"step": step, "leaves": []}
+    for i, (path, leaf) in enumerate(flatten_with_paths(tree)):
+        arr = _to_numpy(leaf)
+        np.save(os.path.join(tmp, f"arr_{i}.npy"), arr)
+        manifest["leaves"].append({"path": path, "file": f"arr_{i}.npy",
+                                   "shape": list(arr.shape),
+                                   "dtype": _dtype_name(leaf)})
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)  # atomic commit
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    """The newest committed step in ``ckpt_dir``, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+             if d.startswith("step_") and not d.endswith(".tmp")]
+    return max(steps) if steps else None
+
+
+def restore(ckpt_dir: str, step: int, like: Any):
+    """Load step ``step`` into the structure of ``like``, each leaf as a
+    tensor on the device and dtype of ``like``'s (numpy leaves stay
+    numpy)."""
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    refs = [leaf for _, leaf in flatten_with_paths(like)]
+    if len(refs) != len(manifest["leaves"]):
+        raise ValueError(f"checkpoint {d} holds {len(manifest['leaves'])} "
+                         f"leaves; the structure to restore into has "
+                         f"{len(refs)}")
+    loaded = []
+    for m, ref in zip(manifest["leaves"], refs):
+        arr = np.load(os.path.join(d, m["file"]))
+        want = tuple(ref.shape) if hasattr(ref, "shape") else np.shape(ref)
+        if arr.shape != want:
+            raise ValueError(f"checkpoint leaf {m['path']} has shape "
+                             f"{list(arr.shape)}, expected {list(want)}")
+        if isinstance(ref, torch.Tensor):
+            loaded.append(torch.from_numpy(arr).to(device=ref.device,
+                                                   dtype=ref.dtype))
+        else:
+            loaded.append(arr.astype(np.asarray(ref).dtype))
+    return unflatten(like, iter(loaded))

@@ -24,6 +24,8 @@ import torch
 SALT_COLUMN = 0   # which neighbor column
 SALT_ACCEPT = 1   # alias/rejection accept
 SALT_STOP = 2     # PPR termination draw
+SALT_CORPUS = 3   # SGNS batch sampler: ring row, center, window offset
+SALT_NEGATIVE = 4  # SGNS negative ids
 SALT_CHUNK0 = 8   # reservoir chunk c draws at SALT_CHUNK0 + c
 
 _MASK = 0xFFFFFFFF

@@ -31,7 +31,9 @@ INCLUDE_DIR = _KERNELS / "csrc"
 
 #: Library name -> its CUDA source, relative to this directory.
 SOURCES = {"walk_step": "walk_step/csrc/walk_step.cu",
-           "fused_superstep": "fused_superstep/csrc/fused_superstep.cu"}
+           "fused_superstep": "fused_superstep/csrc/fused_superstep.cu",
+           "embedding_bag": "embedding_bag/csrc/embedding_bag.cu",
+           "segment_sum": "segment_sum/csrc/segment_sum.cu"}
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

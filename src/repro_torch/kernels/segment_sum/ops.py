@@ -1,0 +1,129 @@
+"""Wrapper of the segment-sum CUDA kernel.
+
+``segment_sum(data, segment_ids, num_segments)`` sums the rows of ``data``
+(E, D) float32 by int32 segment id into a dense (S, D) result; empty
+segments are exactly 0 and ids outside ``[0, S)`` are dropped.  On the
+card the ids are stably sorted on the device (``torch.sort``; no host
+round-trip) and the kernel sums each segment's rows in that order, so the
+result is deterministic and equals the plain version (``ref.py``) run on
+the CPU bit for bit.  :class:`SegmentSumOp` holds ids that are already
+sorted and skips the sort.
+
+The reference's host tiling plan (``plan_tiles``: which row blocks each
+edge tile's one-hot matmul touches) has no counterpart: the kernel finds
+each segment's run by binary search.  Only float32 is taken; bfloat16
+raises ``TypeError`` (ROADMAP queue 3).
+
+Each wrapper checks its inputs and raises on anything the kernel does
+not take.  For tensors on the CPU it runs the plain version; for CUDA
+tensors it launches the kernel on PyTorch's current stream or raises —
+there is no fallback.  ``LAUNCHES`` counts kernel launches (nothing else
+adds to it).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.segment_sum import ref
+
+#: Kernel launches since the last :func:`reset_launches`.
+LAUNCHES = {"segment_sum": 0}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def reset_launches() -> None:
+    LAUNCHES["segment_sum"] = 0
+
+
+def _entry():
+    fn = build.load("segment_sum").segment_sum
+    fn.argtypes, fn.restype = [_P] * 4 + [_I] * 4 + [_P], ctypes.c_int
+    return fn
+
+
+def _check_ids(segment_ids, num_segments) -> None:
+    if segment_ids.dtype != torch.int32:
+        raise TypeError(f"segment_ids must be torch.int32, got "
+                        f"{segment_ids.dtype}")
+    if segment_ids.dim() != 1 or not segment_ids.is_contiguous():
+        raise ValueError(f"segment_ids must be a contiguous 1-D tensor, got "
+                         f"shape {tuple(segment_ids.shape)}")
+    if not 0 <= num_segments < 2**31:
+        raise ValueError(f"num_segments must be in [0, 2**31), got "
+                         f"{num_segments}")
+
+
+def _check_data(data, segment_ids) -> torch.device:
+    if data.device != segment_ids.device:
+        raise ValueError(f"segment_sum inputs span devices {data.device} and "
+                         f"{segment_ids.device}")
+    if data.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"segment_sum inputs must be on cpu or cuda, got "
+                         f"{data.device}")
+    if data.dtype != torch.float32:
+        raise TypeError(f"data must be torch.float32, got {data.dtype} (the "
+                        "kernel sums in float32 only)")
+    if data.dim() != 2 or not data.is_contiguous():
+        raise ValueError(f"data must be a contiguous 2-D tensor, got shape "
+                         f"{tuple(data.shape)}")
+    if data.shape[0] != segment_ids.shape[0]:
+        raise ValueError(f"data has {data.shape[0]} rows, segment_ids "
+                         f"{segment_ids.shape[0]}")
+    if data.numel() >= 2**31:
+        raise ValueError(f"data has {data.numel()} entries; the kernel "
+                         "indexes rows with int32")
+    return data.device
+
+
+def _launch(data, sorted_ids, order, num_segments) -> torch.Tensor:
+    dim = data.shape[1]
+    out = torch.empty((num_segments, dim), dtype=data.dtype,
+                      device=data.device)
+    if num_segments == 0 or dim == 0:
+        return out
+    vec = dim % 4 == 0 and data.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0
+    with torch.cuda.device(data.device):
+        rc = _entry()(data.data_ptr(), sorted_ids.data_ptr(),
+                      None if order is None else order.data_ptr(),
+                      out.data_ptr(), data.shape[0], num_segments, dim,
+                      int(vec),
+                      torch.cuda.current_stream(data.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_sum kernel launch failed: cudaError {rc}")
+    LAUNCHES["segment_sum"] += 1
+    return out
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """(S, D) segment sums of ``data`` (E, D) by ``segment_ids`` (E,), in
+    any order of the ids."""
+    _check_ids(segment_ids, num_segments)
+    device = _check_data(data, segment_ids)
+    if device.type == "cpu":
+        return ref.segment_sum_ref(data, segment_ids, num_segments)
+    sorted_ids, order = torch.sort(segment_ids, stable=True)
+    return _launch(data, sorted_ids, order, num_segments)
+
+
+class SegmentSumOp:
+    """Segment sum for a fixed vector of ascending segment ids (checked
+    once, here), reused across calls with new data."""
+
+    def __init__(self, segment_ids: torch.Tensor, num_segments: int):
+        _check_ids(segment_ids, num_segments)
+        if bool((segment_ids[1:] < segment_ids[:-1]).any()):
+            raise ValueError("segment_ids must be sorted ascending")
+        self.seg = segment_ids
+        self.num_segments = int(num_segments)
+
+    def __call__(self, data: torch.Tensor) -> torch.Tensor:
+        device = _check_data(data, self.seg)
+        if device.type == "cpu":
+            return ref.segment_sum_ref(data, self.seg, self.num_segments)
+        return _launch(data, self.seg, None, self.num_segments)

@@ -292,3 +292,155 @@ def test_fused_cached_step_equals_cpu_plain_version(typed_graphs, name):
     assert all(int(a) == int(b) for a, b in zip(got.stats, want.stats))
     assert torch.equal(got.paths, off.paths)
     assert int(got.stats.cache_hits) > 0 == int(off.stats.cache_hits)
+
+
+# ------------------------------------------------ embedding bag, segment sum
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _bags(B, H, R, D, pads, weighted, seed):
+    r = np.random.default_rng(seed)
+    idx = r.integers(-1 if pads else 0, R, (B, H)).astype(np.int32)
+    w = r.random((B, H), dtype=np.float32) if weighted else None
+    tbl = r.standard_normal((R, D)).astype(np.float32)
+    tbl[::7, ::3] = -0.0          # signed zeros meet the pads' row · 0
+    return idx, w, tbl
+
+
+@pytest.mark.parametrize("B,H,R,D,pads,weighted", [
+    (4096, 1, 1 << 16, 128, False, False),    # the SGNS step's gathers
+    (20480, 1, 1 << 16, 128, False, False),
+    (1000, 7, 5000, 100, True, True),         # pads, weights, scalar tail
+    (333, 3, 700, 128, True, True),
+    (64, 2, 50, 6, True, False)])
+def test_embedding_bag_kernel_bit_equal_to_plain_version(card, B, H, R, D,
+                                                         pads, weighted):
+    """The kernel against its plain version on the card and on the CPU,
+    bit for bit, counted once."""
+    from repro_torch.kernels.embedding_bag import LAUNCHES as EB
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    idx, w, tbl = _bags(B, H, R, D, pads, weighted, seed=B + H)
+    cpu = (torch.from_numpy(idx), torch.from_numpy(tbl),
+           None if w is None else torch.from_numpy(w))
+    dev = tuple(None if t is None else t.to(card) for t in cpu)
+    before = EB["embedding_bag"]
+    got = embedding_bag(*dev)
+    torch.cuda.synchronize()
+    assert EB["embedding_bag"] == before + 1
+    assert torch.equal(got, embedding_bag_ref(*dev))
+    assert torch.equal(got.cpu(), embedding_bag(*cpu))
+    # signed zeros kept
+    assert torch.equal(torch.signbit(got.cpu()), torch.signbit(
+        embedding_bag(*cpu)))
+
+
+def _segments(E, S, D, hub_share, seed):
+    r = np.random.default_rng(seed)
+    ids = r.integers(0, S, E).astype(np.int32)
+    ids[r.random(E) < hub_share] = S // 3        # a hub segment
+    ids[::97] = -1                               # dropped
+    ids[1::101] = S                              # dropped
+    return ids, r.standard_normal((E, D)).astype(np.float32)
+
+
+@pytest.mark.parametrize("E,S,D,hub", [
+    (4096, 1 << 16, 128, 0.0), (20480, 1 << 16, 128, 0.0),
+    (24576, 1 << 16, 128, 0.0), (24576, 5000, 100, 0.2),
+    (1000, 300, 7, 0.5)])
+def test_segment_sum_kernel_bit_equal_to_cpu_plain_version(card, E, S, D,
+                                                          hub):
+    """The kernel equals the plain version on CPU copies bit for bit, gives
+    the same bytes when launched twice, and agrees with index_add_ on the
+    card (atomics: another order) within 1e-3."""
+    from repro_torch.kernels.segment_sum import LAUNCHES as SS
+    from repro_torch.kernels.segment_sum import SegmentSumOp, segment_sum
+    from repro_torch.kernels.segment_sum.ref import segment_sum_ref
+    ids, data = _segments(E, S, D, hub, seed=E + S)
+    ids_d, data_d = torch.from_numpy(ids).to(card), torch.from_numpy(
+        data).to(card)
+    before = SS["segment_sum"]
+    got = segment_sum(data_d, ids_d, S)
+    again = segment_sum(data_d, ids_d, S)
+    torch.cuda.synchronize()
+    assert SS["segment_sum"] == before + 2
+    want = segment_sum_ref(torch.from_numpy(data), torch.from_numpy(ids), S)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again)
+    empty = np.setdiff1d(np.arange(S), ids)
+    assert bool((got[torch.from_numpy(empty).to(card)] == 0).all())
+    torch.testing.assert_close(got, segment_sum_ref(data_d, ids_d, S),
+                               rtol=1e-5, atol=1e-3)
+    order = np.argsort(ids, kind="stable")
+    op = SegmentSumOp(torch.from_numpy(ids[order]).to(card), S)
+    assert torch.equal(op(data_d[torch.from_numpy(order).to(card)]), got)
+
+
+def test_embedding_kernels_never_fall_back_to_the_plain_version(card):
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.segment_sum import segment_sum
+    idx = torch.zeros((8, 1), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="span devices"):
+        embedding_bag(idx, torch.zeros((4, 8)))
+    with pytest.raises(ValueError, match="span devices"):
+        segment_sum(torch.zeros((8, 4)), idx[:, 0], 4)
+
+
+def test_gather_rows_on_the_card_equals_the_cpu(card):
+    """Forward and gradient of the kernel gathers bit-equal to the CPU's
+    plain path."""
+    from repro_torch.models import embeddings as emb
+    r = np.random.default_rng(0)
+    table = r.standard_normal((5000, 128)).astype(np.float32)
+    ids = r.integers(0, 5000, (4096, 5)).astype(np.int32)
+    ids[:, 0] = 17                                  # a repeated row
+    out = {}
+    for dev in ("cpu", card):
+        t = torch.from_numpy(table).to(dev).requires_grad_(True)
+        rows = emb.gather_rows(t, torch.from_numpy(ids).to(dev))
+        (g,) = torch.autograd.grad(torch.sum(rows * rows.detach()), t)
+        out[str(dev)] = (rows.detach().cpu(), g.cpu())
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a, b)
+
+
+def test_train_embeddings_on_the_card(card):
+    """A small run (WG scale 9, dim 8) on the card: every batch bit-equal
+    to the CPU's, tables within the CPU tests' tolerance (rtol 1e-5, atol
+    1e-6: the loss's reductions run in another order); overlap and serial
+    bit-identical on the card; 3 embedding-bag and 3 segment-sum launches
+    a step."""
+    from repro_torch.kernels.embedding_bag import LAUNCHES as EB
+    from repro_torch.kernels.segment_sum import LAUNCHES as SS
+    kw = dict(seed=3, rounds=2, walks_per_round=16, steps_per_round=8,
+              batch_size=32, dim=8, window=3, num_negatives=4)
+    prog = WalkProgram.deepwalk(10)
+    logs, outs = {}, {}
+    for dev in ("cpu", "cuda"):
+        g = make_dataset("WG", weighted=True, with_alias=True,
+                         scale_override=9, device=dev)
+        logs[dev] = []
+        before = EB["embedding_bag"], SS["segment_sum"]
+        outs[dev] = compile(prog, execution=ExecutionConfig(
+            step_impl="fused", num_slots=64)).train_embeddings(
+            g, **kw, batch_hook=lambda s, b, log=logs[dev]: log.append(
+                tuple(x.cpu() for x in b)))
+        launched = EB["embedding_bag"] - before[0], SS["segment_sum"] - before[1]
+        assert launched == ((0, 0) if dev == "cpu" else (48, 48))
+    for a, b in zip(logs["cpu"], logs["cuda"]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for k in ("in_embed", "out_embed"):
+        torch.testing.assert_close(outs["cuda"]["params"][k].cpu(),
+                                   outs["cpu"]["params"][k], rtol=1e-5,
+                                   atol=1e-6)
+    g = make_dataset("WG", weighted=True, with_alias=True, scale_override=9)
+    ser = compile(prog, execution=ExecutionConfig(
+        step_impl="fused", num_slots=64)).train_embeddings(g, **kw,
+                                                           overlap=False)
+    for k in ("in_embed", "out_embed"):
+        assert torch.equal(ser["params"][k], outs["cuda"]["params"][k])

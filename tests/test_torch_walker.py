@@ -138,7 +138,7 @@ def test_unported_paths_raise_not_implemented(graphs, starts, monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         walker.compile(walker.WalkProgram.urw(), backend="sharded")
     w = walker.compile(walker.WalkProgram.urw())
-    for method in (w.stream, w.serve, w.train_embeddings):
+    for method in (w.stream, w.serve):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             method(pg)
     with pytest.raises(ValueError):
