@@ -9,8 +9,11 @@ its seconds.
 
 1. Build the CUDA kernels (walk_step, fused_superstep, embedding_bag,
    segment_sum) from the checkout's sources with nvcc, one process each,
-   started together; print the build times, the four ptxas reports and
-   the card's name and power limit.
+   started together; print the build times, the four ptxas reports, the
+   card's name and power limit, and the cooperative grid of each of the
+   fused kernel's 40 instantiations at W = 4,096 (blocks, threads a block,
+   blocks a multiprocessor; without a cache and with the largest block
+   staged in shared memory).
 2. Hold each kernel against its plain PyTorch version on the card, bit for
    bit.  The one-hop walk-step kernels at W = 4096 and W = 1000 lanes over
    the main path's graph (lanes include dangling vertices, the max-degree
@@ -26,7 +29,9 @@ its seconds.
    just-refilled lanes; plus PPR in static mode with an injection delay),
    and for Node2Vec a tail state with lanes placed on the max-degree hub
    (after a hop, and at hop 0) and on a vertex whose degree is not a
-   multiple of the reservoir chunk.  The launch is timed with CUDA events
+   multiple of the reservoir chunk, and for weighted Node2Vec a tail state
+   whose every live lane sits on the hub (its chunks spread over the
+   grid's warps).  The launch is timed with CUDA events
    (median of 30, 10 for Node2Vec, the state restored outside the timed
    region, host enqueue hidden behind a device sleep); the plain version
    and the bound from the main-path state.  At W = 4096 (main path, tail,
@@ -39,8 +44,12 @@ its seconds.
    segment-sum kernels over the ids of a real SGNS batch (phase 4's
    first, sampled from round 0's walks) and at a general shape
    (:func:`check_embedding_bag`, :func:`check_segment_sum`): bit-equal to
-   their plain versions, the segment sum identical over two launches;
-   timed with their plain versions, bounds and library calls.
+   their plain versions, the segment sum identical over two launches and
+   equal to its plain version after a call with other ids (a hub id over
+   1,024 times); timed with their plain versions, bounds and library
+   calls, the segment sum also split into its fill, link and rows.
+   Weighted Node2Vec's launches print the busiest warp's reservoir chunks
+   a superstep and the microseconds a chunk.
 3. Drive the main path: ``compile(program).run(graph, starts)`` for URW,
    PPR and DeepWalk on the WG stand-in at its Table II size (scale 20,
    weighted, alias tables) under ``step_impl`` torch, cuda, fused, fused,
@@ -181,6 +190,31 @@ def ptxas_report(log: str):
         if ("Compiling entry function" in line or "spill" in line
                 or "Used" in line):
             yield "  " + line.strip()
+
+
+def print_grids() -> None:
+    """Phase 1: the grid of every instantiation of the fused kernel at the
+    main path's W, without a cache and with the largest block staged in
+    shared memory (blocks, threads a block, blocks a multiprocessor)."""
+    import torch
+
+    from repro_torch.kernels.fused_superstep import ops
+    dev = torch.cuda.current_device()
+    for kind, code in ops.KINDS.items():
+        for stop in (False, True):
+            for record in (False, True):
+                for static in (False, True):
+                    flags = (code, stop, record, static)
+                    smem = ops._smem_limit(dev, *flags) // 16 * 16
+                    text = []
+                    for staged in (0, smem):
+                        gr = ops._grid(dev, *flags, NUM_SLOTS, staged, 0)
+                        text.append(f"{staged} B staged: {gr.blocks} blocks x "
+                                    f"{gr.threads} threads, {gr.per_sm} a "
+                                    "multiprocessor")
+                    print(f"grid {kind} stop={int(stop)} record={int(record)} "
+                          f"static={int(static)} W={NUM_SLOTS}: "
+                          + "; ".join(text))
 
 
 def programs():
@@ -543,22 +577,30 @@ def n2v_work(g, spec, key, slots_seq):
     return ops_count, SECTOR * sectors
 
 
-def busiest_thread(g, W, slots_seq):
-    """(mean, max) over a launch's supersteps of the candidates that the
-    kernel's busiest thread scans in one superstep: thread t owns lanes
-    [t * per, (t + 1) * per) of the W, and scans the whole neighbor list
-    of each live lane it owns (the reservoir's work per lane-superstep)."""
+def busiest_warp(g, spec, warps, slots_seq):
+    """(mean, max) over a launch's supersteps of the reservoir chunks that
+    the kernel's busiest warp takes in one superstep: every live lane with
+    a neighbor list brings ceil(deg / CH) (lane, chunk) items, and warp w
+    of the grid's ``warps`` takes items [w * per, (w + 1) * per), per =
+    ceil(items / warps)."""
     import torch
 
     from repro_torch.graph.csr import row_access
-    threads = min(1024, (W + 31) // 32 * 32)
-    per = -(-W // threads)
+    CH = spec.reservoir_chunk
     loads = []
     for s in slots_seq:
         deg = torch.where(s.active.bool(), row_access(g, s.v_curr)[1], 0)
-        deg = torch.nn.functional.pad(deg, (0, threads * per - W))
-        loads.append(int(deg.view(threads, per).sum(1).max()))
+        items = int(((deg + CH - 1) // CH).sum())
+        loads.append(-(-items // warps))
     return float(np.mean(loads)), max(loads)
+
+
+def in_neighbor(g, v):
+    """A vertex other than v with an edge to v."""
+    import torch
+    rows = torch.searchsorted(g.row_ptr, torch.nonzero(g.col == v)[:, 0],
+                              right=True) - 1
+    return int(rows[rows != v][0])
 
 
 def hub_state(g, state, chunk):
@@ -572,19 +614,30 @@ def hub_state(g, state, chunk):
     ragged = (deg > chunk) & (deg % chunk != 0)
     ragged[hub] = False
     ragged = int(torch.nonzero(ragged)[0])
-
-    def in_neighbor(v):
-        """A vertex other than v with an edge to v."""
-        rows = torch.searchsorted(g.row_ptr, torch.nonzero(g.col == v)[:, 0],
-                                  right=True) - 1
-        return int(rows[rows != v][0])
     s = state.slots
     lanes = torch.nonzero(s.active)[:3, 0].tolist()
-    for lane, (v, vp, hop) in zip(lanes, ((hub, in_neighbor(hub), 3),
+    for lane, (v, vp, hop) in zip(lanes, ((hub, in_neighbor(g, hub), 3),
                                           (hub, -1, 0),
-                                          (ragged, in_neighbor(ragged), 2))):
+                                          (ragged, in_neighbor(g, ragged),
+                                           2))):
         s.v_curr[lane], s.v_prev[lane], s.hop[lane] = v, vp, hop
     return [(hub, int(deg[hub])), (ragged, int(deg[ragged]))]
+
+
+def all_hub_state(g, state):
+    """Place every live lane of ``state`` (in place) on the max-degree hub:
+    even lanes after a hop from one of its in-neighbors, odd ones at hop 0.
+    So each live lane brings the hub's ceil(deg / CH) reservoir chunks."""
+    import torch
+    deg = g.row_ptr[1:] - g.row_ptr[:-1]
+    hub = int(torch.argmax(deg))
+    s = state.slots
+    even = torch.arange(s.v_curr.shape[0], device=g.device) % 2 == 0
+    live = s.active.bool()
+    s.v_curr[live] = hub
+    s.v_prev[live] = torch.where(even, in_neighbor(g, hub), -1).int()[live]
+    s.hop[live] = torch.where(even, 3, 0).int()[live]
+    return [(hub, int(deg[hub]))]
 
 
 def time_fused(launch, pristine, device_only, reps=FUSED_TIMED_REPS) -> float:
@@ -737,6 +790,7 @@ def check_fused(graphs, starts_np) -> dict:
               for W in FUSED_WIDTHS]
     cases.append(("ppr", 1_000, "static", 2, "tail"))
     cases += [(name, NUM_SLOTS, "zero_bubble", 0, "hub") for name in N2V]
+    cases.append(("node2vec_w", NUM_SLOTS, "zero_bubble", 0, "all hub"))
     max_err, row, per_kind, cached = 0, None, {}, []
     for name, W, mode, delay, where in cases:
         t_case = time.perf_counter()
@@ -755,6 +809,12 @@ def check_fused(graphs, starts_np) -> dict:
         if where == "hub":
             placed = (" (lanes placed on (vertex, degree) "
                       f"{hub_state(g, state, prog.spec.reservoir_chunk)})")
+        if where == "all hub":
+            placed = (" (every live lane placed on (vertex, degree) "
+                      f"{all_hub_state(g, state)})")
+        grid = ops.grid(prog.spec, cfg, g.device)
+        placed += (f" [grid {grid.blocks} blocks x {grid.threads} threads, "
+                   f"{grid.per_sm} a multiprocessor]")
         live = int(state.slots.active.sum())
         fresh = int((state.slots.active & (state.slots.hop == 0)).sum())
         if not (live == W if where == "main" else 0 < live < W):
@@ -807,11 +867,13 @@ def check_fused(graphs, starts_np) -> dict:
                             reps=N2V_KERNEL_REPS if n2v else FUSED_TIMED_REPS)
             seq = launch_slots(kernel, state, K) if n2v else None
             if name == "node2vec_w":
-                mean, top = busiest_thread(g, W, seq)
+                warps = grid.blocks * grid.threads // 32
+                mean, top = busiest_warp(g, prog.spec, warps, seq)
                 print(f"fused_superstep {name} W={W} {where}: the busiest "
-                      f"thread scans {mean:.0f} candidates a superstep "
+                      f"of {warps} warps takes {mean:.1f} chunks a superstep "
                       f"(mean over the launch, most {top}): "
-                      f"{ms / len(seq) / mean * 1e6:.1f} ns per candidate")
+                      f"{ms / len(seq) / mean * 1e3:.3f} us per chunk, "
+                      f"{ms / len(seq) * 1e3:.3f} us per superstep")
             if where == "main":
                 plain_ms = (plain_s * 1e3 if n2v else
                             time_fused(plain, state, device_only=False))
@@ -1359,6 +1421,53 @@ def check_embedding_bag(g, batch) -> dict:
     return row
 
 
+def segment_sum_split(data, ids, S):
+    """(fill ms, link ms, rows ms) of one segment-sum call: its three C
+    entry points timed apart (CUDA-graph replays), on scratch of the
+    wrapper's shapes: the fill (zeros into the result), the ordering
+    (each position linked into its segment's chain) and the non-empty
+    rows' sums over the chains the link left."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import build
+    lib = build.load("segment_sum")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fill, link, rows = (lib.segment_sum_fill, lib.segment_sum_link,
+                        lib.segment_sum_rows)
+    fill.argtypes, fill.restype = [P] * 2 + [I] * 4 + [P], I
+    link.argtypes, link.restype = [P] * 4 + [I] * 3 + [P], I
+    rows.argtypes, rows.restype = [P] * 5 + [I] * 4 + [P], I
+    E, D = data.shape
+    out = torch.empty((S, D), device=data.device)
+    nxt = torch.empty((max(E, 1),), dtype=torch.int32, device=data.device)
+    linked = torch.empty((max(E, 1),), dtype=torch.uint8, device=data.device)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def check(rc):
+        if rc:
+            raise RuntimeError(f"segment_sum part failed: cudaError {rc}")
+
+    def run_fill():
+        check(fill(out.data_ptr(), linked.data_ptr(), E, S, D, 1, stream()))
+
+    def run_link():   # on a fill just made, as in a call
+        check(link(ids.data_ptr(), out.data_ptr(), nxt.data_ptr(),
+                   linked.data_ptr(), E, S, D, stream()))
+
+    def run_rows():
+        check(rows(data.data_ptr(), ids.data_ptr(), nxt.data_ptr(),
+                   linked.data_ptr(), out.data_ptr(), E, S, D, 1, stream()))
+    fill_ms = time_launches(run_fill)
+    link_ms = time_launches(lambda: (run_fill(), run_link())) - fill_ms
+    run_fill()
+    run_link()
+    return fill_ms, link_ms, time_launches(run_rows)
+
+
 def check_segment_sum(g, batch) -> dict:
     """Phase 2: the segment-sum kernel, over the ids of a real SGNS batch
     (E = 4,096 centers, 20,480 negatives, 24,576 contexts and negatives;
@@ -1366,9 +1475,14 @@ def check_segment_sum(g, batch) -> dict:
     segment holding 20% of the ids, empty segments, ids outside [0, S)),
     each launched twice: the two results identical bytes, equal bit for
     bit to the plain version on CPU copies, empty segments 0, and within
-    1e-3 of index_add_ on the card (atomics: another order of adds).  The
+    1e-3 of index_add_ on the card (atomics: another order of adds).  Then
+    the path's E = 24,576 ids, the general case's hub ids (over 1,024 of
+    one id) and the path's again, one call each over the same data: each
+    equal to its own plain version, so no chain outlives its call.  The
     path shapes timed with the plain version on the card, the bound and
-    ``torch.zeros(S, D).index_add_``; the JSON row is E = 20,480."""
+    ``torch.zeros(S, D).index_add_``, and split into the ordering pass
+    (the link) and the dense pass (the fill and the rows' sums;
+    :func:`segment_sum_split`); the JSON row is E = 20,480."""
     import torch
 
     from repro_torch.kernels.segment_sum import ops, ref
@@ -1423,14 +1537,18 @@ def check_segment_sum(g, batch) -> dict:
         lids = ids.long()
         library_ms = time_launches(lambda: torch.zeros(
             (S, dim), device=g.device).index_add_(0, lids, data))
+        fill_ms, link_ms, rows_ms = segment_sum_split(data, ids, S)
         nbytes = E * dim * 4 + E * 4 + S * dim * 4
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = E * dim / CUDA_CORE_OPS_PER_S * 1e3
-        print(f"segment_sum {label}: kernel {ms:.6f} ms, plain (on the card, "
-              f"atomics) {plain_ms:.6f} ms, zeros + index_add_ "
-              f"{library_ms:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms "
-              f"({nbytes} bytes: the data and ids read, the dense output "
-              f"written)")
+        print(f"segment_sum {label}: kernel {ms:.6f} ms (ordering pass: "
+              f"link {link_ms:.6f} ms; dense pass: fill {fill_ms:.6f} ms + "
+              f"rows {rows_ms:.6f} ms), plain (on "
+              f"the card, atomics) {plain_ms:.6f} ms, zeros + index_add_ "
+              f"{library_ms:.6f} ms ({'no slower' if ms <= library_ms else 'SLOWER'}"
+              f" than the wrapper: {ms / library_ms:.4f}x), bound "
+              f"{max(t_bytes, t_ops):.6f} ms ({nbytes} bytes: the data and "
+              f"ids read, the dense output written)")
         if label == "path E=20480":
             row = {"name": "segment_sum", "route": "cuda",
                    "source": SS_SOURCE, "replaces": SS_REPLACES,
@@ -1438,6 +1556,18 @@ def check_segment_sum(g, batch) -> dict:
                    "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "library_ms": library_ms}
+    data = torch.randn((24_576, D), generator=gen, device=g.device)
+    path_ids, hub_ids = cases["path E=24576"][0], cases[
+        "general E=24576 D=100 hub 20%"][0]
+    for ids in (path_ids, hub_ids, path_ids):
+        got = ops.segment_sum(data, ids, S)
+        if not torch.equal(got.cpu(), ref.segment_sum_ref(data.cpu(),
+                                                          ids.cpu(), S)):
+            raise AssertionError("segment_sum: a call after one with other "
+                                 "ids disagrees with its plain version")
+    print(f"segment_sum changed ids (path, hub {int((hub_ids == S // 3).sum())}"
+          " entries of one id, path) over one data: each call bit-equal to "
+          "its plain version on the CPU")
     row["max_abs_err"] = max_err
     return row
 
@@ -1825,6 +1955,7 @@ def main() -> int:
         for line in ptxas_report(build.build_log(lib)):
             print(line)
     print(card_line())
+    print_grids()
 
     t0 = time.perf_counter()
     g = make_dataset("WG", weighted=True, with_alias=True,

@@ -1,7 +1,12 @@
 """Wrapper of the fused superstep CUDA kernel.
 
 :func:`fused_superstep` advances the engine's :class:`StreamState` by at
-most ``k`` supersteps in one launch.  It checks every tensor (device,
+most ``k`` supersteps in one launch: one cooperative grid that spans the
+card, its blocks and threads (:func:`grid`) sized by the occupancy API
+for the launch's kernel instantiation and shared memory, so every block is
+resident and the blocks meet at one grid barrier a superstep (two for the
+reservoir, one more with a cache; see ``csrc/fused_superstep.cu``).  A
+launch the card refuses raises.  It checks every tensor (device,
 dtype, shape, contiguity) and raises on anything the kernel does not take.
 For tensors on the CPU it runs the plain version in ``ref.py``; for CUDA
 tensors it launches the kernel on PyTorch's current stream or raises —
@@ -29,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -53,8 +59,9 @@ KINDS = {"uniform": 0, "alias": 1, "metapath": 2, "rejection_n2v": 3,
          "reservoir_n2v": 4}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = ([_P] * 23 + [_I] * 9 + [ctypes.c_longlong]
-             + [ctypes.c_uint] * 2 + [_F] * 4 + [_I] * 15 + [_P])
+_L = ctypes.c_longlong
+_ARGTYPES = ([_P] * 22 + [_L] + [_I] * 9 + [_L] + [ctypes.c_uint] * 2
+             + [_F] * 4 + [_I] * 17 + [_P])
 
 #: The packed edge payloads of a cache block after ``col``, in order.
 _CACHE_PAYLOADS = ("weights", "alias_prob", "alias_idx")
@@ -151,6 +158,50 @@ def smem_limit(spec, cfg, device) -> int:
                        else torch.cuda.current_device(), KINDS[spec.kind],
                        spec.stop_prob > 0, cfg.record_paths,
                        cfg.mode == "static")
+
+
+class Grid(NamedTuple):
+    """A launch's grid: ``blocks`` of ``threads``, ``per_sm`` blocks
+    resident on a multiprocessor, and the ``scratch_bytes`` it needs."""
+
+    blocks: int
+    threads: int
+    per_sm: int
+    scratch_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def _grid(device_index: int, kind: int, stop: bool, record: bool,
+          static_mode: bool, width: int, smem: int, delay: int):
+    fn = build.load("fused_superstep").fused_superstep_grid
+    fn.argtypes, fn.restype = [_I] * 7 + [_P], _I
+    out = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(device_index):
+        rc = fn(kind, int(stop), int(record), int(static_mode), width, smem,
+                delay, out)
+    if rc != 0:
+        raise RuntimeError(f"fused_superstep_grid failed: cudaError {rc}")
+    return Grid(*out)
+
+
+def grid(spec, cfg, device, cache: CacheBlock | None = None) -> Grid:
+    """The grid of a launch for ``spec`` × ``cfg`` on CUDA ``device`` with
+    ``cache`` (a block the kind can use, or ``None``)."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    smem = (4 * _staged_words(spec, cfg, cache) + 15) // 16 * 16
+    return _grid(index, KINDS[spec.kind], spec.stop_prob > 0,
+                 cfg.record_paths, cfg.mode == "static", cfg.num_slots, smem,
+                 cfg.injection_delay)
+
+
+def _staged_words(spec, cfg, cache) -> int:
+    """The words of ``cache``'s block that each launch stages into shared
+    memory: all of them in the shared tier, none in the global tier."""
+    if cache is None or cache_tier(spec, cfg, cache) != "shared":
+        return 0
+    return cache.words.numel()
 
 
 def cache_tier(spec, cfg, cache: CacheBlock) -> str:
@@ -340,17 +391,16 @@ def fused_superstep(graph, spec, cfg, depth, state, key, k, block,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    scratch = words = None
+    words = None
     lay = (0,) * 9    # H, P, trips, staged words, 5 word offsets
     if cache is not None:
         words = cache.words
-        W = cfg.num_slots
-        scratch = torch.empty((3 * W,), dtype=torch.int32, device=device)
-        staged = (words.numel() if cache_tier(spec, cfg, cache) == "shared"
-                  else 0)
-        lay = (cache.num_hot, cache.num_entries, cache.probe_trips, staged,
-               cache.col, cache.weights, cache.alias_prob, cache.alias_idx,
-               cache.type_offsets)
+        lay = (cache.num_hot, cache.num_entries, cache.probe_trips,
+               _staged_words(spec, cfg, cache), cache.col, cache.weights,
+               cache.alias_prob, cache.alias_idx, cache.type_offsets)
+    g = grid(spec, cfg, device, cache)
+    scratch = torch.empty((g.scratch_bytes,), dtype=torch.uint8,
+                          device=device)
 
     with torch.cuda.device(device):
         rc = _entry()(
@@ -362,8 +412,7 @@ def fused_superstep(graph, spec, cfg, depth, state, key, k, block,
             ptr(graph.alias_prob) if alias else None,
             ptr(graph.alias_idx) if alias else None,
             ptr(graph.type_offsets) if metapath else None, ptr(sched),
-            ptr(weights), ptr(words), ptr(scratch),
-            None if scratch is None else ptr(scratch) + 8 * cfg.num_slots,
+            ptr(weights), ptr(words), ptr(scratch), g.scratch_bytes,
             cfg.num_slots, q.capacity, cfg.max_hops, graph.num_vertices,
             graph.num_edges,
             graph.type_offsets.shape[1] if metapath else 0,
@@ -374,7 +423,7 @@ def fused_superstep(graph, spec, cfg, depth, state, key, k, block,
             spec.rejection_rounds, spec.reservoir_chunk,
             bisect_iters(graph.max_degree), *lay,
             KINDS[spec.kind], int(cfg.record_paths),
-            int(cfg.mode == "static"),
+            int(cfg.mode == "static"), g.blocks, g.threads,
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_superstep kernel launch failed: "

@@ -1,4 +1,4 @@
-"""The segment-sum kernel: a sorted segmented reduction (the backward of
+"""The segment-sum kernel: a deterministic segmented reduction (the backward of
 the SGNS step's row gathers)."""
 from repro_torch.kernels.segment_sum.ops import (LAUNCHES, SegmentSumOp,
                                                  reset_launches, segment_sum)

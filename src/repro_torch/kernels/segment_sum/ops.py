@@ -3,22 +3,25 @@
 ``segment_sum(data, segment_ids, num_segments)`` sums the rows of ``data``
 (E, D) float32 by int32 segment id into a dense (S, D) result; empty
 segments are exactly 0 and ids outside ``[0, S)`` are dropped.  On the
-card the ids are stably sorted on the device (``torch.sort``; no host
-round-trip) and the kernel sums each segment's rows in that order, so the
-result is deterministic and equals the plain version (``ref.py``) run on
-the CPU bit for bit.  :class:`SegmentSumOp` holds ids that are already
-sorted and skips the sort.
+card each call makes three kernel launches on PyTorch's current stream,
+with no sort and no host round-trip: a fill (zeros into the result), a
+link that chains each position into its segment's list (the list's head
+kept in the segment's own zeroed row until its sum replaces it), and a
+pass that sums each non-empty segment's rows in ascending position (see
+``csrc/segment_sum.cu``).  So the result is
+deterministic and equals the plain version (``ref.py``) run on the CPU
+bit for bit.  :class:`SegmentSumOp` holds ids that are already sorted
+(checked once) and runs the same kernels.
 
 The reference's host tiling plan (``plan_tiles``: which row blocks each
-edge tile's one-hot matmul touches) has no counterpart: the kernel finds
-each segment's run by binary search.  Only float32 is taken; bfloat16
-raises ``TypeError`` (ROADMAP queue 3).
+edge tile's one-hot matmul touches) has no counterpart.  Only float32 is
+taken; bfloat16 raises ``TypeError`` (ROADMAP queue 3).
 
 Each wrapper checks its inputs and raises on anything the kernel does
 not take.  For tensors on the CPU it runs the plain version; for CUDA
-tensors it launches the kernel on PyTorch's current stream or raises —
-there is no fallback.  ``LAUNCHES`` counts kernel launches (nothing else
-adds to it).
+tensors it launches the kernels or raises — there is no fallback.
+``LAUNCHES`` counts wrapper calls that launched the kernels, one a call
+(its three launches together; nothing else adds to it).
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ def reset_launches() -> None:
 
 def _entry():
     fn = build.load("segment_sum").segment_sum
-    fn.argtypes, fn.restype = [_P] * 4 + [_I] * 4 + [_P], ctypes.c_int
+    fn.argtypes, fn.restype = [_P] * 5 + [_I] * 4 + [_P], ctypes.c_int
     return fn
 
 
@@ -79,7 +82,7 @@ def _check_data(data, segment_ids) -> torch.device:
     return data.device
 
 
-def _launch(data, sorted_ids, order, num_segments) -> torch.Tensor:
+def _launch(data, segment_ids, num_segments) -> torch.Tensor:
     dim = data.shape[1]
     out = torch.empty((num_segments, dim), dtype=data.dtype,
                       device=data.device)
@@ -87,11 +90,15 @@ def _launch(data, sorted_ids, order, num_segments) -> torch.Tensor:
         return out
     vec = dim % 4 == 0 and data.data_ptr() % 16 == 0 \
         and out.data_ptr() % 16 == 0
+    # Scratch: each position's successor in its chain, and whether a
+    # later position displaced it from the chain's head.
+    n = max(data.shape[0], 1)
+    nxt = torch.empty((n,), dtype=torch.int32, device=data.device)
+    linked = torch.empty((n,), dtype=torch.uint8, device=data.device)
     with torch.cuda.device(data.device):
-        rc = _entry()(data.data_ptr(), sorted_ids.data_ptr(),
-                      None if order is None else order.data_ptr(),
-                      out.data_ptr(), data.shape[0], num_segments, dim,
-                      int(vec),
+        rc = _entry()(data.data_ptr(), segment_ids.data_ptr(), out.data_ptr(),
+                      nxt.data_ptr(), linked.data_ptr(), data.shape[0],
+                      num_segments, dim, int(vec),
                       torch.cuda.current_stream(data.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: cudaError {rc}")
@@ -107,8 +114,7 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     device = _check_data(data, segment_ids)
     if device.type == "cpu":
         return ref.segment_sum_ref(data, segment_ids, num_segments)
-    sorted_ids, order = torch.sort(segment_ids, stable=True)
-    return _launch(data, sorted_ids, order, num_segments)
+    return _launch(data, segment_ids, num_segments)
 
 
 class SegmentSumOp:
@@ -126,4 +132,4 @@ class SegmentSumOp:
         device = _check_data(data, self.seg)
         if device.type == "cpu":
             return ref.segment_sum_ref(data, self.seg, self.num_segments)
-        return _launch(data, self.seg, None, self.num_segments)
+        return _launch(data, self.seg, self.num_segments)

@@ -444,3 +444,98 @@ def test_train_embeddings_on_the_card(card):
                                                            overlap=False)
     for k in ("in_embed", "out_embed"):
         assert torch.equal(ser["params"][k], outs["cuda"]["params"][k])
+
+
+# ------------------------------------------- the grid of the fused kernel
+
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_fused_grid_spans_blocks_and_is_bit_equal_at_12288(typed_graphs,
+                                                           name):
+    """At W = 12,288 the launch takes many blocks, every one owning lanes,
+    and one k = 16 launch from a mid-drain state (lanes live, idle and
+    just refilled, so refill ranks cross block edges) leaves every state
+    tensor equal to the plain version's."""
+    g, _ = typed_graphs
+    prog = PROGRAMS[name]
+    cfg = EngineConfig(num_slots=12_288, max_hops=20, step_impl="fused")
+    grid = fused_ops.grid(prog.spec, cfg, g.device)
+    assert 1 < grid.blocks <= grid.per_sm * torch.cuda.get_device_properties(
+        0).multi_processor_count
+    assert 12_288 // grid.blocks >= 1    # every block owns >= W // blocks
+    depth = walk_engine._stage_depth(cfg)
+    starts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, g.num_vertices, 12_288 + 768).astype(np.int32)).cuda()
+    state = walk_engine.init_state(cfg, depth, starts)
+    while bool(state.slots.active.all()):
+        state = fused_ref.fused_superstep_ref(g, prog.spec, cfg, depth, state,
+                                              (3, 4), 1)
+    want = fused_ref.fused_superstep_ref(g, prog.spec, cfg, depth,
+                                         _clone(state), (3, 4), 16)
+    work, block = fused_ops.pack(_clone(state))
+    got = fused_ops.fused_superstep(g, prog.spec, cfg, depth, work, (3, 4), 16,
+                                    block)
+    torch.cuda.synchronize()
+    for a, b in zip(_tensors(got), _tensors(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("budget", [0, 1 << 15])
+def test_fused_reservoir_with_every_lane_on_the_hub(cuda_graph, budget):
+    """Every live lane on the max-degree hub (half after a hop from an
+    in-neighbor, half at hop 0), so the hub's chunks are spread over the
+    grid's warps; without and with the cache (the hub is its first vertex):
+    every state tensor equal to the plain version's."""
+    g = cuda_graph
+    prog = PROGRAMS["node2vec_w"]
+    cfg = EngineConfig(num_slots=256, max_hops=20, step_impl="fused",
+                       cache_budget=budget)
+    cache = None
+    if budget:
+        cache = fused_ops.cache_block(maybe_build_cache(prog.spec, cfg, g),
+                                      g.device)
+    depth = walk_engine._stage_depth(cfg)
+    starts = torch.from_numpy(np.random.default_rng(9).integers(
+        0, g.num_vertices, 400).astype(np.int32)).cuda()
+    state = walk_engine.init_state(cfg, depth, starts)
+    deg = g.row_ptr[1:] - g.row_ptr[:-1]
+    hub = int(torch.argmax(deg))
+    src = torch.searchsorted(g.row_ptr, torch.nonzero(g.col == hub)[:, 0],
+                             right=True) - 1
+    vp = int(src[src != hub][0])
+    s = state.slots
+    s.v_curr[:] = hub
+    s.v_prev[:] = torch.where(torch.arange(256, device="cuda") % 2 == 0, vp,
+                              -1).int()
+    s.hop[:] = torch.where(s.v_prev >= 0, 3, 0).int()
+    hot = None if cache is None else cache.hot_ids
+    want = fused_ref.fused_superstep_ref(g, prog.spec, cfg, depth,
+                                         _clone(state), (3, 4), 4, hot)
+    work, block = fused_ops.pack(_clone(state))
+    got = fused_ops.fused_superstep(g, prog.spec, cfg, depth, work, (3, 4), 4,
+                                    block, cache=cache)
+    torch.cuda.synchronize()
+    for a, b in zip(_tensors(got), _tensors(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if budget:
+        assert int(got.stats.cache_hits) > 0
+
+
+def test_segment_sum_kernel_empty_and_changed_ids(card):
+    """No ids at all gives exact zeros; a second call with other ids over
+    the same shapes (a hub over 1,024 times, ids outside [0, S)) equals
+    its own plain version, so no chain of the first call survives."""
+    from repro_torch.kernels.segment_sum import segment_sum
+    from repro_torch.kernels.segment_sum.ref import segment_sum_ref
+    S = 1_000
+    out = segment_sum(torch.zeros((0, 8), device=card),
+                      torch.zeros((0,), dtype=torch.int32, device=card), S)
+    assert out.shape == (S, 8) and bool((out == 0).all())
+    first, data = _segments(4096, S, 128, 0.0, seed=1)
+    second, _ = _segments(4096, S, 128, 0.3, seed=2)
+    data_d = torch.from_numpy(data).to(card)
+    for ids in (first, second, first):
+        got = segment_sum(data_d, torch.from_numpy(ids).to(card), S)
+        want = segment_sum_ref(torch.from_numpy(data), torch.from_numpy(ids),
+                               S)
+        assert torch.equal(got.cpu(), want)
+    assert int((second == S // 3).sum()) > 1024
