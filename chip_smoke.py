@@ -15,10 +15,14 @@ its seconds.
    blocks a multiprocessor; without a cache and with the largest block
    staged in shared memory).
 2. Hold each kernel against its plain PyTorch version on the card, bit for
-   bit.  The one-hop walk-step kernels at W = 4096 and W = 1000 lanes over
+   bit.  First the launch floor: a 4-byte ``zero_()`` timed warm and cold
+   as the kernels are, printed beside each kernel's time.  The one-hop
+   walk-step kernels at W = 4096, 1, 31, 33, 1000 and 12288 lanes over
    the main path's graph (lanes include dangling vertices, the max-degree
-   hub and idle lanes), timed with CUDA events around CUDA-graph replays
-   (median of 60 replays of 10 calls each: device time per call).  The
+   hub and idle lanes), timed at W = 4096 with CUDA events around
+   CUDA-graph replays (median of 60 replays of 10 calls each: device time
+   per call) and cold (each call after 256 MiB of writes, median of
+   30).  The
    fused superstep kernel for URW, PPR, DeepWalk, MetaPath and Node2Vec
    (rejection and reservoir): one launch of k = 16 (k = 4 for the
    reservoir, whose plain launch is slow) through the kernel and through
@@ -42,8 +46,10 @@ its seconds.
    version with the cache; the cached launch timed next to the uncached
    one, with its bound from the main-path state.  The embedding-bag and
    segment-sum kernels over the ids of a real SGNS batch (phase 4's
-   first, sampled from round 0's walks) and at a general shape
-   (:func:`check_embedding_bag`, :func:`check_segment_sum`): bit-equal to
+   first, sampled from round 0's walks) and at general shapes (the
+   embedding bag at ragged B, H = 2 and 7, D = 100 and 102 and from an
+   unaligned table;
+   :func:`check_embedding_bag`, :func:`check_segment_sum`): bit-equal to
    their plain versions, the segment sum identical over two launches and
    equal to its plain version after a call with other ids (a hub id over
    1,024 times); timed with their plain versions, bounds and library
@@ -112,7 +118,9 @@ METAPATH = (0, 1, 2)
 N2V = ("node2vec", "node2vec_w")  # the Node2Vec programs (p = 2, q = 0.5)
 N2V_TORCH_STARTS = 1_024         # node2vec_w's torch run: starts and slots,
 N2V_TORCH_HOPS = 16              # and hops (its plain scan is slow)
-KERNEL_WIDTHS = (4_096, 1_000)   # the main path's W, and a ragged W
+# The walk-step kernels' widths: the main path's W first, then ragged ones
+# (one lane; either side of a warp; not a multiple of a block; 3 x 4,096).
+KERNEL_WIDTHS = (4_096, 1, 31, 33, 1_000, 12_288)
 FUSED_WIDTHS = (4_096, 1_000, 12_288)
 TIMED_REPS = 60                  # graph replays timed per function
 GRAPH_CALLS = 10                 # calls captured per graph (600 timed)
@@ -327,8 +335,27 @@ def time_cold(fn, reps=FUSED_TIMED_REPS) -> float:
     return float(np.median(samples[2:]))
 
 
-def check_kernels(g) -> dict:
-    """Phase 2: each kernel bit-equal to its plain version, timed."""
+def launch_floor() -> dict:
+    """Phase 2: a 4-byte ``zero_()`` timed warm and cold with the kernels'
+    own helpers: what any launch pays, printed beside each kernel's time
+    (never used as a bound)."""
+    import torch
+    x = torch.empty(1, dtype=torch.int32, device="cuda")
+    floor = {"warm": time_launches(x.zero_), "cold": time_cold(x.zero_)}
+    print(f"launch floor (a 4-byte zero_(), timed as the kernels are): "
+          f"warm {floor['warm']:.7f} ms, cold {floor['cold']:.7f} ms")
+    return floor
+
+
+def floor_text(floor) -> str:
+    return (f"launch floor warm {floor['warm']:.7f} ms, cold "
+            f"{floor['cold']:.7f} ms")
+
+
+def check_kernels(g, floor) -> dict:
+    """Phase 2: each walk-step kernel bit-equal to its plain version at
+    every width of KERNEL_WIDTHS, timed warm and cold at the main path's
+    W."""
     from repro_torch.kernels.walk_step import ops, ref
     plain = {"walk_step_uniform": ref.walk_step_uniform_ref,
              "walk_step_alias": ref.walk_step_alias_ref}
@@ -353,6 +380,7 @@ def check_kernels(g) -> dict:
         v, u_col, u_acc = kernel_inputs(g, width, seed=width)
         args = kernel_args(name, g, v, u_col, u_acc)
         ms = time_launches(lambda: kernel(*args))
+        cold_ms = time_cold(lambda: kernel(*args))
         plain_ms = time_launches(lambda: plain[name](*args))
         nbytes = bytes_needed(name, g, v, u_col, u_acc)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -365,8 +393,10 @@ def check_kernels(g) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
         }
-        print(f"{name} W={width}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-              f"bound {max(t_bytes, t_ops):.6f} ms ({nbytes} bytes)")
+        print(f"{name} W={width}: kernel warm {ms:.7f} ms, cold "
+              f"{cold_ms:.7f} ms ({floor_text(floor)}), plain warm "
+              f"{plain_ms:.6f} ms, bound {max(t_bytes, t_ops):.7f} ms "
+              f"({nbytes} bytes)")
     return rows
 
 
@@ -1348,14 +1378,20 @@ def sgns_batch(g):
     return log[0]
 
 
-def check_embedding_bag(g, batch) -> dict:
+def check_embedding_bag(g, batch, floor) -> dict:
     """Phase 2: the embedding-bag kernel bit-equal to its plain version on
     the card, at the SGNS step's shapes (one-row bags of the ids of a real
-    batch: B = 4,096 centers and B = 20,480 negatives, D = 128, R = |V|)
-    and at a general one (B = 4,096, H = 7 with -1 pads and weights,
-    D = 100 for the scalar path; also against the CPU).  Each path shape
-    timed (CUDA-graph replays) with its plain version, its bound and
-    torch.nn.functional.embedding_bag; the JSON row is B = 20,480."""
+    batch: B = 4,096 centers and B = 20,480 negatives, D = 128, R = |V|),
+    at ragged B (1, 31, 33, 20,481: one warp, a warp either side of a
+    block, a ragged last block), at H = 2 and 7 with -1
+    pads and weights, at D = 100 (25 float4 words a row, a partial warp;
+    H = 7 also against the CPU) and D = 102 (the scalar path), and from a
+    table view whose data pointer is 4 bytes past 16-byte alignment (the
+    scalar path at D = 128), each printing the path it took (float4 or
+    scalar).  Each path shape timed cold and warm with its plain version, its bound,
+    torch.nn.functional.embedding_bag and the launch floor, and the SGNS
+    step's three gathers back to back (each launch a programmatic
+    dependent of the one before); the JSON row is B = 20,480 cold."""
     import torch
     import torch.nn.functional as F
 
@@ -1365,14 +1401,35 @@ def check_embedding_bag(g, batch) -> dict:
     table = torch.randn((R, D), generator=gen, device=g.device)
     centers, _, negatives, _ = batch
     rng = np.random.default_rng(7)
-    idx7 = rng.integers(-1, R, (4_096, 7)).astype(np.int32)
-    w7 = rng.random((4_096, 7), dtype=np.float32)
+
+    def dev(x):
+        return torch.from_numpy(x).to(g.device)
+
+    def bags(B, H, pads=False):
+        return dev(rng.integers(-1 if pads else 0, R, (B, H)).astype(np.int32))
+
+    def weights(B, H):
+        return dev(rng.random((B, H), dtype=np.float32))
     table100 = torch.randn((R, 100), generator=gen, device=g.device)
+    table102 = torch.randn((R, 102), generator=gen, device=g.device)
+    unaligned = torch.randn((R * D + 1,), generator=gen,
+                            device=g.device)[1:].view(R, D)
     cases = {"path B=4096": (centers[:, None].contiguous(), table, None),
              "path B=20480": (negatives.reshape(-1, 1), table, None),
-             "general B=4096 H=7 D=100": (
-                 torch.from_numpy(idx7).to(g.device), table100,
-                 torch.from_numpy(w7).to(g.device))}
+             "B=1": (bags(1, 1), table, None),
+             "B=31": (bags(31, 1), table, None),
+             "B=33": (bags(33, 1), table, None),
+             "B=20481": (bags(20_481, 1), table, None),
+             "B=4096 H=2 pads, weights": (bags(4_096, 2, True), table,
+                                          weights(4_096, 2)),
+             "B=4096 H=7 pads, weights": (bags(4_096, 7, True), table,
+                                          weights(4_096, 7)),
+             "general B=4096 H=7 D=100 pads, weights": (
+                 bags(4_096, 7, True), table100, weights(4_096, 7)),
+             "B=20480 D=100": (negatives.reshape(-1, 1), table100, None),
+             "B=20480 D=102": (negatives.reshape(-1, 1), table102, None),
+             "unaligned table B=20480": (negatives.reshape(-1, 1), unaligned,
+                                         None)}
     row = None
     for label, args in cases.items():
         got, want = ops.embedding_bag(*args), ref.embedding_bag_ref(*args)
@@ -1387,11 +1444,15 @@ def check_embedding_bag(g, batch) -> dict:
                 raise AssertionError(f"embedding_bag {label} differs from "
                                      "the plain version on the CPU")
             text = "; equal to the plain version on the CPU"
+        idx, tbl, _ = args
+        vec = ops.vectorized(tbl, got)
+        if label.startswith("unaligned") and vec:
+            raise AssertionError("embedding_bag: an unaligned table took "
+                                 "the float4 path")
         print(f"embedding_bag {label}: bit-equal to the plain version "
-              f"(tolerance 0){text}")
+              f"(tolerance 0){text}; {'float4' if vec else 'scalar'} path")
         if not label.startswith("path"):
             continue
-        idx, tbl, _ = args
         B = idx.shape[0]
         ids = idx.clamp(0, R - 1).long()
         fns = {"kernel": lambda: ops.embedding_bag(*args),
@@ -1410,15 +1471,35 @@ def check_embedding_bag(g, batch) -> dict:
                   f"{k} {v:.6f} ms" for k, v in cold.items())
               + "; warm L2 (graph replays) " + ", ".join(
                   f"{k} {v:.6f} ms" for k, v in warm.items())
-              + f"; bound {max(t_bytes, t_ops):.6f} ms ({nbytes} bytes: the "
-              f"ids, {rows} distinct rows of {D} floats, the output)")
+              + f"; {floor_text(floor)}; bound {max(t_bytes, t_ops):.6f} ms "
+              f"({nbytes} bytes: the ids, {rows} distinct rows of {D} "
+              f"floats, the output); kernel/F.embedding_bag cold "
+              f"{ms / library_ms:.4f}")
         row = {"name": "embedding_bag", "route": "cuda", "source": EB_SOURCE,
                "replaces": EB_REPLACES, "launches": None, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "library_ms": library_ms}
+    cold, warm = step_gathers(ops.embedding_bag, table, batch)
+    print(f"embedding_bag the SGNS step's three gathers back to back (B = "
+          f"4,096, 4,096, 20,480): cold {cold:.6f} ms, warm {warm:.6f} ms; "
+          f"{floor_text(floor)}")
     return row
+
+
+def step_gathers(embedding_bag, table, batch) -> tuple[float, float]:
+    """(cold, warm) ms of the SGNS step's three gathers, as ``loss_fn``
+    issues them back to back (centers, contexts, negatives of ``batch``
+    from ``table``), through the wrapper ``embedding_bag``."""
+    centers, contexts, negatives, _ = batch
+    step = (centers[:, None].contiguous(), contexts[:, None].contiguous(),
+            negatives.reshape(-1, 1))
+
+    def gathers():
+        for ids in step:
+            embedding_bag(ids, table)
+    return time_cold(gathers), time_launches(gathers)
 
 
 def segment_sum_split(data, ids, S):
@@ -1983,11 +2064,12 @@ def main() -> int:
         out = fn(*args)
         print(f"phase {label}: {time.perf_counter() - t:.1f} s")
         return out
-    rows = phase("2 walk_step", check_kernels, g)
+    floor = phase("2 launch floor", launch_floor)
+    rows = phase("2 walk_step", check_kernels, g, floor)
     rows["fused_superstep"] = phase("2 fused", check_fused, graphs, starts)
     batch = phase("2 SGNS batch", sgns_batch, g)
     rows["embedding_bag"] = phase("2 embedding_bag", check_embedding_bag, g,
-                                  batch)
+                                  batch, floor)
     rows["segment_sum"] = phase("2 segment_sum", check_segment_sum, g, batch)
     del batch
     launches = phase("3 main path", run_main_path, graphs, starts)

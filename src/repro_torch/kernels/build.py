@@ -26,7 +26,8 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: Headers shared by the kernels (``walk_common.cuh``).
+#: Headers shared by the kernels (``walk_common.cuh``,
+#: ``dependent_launch.cuh``).
 INCLUDE_DIR = _KERNELS / "csrc"
 
 #: Library name -> its CUDA source, relative to this directory.

@@ -21,7 +21,6 @@ LAUNCHES = {"embedding_bag": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-
 def reset_launches() -> None:
     LAUNCHES["embedding_bag"] = 0
 
@@ -65,6 +64,13 @@ def _check(indices, table, weights) -> torch.device:
     return device
 
 
+def vectorized(table: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether the kernel reads and writes rows as float4: D % 4 == 0 and
+    both base pointers 16-byte aligned."""
+    return table.shape[1] % 4 == 0 and table.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0
+
+
 def embedding_bag(indices: torch.Tensor, table: torch.Tensor,
                   weights: torch.Tensor | None = None) -> torch.Tensor:
     """EmbeddingBag: (B, H) int32 indices (pad -1), (R, D) float32 table,
@@ -78,8 +84,7 @@ def embedding_bag(indices: torch.Tensor, table: torch.Tensor,
     out = torch.empty((bags, dim), dtype=table.dtype, device=device)
     if bags == 0 or dim == 0:
         return out
-    vec = dim % 4 == 0 and table.data_ptr() % 16 == 0 \
-        and out.data_ptr() % 16 == 0
+    vec = vectorized(table, out)
     with torch.cuda.device(device):
         rc = _entry()(indices.data_ptr(),
                       None if weights is None else weights.data_ptr(),

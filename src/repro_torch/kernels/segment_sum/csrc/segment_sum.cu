@@ -60,7 +60,12 @@
 #include <climits>
 #include <cstdint>
 
+#include "dependent_launch.cuh"
+
 namespace {
+
+using walk::launch_dependent;
+using walk::wait_for_previous_kernel;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -101,13 +106,6 @@ segment_fill_kernel(float* __restrict__ out, uint8_t* __restrict__ linked,
 // (zeroed by the fill), holding the last linked position + 1.
 __device__ __forceinline__ int* head_word(float* out, int id, int dim) {
   return reinterpret_cast<int*>(out + static_cast<long long>(id) * dim);
-}
-
-// Waits until the kernel launched before this one on the stream has
-// finished and its writes are visible (programmatic dependent launch:
-// this kernel may start while that one drains).
-__device__ __forceinline__ void wait_for_previous_kernel() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -275,8 +273,8 @@ segment_rows_kernel(const float* __restrict__ data,
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Each issues its launch on
-// `stream`, does not synchronise, and returns cudaGetLastError() after
-// it.  `vec` takes float4 loads and stores (dim % 4 == 0, data and out
+// `stream`, does not synchronise, and returns the launch's cudaError.
+// `vec` takes float4 loads and stores (dim % 4 == 0, data and out
 // 16-byte aligned; dim >= 1).  The link and the rows launch as
 // programmatic dependents (launch_dependent), so each starts while the
 // kernel before it drains.  `ids` in any order; `next` (n int32) and
@@ -300,32 +298,15 @@ extern "C" int segment_sum_fill(float* out, uint8_t* linked, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches `kernel` as a programmatic dependent of the kernel before it
-// on `stream`: it may start while that one drains, and waits for it
-// (wait_for_previous_kernel) before it reads what that one wrote.
-template <typename... Params, typename... Actual>
-int launch_dependent(void (*kernel)(Params...), int blocks, void* stream,
-                     Actual... args) {
-  cudaLaunchAttribute attr{};
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
-}
-
 // The ordering: each position linked into its segment's chain.
 extern "C" int segment_sum_link(const int* ids, float* out, int* next,
                                 uint8_t* linked, int n, int num_segments,
                                 int dim, void* stream) {
   if (n <= 0 || num_segments <= 0) return static_cast<int>(cudaSuccess);
-  return launch_dependent(segment_link_kernel, (n + kThreads - 1) / kThreads,
-                          stream, ids, out, next, linked, n, num_segments,
-                          dim);
+  return static_cast<int>(launch_dependent(
+      segment_link_kernel, (n + kThreads - 1) / kThreads, kThreads,
+      static_cast<cudaStream_t>(stream), ids, out, next, linked, n,
+      num_segments, dim));
 }
 
 // The non-empty rows, over the chains that the link left.
@@ -335,12 +316,14 @@ extern "C" int segment_sum_rows(const float* data, const int* ids,
                                 int vec, void* stream) {
   if (n <= 0 || num_segments <= 0) return static_cast<int>(cudaSuccess);
   const int blocks = (n + kWarps - 1) / kWarps;
-  return vec ? launch_dependent(segment_rows_kernel<true>, blocks, stream,
-                                data, ids, next, linked, out, n, num_segments,
-                                dim)
-             : launch_dependent(segment_rows_kernel<false>, blocks, stream,
-                                data, ids, next, linked, out, n, num_segments,
-                                dim);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      vec ? launch_dependent(segment_rows_kernel<true>, blocks, kThreads, s,
+                             data, ids, next, linked, out, n, num_segments,
+                             dim)
+          : launch_dependent(segment_rows_kernel<false>, blocks, kThreads, s,
+                             data, ids, next, linked, out, n, num_segments,
+                             dim));
 }
 
 // The whole sum (what the wrapper calls).

@@ -11,10 +11,27 @@
 // (alias: -> prob/alias[a+k] -> col[a+idx]).  The lane I/O (v, u, v_next,
 // deg) is coalesced; every gather touches one 32-byte sector per lane.  The
 // TPU kernel hid gather latency with double-buffered DMA loops over the
-// lanes of a tile; here the resident warps of many blocks hide it, so the
-// kernel is a straight-line gather chain with no staging.  At the walker's
-// lane counts (thousands) a launch moves well under a megabyte, so launch
-// overhead, not the gathers, dominates its time.
+// lanes of a tile.  At the walker's lane counts (thousands) a launch moves
+// well under a megabyte, so a launch takes its ramp plus one lane's chain
+// of round trips, not the bytes' time.
+//
+// The uniform kernel is built for that:
+//   - A grid over the card: kUniformThreads = 32 threads a block, so the
+//     main path's W = 4,096 lanes land on 128 of the 132 multiprocessors,
+//     not on 16 blocks of 256, and the lanes' uncoalesced gathers pass
+//     through 128 SMs' load queues.  32, 64, 128 and 256 threads a block
+//     were timed in turns on an NVIDIA H100 80GB HBM3 (700 W; PERF.md, by
+//     kernels/tuning/gather_variants.py): none was faster than another,
+//     so 32, which spreads the lanes furthest, stays.
+//   - A programmatic dependent launch: it may start while the kernel
+//     before it on the stream drains (on the main path, the copy of the
+//     column uniforms after their Threefry), and waits for that one
+//     (wait_for_previous_kernel) before it reads v_curr or u_col, so its
+//     launch and ramp overlap the other's tail.
+//   - v and u are loaded together (through L2: the kernel before may have
+//     just written them), so the chain is v -> row_ptr -> col, with u's
+//     load beside v's and not behind row_ptr.
+// The alias kernel keeps 256-thread blocks and an ordinary launch.
 //
 // The bounds mirror the reference's clips exactly: v clamps into
 // [0, V-1]; an edge offset clamps into [0, E-1]; deg == 0 gives -1; with
@@ -24,14 +41,18 @@
 
 #include <cuda_runtime.h>
 
+#include "dependent_launch.cuh"
 #include "walk_common.cuh"
 
 namespace {
 
 using walk::clampi;
+using walk::launch_dependent;
 using walk::uniform_index;
+using walk::wait_for_previous_kernel;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;          // the alias kernel's blocks
+constexpr int kUniformThreads = 32;    // the uniform kernel's blocks
 
 // Row access: (addr, deg) of the clamped vertex; false when V == 0.
 __device__ __forceinline__ bool row_access(const int* __restrict__ row_ptr,
@@ -46,20 +67,23 @@ __device__ __forceinline__ bool row_access(const int* __restrict__ row_ptr,
   return true;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kUniformThreads)
 walk_step_uniform_kernel(const int* __restrict__ v_curr,
                          const float* __restrict__ u_col,
                          const int* __restrict__ row_ptr,
                          const int* __restrict__ col,
                          int* __restrict__ v_next, int* __restrict__ deg_out,
                          int width, int num_vertices, int num_edges) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int i = blockIdx.x * kUniformThreads + threadIdx.x;
   if (i >= width) return;
+  wait_for_previous_kernel();   // v_curr and u_col
+  const int v = __ldcg(v_curr + i);
+  const float u = __ldcg(u_col + i);
   int addr = 0, deg = 0;
-  row_access(row_ptr, v_curr[i], num_vertices, &addr, &deg);
+  row_access(row_ptr, v, num_vertices, &addr, &deg);
   int out = -1;
   if (deg > 0 && num_edges > 0) {
-    const int k = uniform_index(deg, u_col[i]);
+    const int k = uniform_index(deg, u);
     out = __ldg(col + clampi(addr + k, 0, num_edges - 1));
   }
   v_next[i] = out;
@@ -91,23 +115,24 @@ walk_step_alias_kernel(const int* __restrict__ v_curr,
   deg_out[i] = deg;
 }
 
-inline int blocks_for(int width) { return (width + kThreads - 1) / kThreads; }
+inline int blocks_for(int width, int threads) {
+  return (width + threads - 1) / threads;
+}
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Each launches on `stream`,
-// does not synchronise, and returns cudaGetLastError() of the launch.
+// does not synchronise, and returns the launch's cudaError.
 
 extern "C" int walk_step_uniform(const int* v_curr, const float* u_col,
                                  const int* row_ptr, const int* col,
                                  int* v_next, int* deg, int width,
                                  int num_vertices, int num_edges,
                                  void* stream) {
-  walk_step_uniform_kernel<<<blocks_for(width), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      v_curr, u_col, row_ptr, col, v_next, deg, width, num_vertices,
-      num_edges);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_dependent(
+      walk_step_uniform_kernel, blocks_for(width, kUniformThreads),
+      kUniformThreads, static_cast<cudaStream_t>(stream), v_curr, u_col,
+      row_ptr, col, v_next, deg, width, num_vertices, num_edges));
 }
 
 extern "C" int walk_step_alias(const int* v_curr, const float* u_col,
@@ -116,7 +141,7 @@ extern "C" int walk_step_alias(const int* v_curr, const float* u_col,
                                const int* alias_idx, int* v_next, int* deg,
                                int width, int num_vertices, int num_edges,
                                void* stream) {
-  walk_step_alias_kernel<<<blocks_for(width), kThreads, 0,
+  walk_step_alias_kernel<<<blocks_for(width, kThreads), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       v_curr, u_col, u_acc, row_ptr, col, alias_prob, alias_idx, v_next, deg,
       width, num_vertices, num_edges);

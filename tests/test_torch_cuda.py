@@ -65,6 +65,26 @@ def test_kernels_bit_equal_to_plain_versions(cuda_graph, width):
     assert LAUNCHES["walk_step_alias"] == before["walk_step_alias"] + 1
 
 
+@pytest.mark.parametrize("width", [1, 31, 33, 12288])
+def test_walk_step_uniform_kernel_bit_equal_at_ragged_widths(cuda_graph,
+                                                             width):
+    """The uniform kernel (32-thread blocks, a programmatic dependent
+    launch) at widths either side of a warp and across many blocks, right
+    after another kernel wrote its inputs."""
+    g = cuda_graph
+    rng = np.random.default_rng(width + 7)
+    v = torch.from_numpy(rng.integers(-1, g.num_vertices + 2, width)
+                         .astype(np.int32)).cuda()
+    u = torch.from_numpy(rng.random(width, dtype=np.float32)).cuda()
+    v_in, u_in = v + 0, u * 1.0    # written by a kernel just before
+    before = LAUNCHES["walk_step_uniform"]
+    got = ops.walk_step_uniform(v_in, u_in, g.row_ptr, g.col)
+    torch.cuda.synchronize()
+    want = ref.walk_step_uniform_ref(v, u, g.row_ptr, g.col)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert LAUNCHES["walk_step_uniform"] == before + 1
+
+
 def test_cuda_tensor_never_falls_back_to_the_plain_version(cuda_graph):
     g = cuda_graph
     v = torch.zeros(8, dtype=torch.int32, device="cuda")
@@ -317,7 +337,15 @@ def _bags(B, H, R, D, pads, weighted, seed):
     (20480, 1, 1 << 16, 128, False, False),
     (1000, 7, 5000, 100, True, True),         # pads, weights, scalar tail
     (333, 3, 700, 128, True, True),
-    (64, 2, 50, 6, True, False)])
+    (64, 2, 50, 6, True, False),
+    (1, 1, 1 << 16, 128, False, False),       # ragged B: one warp,
+    (31, 1, 1 << 16, 128, False, False),      # a last block part idle,
+    (33, 1, 1 << 16, 128, False, False),
+    (20481, 1, 1 << 16, 128, False, False),
+    (4096, 2, 1 << 16, 128, True, True),      # pads and weights at D = 128
+    (4096, 7, 1 << 16, 128, True, True),
+    (20480, 1, 1 << 16, 100, False, False),   # 25 float4 words a row
+    (20480, 1, 1 << 16, 102, False, False)])  # the scalar path
 def test_embedding_bag_kernel_bit_equal_to_plain_version(card, B, H, R, D,
                                                          pads, weighted):
     """The kernel against its plain version on the card and on the CPU,
@@ -338,6 +366,24 @@ def test_embedding_bag_kernel_bit_equal_to_plain_version(card, B, H, R, D,
     # signed zeros kept
     assert torch.equal(torch.signbit(got.cpu()), torch.signbit(
         embedding_bag(*cpu)))
+
+
+def test_embedding_bag_kernel_from_an_unaligned_table(card):
+    """A table view 4 bytes past 16-byte alignment takes the scalar path
+    at D = 128 and stays bit-equal."""
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    idx, _, tbl = _bags(20480, 1, 1 << 16, 128, False, False, seed=5)
+    flat = torch.zeros(tbl.size + 1, device=card)
+    flat[1:] = torch.from_numpy(tbl.reshape(-1)).to(card)
+    table = flat[1:].view(tbl.shape)
+    indices = torch.from_numpy(idx).to(card)
+    got = eb_ops.embedding_bag(indices, table)
+    torch.cuda.synchronize()
+    assert table.data_ptr() % 16 != 0 and not eb_ops.vectorized(table, got)
+    assert torch.equal(got, embedding_bag_ref(indices, table))
+    assert torch.equal(got.cpu(), embedding_bag_ref(indices.cpu(),
+                                                    table.cpu()))
 
 
 def _segments(E, S, D, hub_share, seed):

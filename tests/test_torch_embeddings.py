@@ -241,6 +241,52 @@ def test_embedding_bag_checks_its_inputs():
         embedding_bag(idx, tbl[:, ::2])
 
 
+def _offset_view(rows, dim, floats):
+    """A (rows, dim) view ``floats`` float32 words into a fresh buffer."""
+    return torch.zeros(rows * dim + floats)[floats:].view(rows, dim)
+
+
+@pytest.mark.parametrize("dim,table_off,out_off,want", [
+    (128, 0, 0, True),     # the SGNS shape
+    (100, 0, 0, True),     # 25 float4 words a row
+    (102, 0, 0, False),    # D % 4 != 0
+    (128, 1, 0, False),    # a table 4 bytes past 16-byte alignment
+    (128, 0, 1, False),    # an output 4 bytes past it
+    (128, 4, 4, True),     # 16 bytes past: still aligned
+])
+def test_embedding_bag_float4_path_needs_d_and_alignment(dim, table_off,
+                                                         out_off, want):
+    """The wrapper takes the kernel's float4 path only when D % 4 == 0 and
+    the table and output both start on 16 bytes; else the scalar path."""
+    from repro_torch.kernels.embedding_bag.ops import vectorized
+    table, out = _offset_view(50, dim, table_off), _offset_view(9, dim,
+                                                                out_off)
+    assert vectorized(table, out) is want
+
+
+@pytest.mark.parametrize("name,headers", [
+    ("walk_step", {"dependent_launch.cuh", "walk_common.cuh"}),
+    ("fused_superstep", {"walk_common.cuh"}),
+    ("embedding_bag", {"dependent_launch.cuh"}),
+    ("segment_sum", {"dependent_launch.cuh"}),
+])
+def test_kernel_build_key_covers_its_shared_headers(name, headers,
+                                                    tmp_path, monkeypatch):
+    """A library's build is keyed by its source and every shared header it
+    includes, so an edit to a header rebuilds each library that uses it."""
+    from repro_torch.kernels import build
+    src = (build._KERNELS / build.SOURCES[name]).resolve()
+    assert {f.name for f in build._sources(src)} == {src.name, *headers}
+    before = build.library_path(name)
+    for h in headers:
+        copy = tmp_path / h
+        copy.write_text((build.INCLUDE_DIR / h).read_text() + "\n")
+    for h in {"dependent_launch.cuh", "walk_common.cuh"} - headers:
+        (tmp_path / h).write_text((build.INCLUDE_DIR / h).read_text())
+    monkeypatch.setattr(build, "INCLUDE_DIR", tmp_path)
+    assert build.library_path(name) != before
+
+
 def _round_to_f32(x: fractions.Fraction) -> np.float32:
     """The float32 nearest to the rational ``x`` (ties to even)."""
     f = np.float32(float(x))
