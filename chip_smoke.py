@@ -19,7 +19,9 @@ its seconds.
    as the kernels are, printed beside each kernel's time.  The one-hop
    walk-step kernels at W = 4096, 1, 31, 33, 1000 and 12288 lanes over
    the main path's graph (lanes include dangling vertices, the max-degree
-   hub and idle lanes), timed at W = 4096 with CUDA events around
+   hub and idle lanes), and at W = 4096 right after the kernels that
+   wrote v and the uniforms on the same stream, with no sync between (the
+   dependent launch's ordering); timed at W = 4096 with CUDA events around
    CUDA-graph replays (median of 60 replays of 10 calls each: device time
    per call) and cold (each call after 256 MiB of writes, median of
    30).  The
@@ -55,7 +57,12 @@ its seconds.
    1,024 times); timed with their plain versions, bounds and library
    calls, the segment sum also split into its fill, link and rows.
    Weighted Node2Vec's launches print the busiest warp's reservoir chunks
-   a superstep and the microseconds a chunk.
+   a superstep and the microseconds a chunk.  Last, from a stream's
+   state: for URW, PPR, DeepWalk, MetaPath and Node2Vec a fused stream
+   (W = 4,096, capacity 65,536) is driven until its ring has wrapped and
+   its live lanes hold two epochs, and one launch of k = 16 from there
+   through the kernel and through its plain version, on copies, must
+   leave every state tensor equal (:func:`check_fused_stream_state`).
 3. Drive the main path: ``compile(program).run(graph, starts)`` for URW,
    PPR and DeepWalk on the WG stand-in at its Table II size (scale 20,
    weighted, alias tables) under ``step_impl`` torch, cuda, fused, fused,
@@ -90,7 +97,22 @@ its seconds.
    time; a checkpointed run resumed after step 96 equal to the
    uninterrupted one (WG scale 16); a small run on the card against the
    same run on the CPU.
-5. Print the kernels' JSON summary (five rows), the card line, and last
+5. The open system (:func:`run_streams`): ``compile(program).stream(
+   graph, capacity, seed)`` at W = 4,096 and 80 hops on the main path's
+   graphs, fed 3 x capacity arrivals in blocks of 8,192 as slots free,
+   advanced in chunks of 16 supersteps, every finished slot harvested
+   and released, so the ring wraps at least twice and slots of two
+   epochs are live at once.  Fused for URW, PPR, DeepWalk, MetaPath and
+   Node2Vec at capacity 65,536, every harvested (epoch, qid) equal to
+   the row of the closed batch ``Walker.run(graph, starts_e,
+   seed=stream_key(seed, e))``; DeepWalk fused with the 229,376-byte
+   cache equal to it without; URW and DeepWalk at capacity 8,192 under
+   fused (equal to their closed batches), cuda and torch, all three
+   equal in every harvested walk and every stat but ``launches``.  Each
+   stream zeroes the launch counts before it and reads them after, and
+   prints its walks/s (harvested walks / wall), launches, supersteps and
+   the share of wall spent blocked in host reads (progress, done flags).
+6. Print the kernels' JSON summary (five rows), the card line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or when the
@@ -131,7 +153,7 @@ N2V_KERNEL_REPS = 10             # ... of the Node2Vec kinds (the plain
 # launch of 16 from the main-path state took 60 s on an H100 (its plain
 # superstep scans every chunk of the live lanes' largest degree).
 PHASE2_K = {"node2vec_w": 4}
-PROFILE_SUPERSTEPS = 16          # per-hop impls: supersteps profiled
+PROFILE_SUPERSTEPS = 8           # per-hop impls: supersteps profiled
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 CUDA_CORE_OPS_PER_S = 67e12      # H100 SXM float32 outside tensor cores
 # int32 rate of the whole card: 132 SMs x 64 int32 lanes per SM per clock
@@ -354,8 +376,10 @@ def floor_text(floor) -> str:
 
 def check_kernels(g, floor) -> dict:
     """Phase 2: each walk-step kernel bit-equal to its plain version at
-    every width of KERNEL_WIDTHS, timed warm and cold at the main path's
-    W."""
+    every width of KERNEL_WIDTHS and right after the kernels that wrote
+    its inputs, timed warm and cold at the main path's W."""
+    import torch
+
     from repro_torch.kernels.walk_step import ops, ref
     plain = {"walk_step_uniform": ref.walk_step_uniform_ref,
              "walk_step_alias": ref.walk_step_alias_ref}
@@ -376,6 +400,21 @@ def check_kernels(g, floor) -> dict:
                         f" (max abs err {err})")
             print(f"{name} W={width}: bit-equal to the plain version "
                   f"(tolerance 0: integer outputs)")
+        # The dependent launch's ordering: v and both uniforms written by
+        # kernels just before it on the same stream, with no sync between.
+        v, u_col, u_acc = kernel_inputs(g, KERNEL_WIDTHS[0], seed=5)
+        want = plain[name](*kernel_args(name, g, v, u_col, u_acc))
+        torch.cuda.synchronize()
+        u2 = torch.stack([u_col, u_acc], 1) * 1.0
+        got = kernel(*kernel_args(name, g, v + 0, u2[:, 0].contiguous(),
+                                  u2[:, 1].contiguous()))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 "right after the kernels that wrote its "
+                                 "inputs")
+        print(f"{name} W={KERNEL_WIDTHS[0]}: bit-equal right after the "
+              "kernels that wrote v and the uniforms (no sync between)")
         width = KERNEL_WIDTHS[0]
         v, u_col, u_acc = kernel_inputs(g, width, seed=width)
         args = kernel_args(name, g, v, u_col, u_acc)
@@ -1246,7 +1285,7 @@ def device_rows(prof):
 
 def profile_supersteps(graphs, starts_np) -> None:
     """Where the time goes: ``torch.profiler`` over a one-batch run of each
-    program under each step impl (the per-hop impls' first 16 supersteps
+    program under each step impl (the per-hop impls' first 8 supersteps
     only: with their ~1,000 device launches per superstep, whole batches
     made this phase take about 7 minutes on an H100) — device busy time
     (the sum of the device activities' times) against the run's wall time,
@@ -1337,6 +1376,293 @@ def check_small_against_cpu() -> None:
     print("small batch: card == CPU in paths, lengths and all 12 stats for "
           "urw, ppr, deepwalk, metapath, node2vec, node2vec_w x "
           f"{{{', '.join(variants)}}}")
+
+
+# ------------------------------------------------------------ the open system
+
+STREAM_CAPACITY = 65_536         # the fused streams' ring of query slots
+STREAM_SMALL_CAPACITY = 8_192    # the per-hop impls' ring (for time: they
+                                 # take 14-29 ms a superstep)
+STREAM_CHUNK = 16                # supersteps an advance
+STREAM_BLOCK = 8_192             # arrivals an injection
+STREAM_ROUNDS = 3                # arrivals = 3 x capacity: the ring wraps
+                                 # at least twice (epochs 0, 1 and 2)
+STREAM_SEED = 5
+STREAM_PROGRAMS = ("urw", "ppr", "deepwalk", "metapath", "node2vec")
+STREAM_PER_HOP = ("urw", "deepwalk")
+
+
+def stream_walker(name, impl, budget=0):
+    from repro_torch.walker import ExecutionConfig, compile
+    return compile(programs()[name], execution=ExecutionConfig(
+        num_slots=NUM_SLOTS, step_impl=impl, hops_per_launch=HOPS_PER_LAUNCH,
+        cache_budget=budget))
+
+
+def stream_starts(g, capacity):
+    return np.random.default_rng(capacity).integers(
+        0, g.num_vertices, STREAM_ROUNDS * capacity).astype(np.int32)
+
+
+def soak(stream, starts, until=None) -> dict:
+    """Drive ``stream`` through the arrivals ``starts``, in order: before
+    each advance of STREAM_CHUNK supersteps, inject blocks of at most
+    STREAM_BLOCK arrivals into every free slot; after it, harvest every
+    finished live slot on the device and release it.  Returns the
+    harvest (epochs, slot ids, starts, paths, lengths; sorted by (epoch,
+    qid)), the loop's wall seconds and their split (``split``: inject,
+    advance, the done mask, harvest, release, the rest), its chunks and
+    the most epochs live at once.  With ``until``, returns None as soon as
+    ``until(stream)`` holds after an advance, leaving the stream
+    mid-soak."""
+    import torch
+    at, chunks, mixed, live = 0, 0, 1, {}
+    parts = []
+    split = dict.fromkeys(("inject", "advance", "done", "harvest",
+                           "release"), 0.0)
+    t0 = time.perf_counter()
+    while at < len(starts) or stream.num_live:
+        while at < len(starts) and stream.num_free:
+            n = min(STREAM_BLOCK, stream.num_free, len(starts) - at)
+            t = time.perf_counter()
+            qids, epochs = stream.inject(starts[at:at + n])
+            split["inject"] += time.perf_counter() - t
+            parts.append(("in", epochs, qids, starts[at:at + n]))
+            for e, c in zip(*np.unique(epochs, return_counts=True)):
+                live[int(e)] = live.get(int(e), 0) + int(c)
+            mixed = max(mixed, sum(c > 0 for c in live.values()))
+            at += n
+        t = time.perf_counter()
+        if stream.advance(STREAM_CHUNK) == 0 and not (
+                at < len(starts) and stream.num_free):
+            if not stream.done_live_mask().any():
+                raise RuntimeError("stream stalled: live slots, no work")
+        split["advance"] += time.perf_counter() - t
+        chunks += 1
+        if until is not None and until(stream):
+            return None
+        t = time.perf_counter()
+        ready = np.flatnonzero(stream.done_live_mask())
+        split["done"] += time.perf_counter() - t
+        if ready.size:
+            epochs = stream.epoch_of(ready)
+            t = time.perf_counter()
+            parts.append(("out", epochs, ready, stream.harvest_device(ready)))
+            split["harvest"] += time.perf_counter() - t
+            for e, c in zip(*np.unique(epochs, return_counts=True)):
+                live[int(e)] -= int(c)
+            t = time.perf_counter()
+            stream.release(ready)
+            split["release"] += time.perf_counter() - t
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    split["rest"] = wall - sum(split.values())
+    start_of = {}
+    for kind, epochs, qids, x in parts:
+        if kind == "in":
+            start_of.update(zip(zip(epochs.tolist(), qids.tolist()),
+                                x.tolist()))
+    outs = [p for p in parts if p[0] == "out"]
+    epochs = np.concatenate([p[1] for p in outs]).astype(np.int64)
+    qids = np.concatenate([p[2] for p in outs]).astype(np.int64)
+    order = np.lexsort((qids, epochs))
+    idx = torch.from_numpy(order).to(stream.graph.device)
+    paths = torch.cat([p[3][0] for p in outs])[idx]
+    lengths = torch.cat([p[3][1] for p in outs])[idx]
+    epochs, qids = epochs[order], qids[order]
+    return {"epochs": epochs, "qids": qids,
+            "starts": np.array([start_of[e, q] for e, q in
+                                zip(epochs.tolist(), qids.tolist())],
+                               np.int32),
+            "paths": paths, "lengths": lengths, "wall": wall,
+            "split": split, "chunks": chunks, "mixed": mixed}
+
+
+def same_harvest(a, b) -> bool:
+    return (np.array_equal(a["epochs"], b["epochs"])
+            and np.array_equal(a["qids"], b["qids"])
+            and np.array_equal(a["starts"], b["starts"])
+            and bool((a["paths"] == b["paths"]).all())
+            and bool((a["lengths"] == b["lengths"]).all()))
+
+
+def check_against_closed(name, impl, g, h, capacity, budget=0) -> None:
+    """Every harvested (epoch, qid) equals row qid of the closed batch
+    ``Walker.run(g, starts_e, seed=stream_key(STREAM_SEED, e))`` under the
+    same impl, where starts_e holds each epoch's harvested starts."""
+    import torch
+
+    from repro_torch.core.rng import stream_key
+    w = stream_walker(name, impl, budget)
+    for e in np.unique(h["epochs"]):
+        sel = np.flatnonzero(h["epochs"] == e)
+        starts_e = np.zeros((capacity,), np.int32)
+        starts_e[h["qids"][sel]] = h["starts"][sel]
+        res = w.run(g, starts_e, seed=stream_key(STREAM_SEED, int(e)))
+        rows = torch.from_numpy(h["qids"][sel]).to(g.device)
+        pick = torch.from_numpy(sel).to(g.device)
+        if not (torch.equal(res.paths[rows], h["paths"][pick])
+                and torch.equal(res.lengths[rows], h["lengths"][pick])):
+            raise AssertionError(f"stream {name}/{impl}: epoch {e} differs "
+                                 "from its closed batch")
+
+
+def mixed_wrapped(stream) -> bool:
+    """The ring has wrapped (arrivals issued past its capacity) and the
+    live lanes hold occupants of at least two epochs."""
+    s = stream.state
+    return (int(s.queue.head) > stream.capacity
+            and int(s.slots.epoch[s.slots.active].unique().numel()) >= 2)
+
+
+def check_fused_stream_state(graphs) -> None:
+    """Phase 2, from a stream's state: for each stream program, a fused
+    stream at W = 4,096 and capacity 65,536 driven until its ring has
+    wrapped and its live lanes hold two epochs (:func:`mixed_wrapped`);
+    one launch of k = 16 from that state through the kernel and through
+    its plain version, on copies of it, must leave every state tensor
+    equal."""
+    import torch
+
+    from repro_torch.core import walk_engine
+    from repro_torch.core.rng import stream_key
+    from repro_torch.kernels.fused_superstep import LAUNCHES, ops, ref
+    key = tuple(int(k) for k in stream_key(STREAM_SEED))
+    for name in STREAM_PROGRAMS:
+        g = graphs[name]
+        stream = stream_walker(name, "fused").stream(
+            g, capacity=STREAM_CAPACITY, seed=STREAM_SEED)
+        if soak(stream, stream_starts(g, STREAM_CAPACITY),
+                until=mixed_wrapped) is not None:
+            raise AssertionError(f"stream {name}: the ring never wrapped "
+                                 "with mixed epochs live")
+        state, cfg = stream.state, stream.cfg
+        depth = walk_engine._stage_depth(cfg)
+        want = ref.fused_superstep_ref(g, programs()[name].spec, cfg, depth,
+                                       clone_state(state), key,
+                                       HOPS_PER_LAUNCH)
+        work, block = ops.pack(clone_state(state))
+        n0 = LAUNCHES["fused_superstep"]
+        got = ops.fused_superstep(g, programs()[name].spec, cfg, depth, work,
+                                  key, HOPS_PER_LAUNCH, block)
+        torch.cuda.synchronize()
+        if LAUNCHES["fused_superstep"] != n0 + 1:
+            raise AssertionError("fused launch not counted once")
+        err = state_err(got, want)
+        if err != 0:
+            raise AssertionError(f"fused_superstep {name} from a stream "
+                                 f"state disagrees with its plain version "
+                                 f"(max abs err {err})")
+        s = state.slots
+        lane_epochs = torch.unique(s.epoch[s.active], return_counts=True)
+        print(f"fused_superstep {name} from a stream state (head "
+              f"{int(state.queue.head)}, tail {int(state.queue.tail)}, "
+              f"capacity {STREAM_CAPACITY}; live lanes by epoch "
+              f"{dict(zip(*(t.tolist() for t in lane_epochs)))}): bit-equal "
+              f"to the plain version in every state tensor over "
+              f"{int(got.stats.supersteps) - int(state.stats.supersteps)} "
+              "supersteps (tolerance 0)")
+
+
+def run_stream(name, impl, g, capacity, budget=0) -> tuple:
+    """One stream soak with the launch counts zeroed just before it and
+    read just after; checks them and prints the stream's numbers.
+    Returns (harvest, stats, launches)."""
+    stream = stream_walker(name, impl, budget).stream(
+        g, capacity=capacity, seed=STREAM_SEED)
+    starts = stream_starts(g, capacity)
+    reset_all_launches()
+    h = soak(stream, starts)
+    launched = embedding_launches()
+    st = stream.walk_stats()
+    want = {k: 0 for k in launched}
+    if impl == "fused":
+        want["fused_superstep"] = st.launches
+    elif impl == "cuda":
+        want["walk_step_alias" if name == "deepwalk"
+             else "walk_step_uniform"] = st.supersteps
+    if launched != want:
+        raise AssertionError(f"stream {name}/{impl}: kernel launches "
+                             f"{launched}, expected {want}")
+    if len(h["epochs"]) != len(starts) or st.terminations != len(starts):
+        raise AssertionError(f"stream {name}/{impl}: harvested "
+                             f"{len(h['epochs'])} of {len(starts)}")
+    keys = h["epochs"] * capacity + h["qids"]
+    if np.unique(keys).size != keys.size or h["mixed"] < 2:
+        raise AssertionError(f"stream {name}/{impl}: an (epoch, qid) "
+                             "harvested twice, or epochs never mixed")
+    if set(range(STREAM_ROUNDS)) - set(h["epochs"].tolist()):
+        raise AssertionError(f"stream {name}/{impl}: epochs "
+                             f"{sorted(set(h['epochs'].tolist()))}")
+    print(f"stream {name} step_impl={impl} capacity={capacity}"
+          + (f" cache {budget} B" if budget else "")
+          + f": walks/s={len(starts) / h['wall']:.1f} "
+          f"launches={st.launches} supersteps={st.supersteps} "
+          f"chunks={h['chunks']} host_read_share="
+          f"{stream.host_read_s / h['wall']:.4f} wall_s={h['wall']:.4f} "
+          f"epochs={sorted(set(h['epochs'].tolist()))} most_epochs_live="
+          f"{h['mixed']} steps={st.steps} bubble_ratio="
+          f"{st.bubbles / max(st.slot_steps, 1):.6f} wall_split_ms="
+          f"{ {k: round(v * 1e3, 3) for k, v in h['split'].items()} } "
+          f"kernel_launches={launched}")
+    return h, st, launched
+
+
+def same_stats(a, b, skip=("launches",)) -> bool:
+    return all(x == y for f, x, y in zip(a._fields, a, b) if f not in skip)
+
+
+def run_streams(graphs) -> dict:
+    """Phase 5, the open system: ``Walker.stream`` at W = 4,096 and 80 hops
+    on the main path's graphs, 3 x capacity arrivals (the ring wraps at
+    least twice; slots of two epochs live at once), chunks of 16
+    supersteps, arrivals injected in blocks as slots free, every finished
+    slot harvested and released (:func:`soak`).  Fused for every stream
+    program at capacity 65,536, each (epoch, qid) equal to its closed
+    batch; DeepWalk fused with the 229,376-byte cache equal to it without;
+    URW and DeepWalk at capacity 8,192 under fused (equal to the closed
+    batches), cuda and torch, all three equal.  Returns each kernel's
+    launches summed over the runs."""
+    totals = {k: 0 for k in embedding_launches()}
+
+    def add(launched):
+        for k, n in launched.items():
+            totals[k] += n
+    for name in STREAM_PROGRAMS:
+        g = graphs[name]
+        h, st, launched = run_stream(name, "fused", g, STREAM_CAPACITY)
+        add(launched)
+        check_against_closed(name, "fused", g, h, STREAM_CAPACITY)
+        print(f"stream {name}/fused: every harvested (epoch, qid) equals "
+              "its closed batch under stream_key(seed, epoch)")
+        if name == "deepwalk":
+            hc, stc, launched = run_stream(name, "fused", g, STREAM_CAPACITY,
+                                           budget=CACHE_SHARED)
+            add(launched)
+            if not (same_harvest(h, hc) and same_stats(st, stc, (
+                    "launches", "cache_hits", "cache_misses",
+                    "cache_coalesced")) and stc.cache_hits > 0):
+                raise AssertionError("stream deepwalk: cached differs from "
+                                     "uncached")
+            print(f"stream deepwalk fused cache {CACHE_SHARED} B == uncached "
+                  f"(hit rate {stc.cache_hits / max(stc.cache_hits + stc.cache_misses, 1):.6f})")
+    for name in STREAM_PER_HOP:
+        g = graphs[name]
+        runs = {}
+        for impl in ("fused", "cuda", "torch"):
+            runs[impl] = run_stream(name, impl, g, STREAM_SMALL_CAPACITY)
+            add(runs[impl][2])
+        check_against_closed(name, "fused", g, runs["fused"][0],
+                             STREAM_SMALL_CAPACITY)
+        for impl in ("cuda", "torch"):
+            if not (same_harvest(runs["fused"][0], runs[impl][0])
+                    and same_stats(runs["fused"][1], runs[impl][1])):
+                raise AssertionError(f"stream {name}: {impl} differs from "
+                                     "fused")
+        print(f"stream {name} capacity {STREAM_SMALL_CAPACITY}: fused == "
+              "cuda == torch in every harvested walk and every stat but "
+              "launches; fused equals its closed batches")
+    return totals
 
 
 # ------------------------------------------------------- walks → embeddings
@@ -2072,6 +2398,7 @@ def main() -> int:
                                   batch, floor)
     rows["segment_sum"] = phase("2 segment_sum", check_segment_sum, g, batch)
     del batch
+    phase("2 fused from a stream state", check_fused_stream_state, graphs)
     launches = phase("3 main path", run_main_path, graphs, starts)
     launches["fused_superstep"] += phase(
         "3 cached main path", run_cached_main_path, graphs, starts)
@@ -2082,6 +2409,9 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + emb_launches[name]
     phase("4 resume", check_embeddings_resume)
     phase("4 small run vs CPU", check_embeddings_small_against_cpu)
+    stream_launches = phase("5 streams", run_streams, graphs)
+    for name, n in stream_launches.items():
+        launches[name] = launches.get(name, 0) + n
     for name, row in rows.items():
         row["launches"] = launches[name]
         if row["launches"] <= 0:

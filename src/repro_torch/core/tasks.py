@@ -93,6 +93,20 @@ def make_queue(start_vertices: torch.Tensor, staged: int | None = None,
         epoch=torch.zeros((q,), dtype=torch.int32, device=dev))
 
 
+def empty_queue(capacity: int, device) -> QueryQueue:
+    """Open-system ring on ``device``: room for ``capacity`` live queries,
+    none arrived yet; slot ids are handed out by the host's free ring at
+    injection."""
+    def scalar():
+        return torch.zeros((), dtype=torch.int64, device=device)
+    return QueryQueue(
+        start_vertex=torch.zeros((capacity,), dtype=torch.int32,
+                                 device=device),
+        head=scalar(), staged=scalar(), tail=scalar(),
+        order=torch.arange(capacity, dtype=torch.int32, device=device),
+        epoch=torch.zeros((capacity,), dtype=torch.int32, device=device))
+
+
 class WalkStats(NamedTuple):
     """Utilization counters (0-dim int64 tensors, equal in value to the
     reference's int32 counters)."""

@@ -35,13 +35,18 @@ Three step implementations, bit-identical in every output but
     (`repro_torch.graph.hot_cache`), which changes only the three cache
     counters of the stats.
 
-The per-hop impls drain the closed batch in a host loop that reads
-``_work_left`` once per superstep and count one launch per superstep; the
-``fused`` drain reads one (work left, supersteps) word pair once per
-launch and counts one launch per launch.  Either way ``supersteps`` and
-``slot_steps`` stay exact.  The per-hop superstep writes the path buffers
-in place (they are the largest state, (Q, max_hops+1) int32) and replaces
-every other tensor; the fused launch updates every state tensor in place.
+Two systems share one superstep runner (:func:`make_superstep_runner`):
+the closed batch (:func:`build_engine`) drains a fixed query batch; the
+open system (``walker.WalkStream``) keeps one :class:`StreamState` alive,
+injects arrivals into ring slots between chunks of supersteps
+(:func:`inject_queries`) and harvests finished slots.  The per-hop impls
+run a host loop that reads ``_work_left`` once per superstep and count one
+launch per superstep; ``fused`` reads one (work left, supersteps) word
+pair once per launch and counts one launch per launch.  Either way
+``supersteps`` and ``slot_steps`` stay exact.  The per-hop superstep
+writes the path buffers in place (they are the largest state, (Q,
+max_hops+1) int32) and replaces every other tensor; the fused launch and
+an injection update every state tensor they touch in place.
 """
 from __future__ import annotations
 
@@ -57,8 +62,8 @@ from repro_torch.core.phase_program import lower as lower_program, make_sampler
 from repro_torch.core.rng import SALT_COLUMN, SALT_STOP
 from repro_torch.core.samplers import SamplerSpec
 from repro_torch.core.tasks import (QueryQueue, WalkerSlots, WalkResult,
-                                    WalkStats, empty_slots, make_queue,
-                                    zero_stats)
+                                    WalkStats, empty_queue, empty_slots,
+                                    make_queue, zero_stats)
 from repro_torch.graph.csr import CSRGraph, column_access, row_access
 from repro_torch.kernels.walk_step import ops as walk_ops
 
@@ -145,6 +150,16 @@ class Drain(NamedTuple):
     progress read (once per superstep, or once per launch for ``fused``)."""
 
     wall_s: float
+    sync_s: float
+
+
+class Chunk(NamedTuple):
+    """What one call of a superstep runner did: the state it left, the
+    supersteps it ran, and the seconds it spent blocked in the progress
+    read."""
+
+    state: StreamState
+    supersteps: int
     sync_s: float
 
 
@@ -342,17 +357,87 @@ def init_state(cfg: EngineConfig, depth: int,
         stats=zero_stats(device), head_hist=head_hist)
 
 
-def build_engine(spec: SamplerSpec, cfg: EngineConfig, cache=None):
-    """Build ``run(graph, start_vertices, key) -> (WalkResult, Drain)``: the
-    closed system, draining a fixed query batch to completion on the
-    graph's device.  ``key`` is a base key pair (`rng.stream_key`).
+def init_stream_state(cfg: EngineConfig, capacity: int,
+                      device) -> StreamState:
+    """Empty open-system state on ``device``: a buffer with room for
+    ``capacity`` queries, none of which have arrived yet (``tail == 0``)."""
+    paths, lengths = _fresh_buffers(cfg, capacity, device)
+    return StreamState(
+        slots=empty_slots(cfg.num_slots, device),
+        queue=empty_queue(capacity, device),
+        paths=paths, lengths=lengths,
+        done=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        stats=zero_stats(device),
+        head_hist=torch.zeros((cfg.injection_delay + 1,), dtype=torch.int64,
+                              device=device))
 
-    ``fused`` drains in launches of at most ``hops_per_launch``
-    supersteps, never past ``max_supersteps``, reading the progress pair
-    once per launch.  ``cache`` is the graph-specific hot-vertex cache
-    from :func:`maybe_build_cache` (ignored by the per-hop impls); its
-    packed block is copied to a run's device once, at the first run
-    there, and every launch reads that copy.
+
+def inject_queries(state: StreamState, qids, new_starts, epochs,
+                   n_valid: int) -> StreamState:
+    """Admit arrivals into ring slots (host→device injection).
+
+    ``qids`` are the slot ids the host popped from its free ring (a slot is
+    free initially or once its previous occupant was harvested and
+    released); ``epochs`` are the occupant epochs salting each slot's RNG
+    stream.  The three are host arrays (numpy, lists or CPU tensors) of one
+    length, which may be padded: only the first ``n_valid`` entries become
+    queries, and nothing is written for the rest.  The arrival counter
+    ``tail`` advances by ``n_valid`` and the new occupants are appended to
+    the arrival-order ring that refill consumes, at ``(tail + i) %
+    capacity``.  Recycled slots' ``done`` bits and recorded path rows are
+    cleared, so a stale epoch never leaks into a harvest.  The host must
+    hand out only free slots — `walker.WalkStream` owns that bookkeeping.
+
+    Every tensor is written in place, ``tail`` included, so a fused
+    stream's control block (which ``tail`` views) sees the arrivals; the
+    fused runner re-arms the block's work word from the state before it
+    reads it.  Returns ``state``.
+    """
+    q = state.queue
+    cap = q.capacity
+    block = np.stack([np.asarray(qids, np.int64).reshape(-1),
+                      np.asarray(new_starts, np.int64).reshape(-1),
+                      np.asarray(epochs, np.int64).reshape(-1)])
+    n = int(n_valid)
+    if not 0 <= n <= block.shape[1]:
+        raise ValueError(f"n_valid={n} must be within [0, {block.shape[1]}] "
+                         "(the injected block)")
+    ids = block[0, :n]
+    if n and not (0 <= ids.min() and ids.max() < cap):
+        raise ValueError(f"slot ids must lie in [0, {cap}), got "
+                         f"[{ids.min()}, {ids.max()}]")
+    dev = q.start_vertex.device
+    uploaded = torch.from_numpy(block.astype(np.int32)).to(dev)  # one copy
+    qid, start, epoch = uploaded[:, :n].unbind()
+    slot = qid.long()
+    q.start_vertex[slot] = start
+    q.epoch[slot] = epoch
+    q.order[(q.tail + torch.arange(n, device=dev)) % cap] = qid
+    state.done[slot] = False
+    if state.paths.shape[0] == state.done.shape[0]:   # recording paths
+        state.paths[slot] = -1
+        state.lengths[slot] = 0
+    q.tail.add_(n)
+    return state
+
+
+def make_superstep_runner(spec: SamplerSpec, cfg: EngineConfig, cache=None):
+    """Build ``run_supersteps(graph, state, key, k, block=None) -> Chunk``.
+
+    Advances ``state`` by at most ``k`` supersteps on the graph's device,
+    stopping early when no work is left (no arrived query unissued and no
+    live lane).  ``key`` is a base key pair (`rng.stream_key`).  The host
+    injects arrivals between calls with :func:`inject_queries`.
+
+    The per-hop impls run ``_superstep`` while work is left, reading the
+    work flag once per superstep.  ``fused`` runs ``ceil(k /
+    hops_per_launch)`` launches of the fused kernel (fewer when the work
+    runs out), on a state packed with its control block
+    (`kernels.fused_superstep.ops.pack`), which it takes as ``block``;
+    it reads the block's progress pair once per launch and once before
+    the first.  ``cache`` is the graph-specific hot-vertex cache from
+    :func:`maybe_build_cache` (fused only); its packed block is copied to
+    a run's device once, at the first run there.
     """
     if cfg.step_impl == "fused":
         from repro_torch.kernels.fused_superstep import ops as fused_ops
@@ -360,46 +445,78 @@ def build_engine(spec: SamplerSpec, cfg: EngineConfig, cache=None):
     depth = _stage_depth(cfg)
     blocks = {}   # the cache's packed block, per device
 
+    def run_fused(graph, state, key, k, block):
+        if block is None:
+            raise ValueError("a fused runner advances a packed state: pass "
+                             "the control block that fused_ops.pack returned")
+        device = graph.device
+        if cache is not None and device not in blocks:
+            blocks[device] = fused_ops.cache_block(cache, device)
+        cached = blocks.get(device)
+        fused_ops.rearm(state, block)
+        t = time.perf_counter()
+        more, first = fused_ops.progress(block)
+        sync_s = time.perf_counter() - t
+        ran = 0
+        while more and ran < k:
+            state = fused_ops.fused_superstep(
+                graph, spec, cfg, depth, state, key,
+                min(cfg.hops_per_launch, k - ran), block, cache=cached)
+            t = time.perf_counter()
+            more, supersteps = fused_ops.progress(block)   # per launch
+            sync_s += time.perf_counter() - t
+            ran = supersteps - first
+        return Chunk(state, ran, sync_s)
+
+    def run_supersteps(graph: CSRGraph, state: StreamState, key, k: int,
+                       block=None) -> Chunk:
+        key = tuple(int(x) for x in key)
+        if cfg.step_impl == "fused":
+            return run_fused(graph, state, key, k, block)
+        ran, sync_s = 0, 0.0
+        while ran < k:
+            t = time.perf_counter()
+            more = bool(_work_left(state))   # once per superstep
+            sync_s += time.perf_counter() - t
+            if not more:
+                break
+            state = _count_launch(_superstep(graph, spec, cfg, key, depth,
+                                             sample, state))
+            ran += 1
+        return Chunk(state, ran, sync_s)
+
+    return run_supersteps
+
+
+def build_engine(spec: SamplerSpec, cfg: EngineConfig, cache=None):
+    """Build ``run(graph, start_vertices, key) -> (WalkResult, Drain)``: the
+    closed system, draining a fixed query batch to completion on the
+    graph's device with :func:`make_superstep_runner` (never past
+    ``max_supersteps``).  ``key`` is a base key pair (`rng.stream_key`);
+    ``cache`` is the graph-specific hot-vertex cache from
+    :func:`maybe_build_cache` (ignored by the per-hop impls).
+    """
+    if cfg.step_impl == "fused":
+        from repro_torch.kernels.fused_superstep import ops as fused_ops
+    runner = make_superstep_runner(spec, cfg, cache=cache)
+    depth = _stage_depth(cfg)
+
     def run(graph: CSRGraph, start_vertices: torch.Tensor, key):
         t0 = time.perf_counter()
         device = graph.device
-        key = tuple(int(k) for k in key)
         sv = start_vertices.to(device=device, dtype=torch.int32)
         if sv.shape[0] == 0:
             paths, lengths = _fresh_buffers(cfg, 0, device)
             return (WalkResult(paths=paths, lengths=lengths,
                                stats=zero_stats(device)),
                     Drain(time.perf_counter() - t0, 0.0))
-        state = init_state(cfg, depth, sv)
-
-        supersteps, sync_s = 0, 0.0
+        state, block = init_state(cfg, depth, sv), None
         if cfg.step_impl == "fused":
             state, block = fused_ops.pack(state)   # the drain's control block
-            if cache is not None and device not in blocks:
-                blocks[device] = fused_ops.cache_block(cache, device)
-            cached = blocks.get(device)
-            while True:
-                t = time.perf_counter()
-                more, supersteps = fused_ops.progress(block)   # per launch
-                sync_s += time.perf_counter() - t
-                if not more or supersteps >= cfg.max_supersteps:
-                    break
-                state = fused_ops.fused_superstep(
-                    graph, spec, cfg, depth, state, key,
-                    min(cfg.hops_per_launch, cfg.max_supersteps - supersteps),
-                    block, cache=cached)
-        else:
-            while supersteps < cfg.max_supersteps:
-                t = time.perf_counter()
-                more = bool(_work_left(state))   # once per superstep
-                sync_s += time.perf_counter() - t
-                if not more:
-                    break
-                state = _count_launch(_superstep(graph, spec, cfg, key, depth,
-                                                 sample, state))
-                supersteps += 1
-            if supersteps == cfg.max_supersteps and device.type == "cuda":
-                torch.cuda.synchronize(device)   # ended without a read
+        state, supersteps, sync_s = runner(graph, state, key,
+                                           cfg.max_supersteps, block)
+        if supersteps == cfg.max_supersteps and device.type == "cuda":
+            torch.cuda.synchronize(device)   # may have ended without a read
         result = WalkResult(paths=state.paths, lengths=state.lengths,
                             stats=state.stats)
         return result, Drain(time.perf_counter() - t0, sync_s)

@@ -18,8 +18,11 @@ controller's head history) live in one int64 *control block*: a drain
 calls :func:`pack` once, which moves them into a new block and returns
 the state viewing it, passes the block to every launch, and reads
 :func:`progress` (the block's first two words: work left, supersteps)
-between launches.  Only this module and the kernel's source know the
-block's layout.  ``LAUNCHES`` counts kernel launches (nothing else adds to
+between launches.  A stream packs its state once, when it is made, and
+keeps that block for its life: an injection writes ``tail`` in place
+through its view, and :func:`rearm` sets the work word from the state
+before the runner's first read, since only a launch writes it otherwise.
+Only this module and the kernel's source know the block's layout.  ``LAUNCHES`` counts kernel launches (nothing else adds to
 it), so a run can show that it went through the kernel.
 
 A hot-vertex cache (`repro_torch.graph.hot_cache`) rides along as a
@@ -238,6 +241,13 @@ def pack(state):
     return packed, block
 
 
+def rearm(state, block) -> None:
+    """Set ``block``'s work word from ``state`` (on the device, with no
+    read), so that arrivals injected since the last launch count as work
+    left."""
+    block[CTL_WORK] = engine._work_left(state)
+
+
 def progress(block) -> tuple[bool, int]:
     """(work left, supersteps run): one device-to-host read of the
     block's first two words."""
@@ -379,7 +389,7 @@ def fused_superstep(graph, spec, cfg, depth, state, key, k, block,
         for old, t in zip(_flat(state), _flat(new)):
             if t is not old:
                 old.copy_(t)
-        block[CTL_WORK] = engine._work_left(state)
+        rearm(state, block)
         block[CTL_SUPERSTEPS] = state.stats.supersteps
         return state
     s, q = state.slots, state.queue

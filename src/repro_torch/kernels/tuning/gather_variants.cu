@@ -1,4 +1,4 @@
-// Design variants of the embedding-bag and uniform walk-step kernels, for
+// Design variants of the embedding-bag and walk-step kernels, for
 // gather_variants.py to build and time in turns on one card.  The walker
 // never loads this file: the kernels it runs are embedding_bag.cu and
 // walk_step.cu.  Each build picks one variant with -D flags:
@@ -20,6 +20,21 @@
 //   WS_THREADS the uniform walk step's threads a block, default 32.
 //   WS_U_EARLY 1: u loaded beside v (walk_step.cu); 0: after row_ptr, in
 //              the deg > 0 branch (the kernel before this redesign).
+//   WA_THREADS the alias walk step's threads a block, default 32.
+//   WA_EARLY   2: both uniforms loaded beside v with walk_step.cu's
+//              load_now (a volatile load, issued where written), then
+//              prob[a+k] and alias[a+k] (alias with load_now too under
+//              WA_SELECT 0); 1: the same source with plain loads, which
+//              the compiler turns back into 0's chain;
+//              0: the uniforms loaded after row_ptr and alias[a+k] in the
+//              false arm of the accept test (the kernel before its
+//              redesign).
+//   WA_SELECT  how WA_EARLY 1 and 2 pick k or alias[a+k] after the accept
+//              test: 0 a ternary; 1 alias + ((k - alias) & m); 2 the bit
+//              select alias ^ ((k ^ alias) & m); 3 a ternary on m of the
+//              two column offsets (walk_step.cu); m all ones when u_acc <
+//              prob, else zero, through an empty asm statement the
+//              compiler cannot see past.
 //
 // Every variant keeps the shipped kernels' arithmetic (slot 0 a rounded
 // product, later slots fma in h order; walk::uniform_index), so each must
@@ -49,6 +64,15 @@
 #endif
 #ifndef WS_U_EARLY
 #define WS_U_EARLY 1
+#endif
+#ifndef WA_THREADS
+#define WA_THREADS 32
+#endif
+#ifndef WA_EARLY
+#define WA_EARLY 2
+#endif
+#ifndef WA_SELECT
+#define WA_SELECT 3
 #endif
 
 namespace {
@@ -91,6 +115,18 @@ cudaError_t launch(K kernel, int blocks, int threads, cudaStream_t s,
 template <typename T>
 __device__ __forceinline__ T load_input(const T* p) {
   return PDL ? __ldcg(p) : __ldg(p);
+}
+
+// walk_step.cu's load_now: a volatile load, issued where it is written.
+__device__ __forceinline__ int load_now(const int* p) {
+  int x;
+  asm volatile("ld.volatile.global.s32 %0, [%1];" : "=r"(x) : "l"(p));
+  return x;
+}
+__device__ __forceinline__ float load_now(const float* p) {
+  float x;
+  asm volatile("ld.volatile.global.f32 %0, [%1];" : "=f"(x) : "l"(p));
+  return x;
 }
 
 __device__ __forceinline__ float4 load_row(const float4* p) {
@@ -297,6 +333,71 @@ ws_kernel(const int* __restrict__ v_curr, const float* __restrict__ u_col,
   deg_out[i] = deg;
 }
 
+__global__ void __launch_bounds__(WA_THREADS)
+wa_kernel(const int* __restrict__ v_curr, const float* __restrict__ u_col,
+          const float* __restrict__ u_acc, const int* __restrict__ row_ptr,
+          const int* __restrict__ col, const float* __restrict__ alias_prob,
+          const int* __restrict__ alias_idx, int* __restrict__ v_next,
+          int* __restrict__ deg_out, int width, int num_vertices,
+          int num_edges) {
+  const int i = blockIdx.x * WA_THREADS + threadIdx.x;
+  if (i >= width) return;
+  wait_previous();
+  const int v = load_input(v_curr + i);
+#if WA_EARLY
+#if WA_EARLY == 2
+  const float uc = load_now(u_col + i);
+  const float ua = load_now(u_acc + i);
+#else
+  const float uc = load_input(u_col + i);
+  const float ua = load_input(u_acc + i);
+#endif
+#endif
+  int addr = 0, deg = 0;
+  if (num_vertices > 0) {
+    const int c = clampi(v, 0, num_vertices - 1);
+    addr = __ldg(row_ptr + c);
+    deg = __ldg(row_ptr + c + 1) - addr;
+  }
+  int out = -1;
+  if (deg > 0 && num_edges > 0) {
+#if WA_EARLY
+    const int k = uniform_index(deg, uc);
+    const int ek = clampi(addr + k, 0, num_edges - 1);
+    const float prob = __ldg(alias_prob + ek);
+#if WA_EARLY == 2 && WA_SELECT == 0
+    const int alias = load_now(alias_idx + ek);
+#else
+    const int alias = __ldg(alias_idx + ek);
+#endif
+    unsigned m = ua < prob ? ~0u : 0u;
+    asm("" : "+r"(m));
+    const unsigned uk = k, ua_ = alias;
+#if WA_SELECT == 1
+    const int idx = static_cast<int>(ua_ + ((uk - ua_) & m));
+#elif WA_SELECT == 2
+    const int idx = static_cast<int>(ua_ ^ ((uk ^ ua_) & m));
+#else
+    const int idx = ua < prob ? k : alias;
+#endif
+#if WA_SELECT == 3
+    const int ea = clampi(addr + alias, 0, num_edges - 1);
+    out = __ldg(col + (m ? ek : ea));
+#else
+    out = __ldg(col + clampi(addr + idx, 0, num_edges - 1));
+#endif
+#else
+    const int k = uniform_index(deg, load_input(u_col + i));
+    const int ek = clampi(addr + k, 0, num_edges - 1);
+    const int idx = load_input(u_acc + i) < __ldg(alias_prob + ek)
+                        ? k : __ldg(alias_idx + ek);
+    out = __ldg(col + clampi(addr + idx, 0, num_edges - 1));
+#endif
+  }
+  v_next[i] = out;
+  deg_out[i] = deg;
+}
+
 }  // namespace
 
 // The embedding bag (the wrapper's signature) writing its launch to
@@ -321,4 +422,17 @@ extern "C" int ws_variant(const int* v_curr, const float* u_col,
       ws_kernel, (width + WS_THREADS - 1) / WS_THREADS, WS_THREADS,
       static_cast<cudaStream_t>(stream), v_curr, u_col, row_ptr, col, v_next,
       deg, width, num_vertices, num_edges));
+}
+
+// The alias walk step (the wrapper's signature).
+extern "C" int wa_variant(const int* v_curr, const float* u_col,
+                          const float* u_acc, const int* row_ptr,
+                          const int* col, const float* alias_prob,
+                          const int* alias_idx, int* v_next, int* deg,
+                          int width, int num_vertices, int num_edges,
+                          void* stream) {
+  return static_cast<int>(launch(
+      wa_kernel, (width + WA_THREADS - 1) / WA_THREADS, WA_THREADS,
+      static_cast<cudaStream_t>(stream), v_curr, u_col, u_acc, row_ptr, col,
+      alias_prob, alias_idx, v_next, deg, width, num_vertices, num_edges));
 }

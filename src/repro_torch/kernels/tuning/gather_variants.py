@@ -1,9 +1,12 @@
-"""Time design variants of the embedding-bag and uniform walk-step kernels
-in turns on one card, each held bit-equal to its plain version first.
+"""Time design variants of the embedding-bag and walk-step kernels in
+turns on one card, each held bit-equal to its plain version first.
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
-    PYTHONPATH=src python3 -m repro_torch.kernels.tuning.gather_variants
+    PYTHONPATH=src python3 -m repro_torch.kernels.tuning.gather_variants [PREFIX ...]
+
+With prefixes (``eb_``, ``ws_``, ``wa_``) only the variants whose names
+start with one of them are built and timed.
 
 Every variant of ``VARIANTS`` is one build of ``gather_variants.cu`` (its
 -D flags; one ``nvcc`` each, all started together).  The embedding bag runs
@@ -12,8 +15,12 @@ bags of uniform random ids) and is timed three ways: cold after 256 MiB of
 writes (L2 full of dirty lines, as after AdamW), cold after 256 MiB of
 reads (L2 full of clean lines), and warm (CUDA-graph replays); then the
 step's three gathers back to back (B = 4,096, 4,096, 20,480), warm and
-cold.  The uniform walk step runs at W = 4,096 lanes over the main path's
-graph (WG at scale 20), warm and cold.  The variants run forward, then
+cold.  The uniform and alias walk steps run at W = 4,096 lanes over the
+main path's graph (WG at scale 20), warm and cold; the alias step also
+warm right after a copy that writes its last input, as on the per-hop
+path.  The SASS of the shipped walk-step kernels (``walk_step.cu``) and
+of each walk-step variant is printed: its loads, compares, selects,
+branches and stores in issue order.  The variants run forward, then
 backward, so drift between turns shows; a 4-byte ``zero_()`` gives the
 launch floor, timed the same ways.  The timers are ``chip_smoke.py``'s.
 """
@@ -52,19 +59,29 @@ VARIANTS = {
     "ws_64": ("WS_THREADS=64", "WS_U_EARLY=1", "PDL=1"),
     "ws_128": ("WS_THREADS=128", "WS_U_EARLY=1", "PDL=1"),
     "ws_256": ("WS_THREADS=256", "WS_U_EARLY=1", "PDL=1"),
+    "wa_parent256": ("WA_THREADS=256", "WA_EARLY=0", "PDL=0"),
+    "wa_shipped32": ("WA_THREADS=32", "WA_EARLY=2", "WA_SELECT=3", "PDL=1"),
+    "wa_32_plain": ("WA_THREADS=32", "WA_EARLY=1", "WA_SELECT=0", "PDL=1"),
+    "wa_vol_sel0": ("WA_THREADS=32", "WA_EARLY=2", "WA_SELECT=0", "PDL=1"),
+    "wa_vol_sel1": ("WA_THREADS=32", "WA_EARLY=2", "WA_SELECT=1", "PDL=1"),
+    "wa_vol_sel2": ("WA_THREADS=32", "WA_EARLY=2", "WA_SELECT=2", "PDL=1"),
+    "wa_32_nopdl": ("WA_THREADS=32", "WA_EARLY=2", "WA_SELECT=3", "PDL=0"),
+    "wa_256": ("WA_THREADS=256", "WA_EARLY=2", "WA_SELECT=3", "PDL=1"),
 }
+KERNEL_OF = {"eb_": "eb_kernel", "ws_": "ws_kernel", "wa_": "wa_kernel"}
 BAGS = (4_096, 20_480)
 ROWS, DIM = 1 << 20, 128
 WIDTH = 4_096
 
 
-def build_all(out_dir: pathlib.Path) -> dict:
-    """Every variant's library, built in parallel; prints ptxas' register
-    lines."""
+def build_all(out_dir: pathlib.Path, names) -> dict:
+    """The named variants' libraries, built in parallel; prints ptxas'
+    register lines."""
     from repro_torch.kernels import build
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, flags in VARIANTS.items():
+    for name in names:
+        flags = VARIANTS[name]
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.INCLUDE_DIR),
                *(f"-D{f}" for f in flags), "-o", str(out_dir / f"{name}.so"),
                str(_HERE / "gather_variants.cu")]
@@ -77,7 +94,7 @@ def build_all(out_dir: pathlib.Path) -> dict:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         regs = [line.split(":", 1)[1].strip() for line in log.splitlines()
                 if "Used" in line and "registers" in line]
-        kernel = "eb_kernel" if name.startswith(EB) else "ws_kernel"
+        kernel = KERNEL_OF[name[:3]]
         mine = [r for line, r in zip(
             [x for x in log.splitlines() if "Compiling entry" in x], regs)
             if kernel in line]
@@ -119,6 +136,42 @@ def ws_caller(lib, v, u, g, v_next, deg):
         if rc != 0:
             raise RuntimeError(f"ws_variant launch failed: cudaError {rc}")
     return call
+
+
+def wa_caller(lib, v, uc, ua, g, v_next, deg):
+    import torch
+    fn = lib.wa_variant
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes, fn.restype = [P] * 9 + [I] * 3 + [P], I
+
+    def call():
+        rc = fn(v.data_ptr(), uc.data_ptr(), ua.data_ptr(),
+                g.row_ptr.data_ptr(), g.col.data_ptr(),
+                g.alias_prob.data_ptr(), g.alias_idx.data_ptr(),
+                v_next.data_ptr(), deg.data_ptr(), v.shape[0], g.num_vertices,
+                g.col.shape[0], torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"wa_variant launch failed: cudaError {rc}")
+    return call
+
+
+def print_sass(path, kernel: str, label: str) -> None:
+    """The loads, compares, selects and stores of ``kernel`` in the SASS of
+    the library at ``path``, in issue order (``cuobjdump -sass``)."""
+    from repro_torch.kernels import build
+    tool = pathlib.Path(build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                         text=True, check=True).stdout
+    inside, lines = False, []
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and any(op in line for op in
+                            ("LDG", "FSETP", "SEL", "STG", "BRA", "EXIT")):
+            lines.append("  " + " ".join(line.replace("/*", " ").replace(
+                "*/", " ").split()[:6]))
+    print(f"SASS {label} ({kernel}): {len(lines)} lines")
+    print("\n".join(lines))
 
 
 def check_eb(libs, table, rng) -> None:
@@ -171,28 +224,106 @@ def time_clean(fn, flush, reps=30) -> float:
     return float(np.median(samples[2:]))
 
 
-def main() -> int:
+def main(prefixes=()) -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
     import chip_smoke as cs
     from repro_torch.graph import make_dataset
+    from repro_torch.kernels import build
     from repro_torch.kernels.walk_step.ref import walk_step_uniform_ref
     if not torch.cuda.is_available():
         print("gather_variants needs a CUDA card", file=sys.stderr)
         return 1
-    libs = build_all(ROOT / "build" / "gather_variants")
+    names = [n for n in VARIANTS
+             if not prefixes or n.startswith(tuple(prefixes))]
+    if not names:
+        print(f"no variant starts with {prefixes}", file=sys.stderr)
+        return 1
+    libs = build_all(ROOT / "build" / "gather_variants", names)
     print(cs.card_line())
     rng = np.random.default_rng(0)
-    table = torch.randn((ROWS, DIM), device="cuda",
-                        generator=torch.Generator("cuda").manual_seed(0))
-    check_eb(libs, table, rng)
     flush = torch.empty(cs.L2_FLUSH_BYTES // 4, device="cuda")
     one = torch.empty(1, dtype=torch.int32, device="cuda")
     print(f"launch floor: warm {cs.time_launches(one.zero_):.7f} ms, cold "
           f"dirty {cs.time_cold(one.zero_):.7f} ms, cold clean "
           f"{time_clean(one.zero_, flush):.7f} ms")
-    ebs = [n for n in VARIANTS if n.startswith(EB)]
+    ebs = [n for n in names if n.startswith(EB)]
+    if ebs:
+        time_eb(cs, libs, ebs, rng, flush)
+    g = make_dataset("WG", weighted=True, with_alias=True,
+                     scale_override=cs.WG_SCALE)
+    v, u, ua = cs.kernel_inputs(g, WIDTH, seed=WIDTH)
+    want = walk_step_uniform_ref(v, u, g.row_ptr, g.col)
+    wss = [n for n in names if n.startswith("ws_")]
+    for turn, name in enumerate(wss + wss[::-1]):
+        v_next, deg = torch.empty_like(v), torch.empty_like(v)
+        call = ws_caller(libs[name], v, u, g, v_next, deg)
+        call()
+        torch.cuda.synchronize()
+        if not (torch.equal(v_next, want[0]) and torch.equal(deg, want[1])):
+            raise AssertionError(f"{name} differs from the plain version")
+        print(f"ws W={WIDTH} turn {turn} {name}: bit-equal; warm "
+              f"{cs.time_launches(call):.7f} ms, cold dirty "
+              f"{cs.time_cold(call):.7f} ms")
+    build.load("walk_step")
+    for kernel in ("walk_step_uniform_kernel", "walk_step_alias_kernel"):
+        print_sass(build.library_path("walk_step"), kernel,
+                   "walk_step.cu (shipped)")
+    for name in names:
+        if not name.startswith(EB):
+            print_sass(ROOT / "build" / "gather_variants" / f"{name}.so",
+                       KERNEL_OF[name[:3]], name)
+    was = [n for n in names if n.startswith("wa_")]
+    if was:
+        time_wa(cs, libs, was, g)
+    print(f"launch floor again: warm {cs.time_launches(one.zero_):.7f} ms, "
+          f"cold dirty {cs.time_cold(one.zero_):.7f} ms")
+    return 0
+
+
+def time_wa(cs, libs, names, g) -> None:
+    """Each alias variant bit-equal to the plain version at W = 1, 33,
+    4,096 and 12,288, then timed in turns at W = 4,096: warm, cold, and
+    warm right after a copy that writes u_acc (the per-hop path's order:
+    the copy of the second uniform column, then the step)."""
+    import torch
+    from repro_torch.kernels.walk_step.ref import walk_step_alias_ref
+    for width in (1, 33, WIDTH, 12_288):
+        v, uc, ua = cs.kernel_inputs(g, width, seed=width)
+        want = walk_step_alias_ref(v, uc, ua, g.row_ptr, g.col, g.alias_prob,
+                                   g.alias_idx)
+        for name in names:
+            v_next, deg = torch.empty_like(v), torch.empty_like(v)
+            wa_caller(libs[name], v, uc, ua, g, v_next, deg)()
+            torch.cuda.synchronize()
+            if not (torch.equal(v_next, want[0])
+                    and torch.equal(deg, want[1])):
+                raise AssertionError(f"{name} differs from the plain version "
+                                     f"at W={width}")
+    print("every wa variant bit-equal to the plain version at W = 1, 33, "
+          f"{WIDTH}, 12288 (tolerance 0)")
+    v, uc, ua = cs.kernel_inputs(g, WIDTH, seed=WIDTH)
+    u2 = torch.stack([uc, ua], 1)
+    for turn, name in enumerate(names + names[::-1]):
+        v_next, deg = torch.empty_like(v), torch.empty_like(v)
+        call = wa_caller(libs[name], v, uc, ua, g, v_next, deg)
+
+        def after_copy(call=call):
+            ua.copy_(u2[:, 1])
+            call()
+        print(f"wa W={WIDTH} turn {turn} {name}: warm "
+              f"{cs.time_launches(call):.7f} ms, cold dirty "
+              f"{cs.time_cold(call):.7f} ms, copy + step warm "
+              f"{cs.time_launches(after_copy):.7f} ms")
+
+
+def time_eb(cs, libs, ebs, rng, flush) -> None:
+    """The embedding-bag variants: bit-equal first, then in turns."""
+    import torch
+    table = torch.randn((ROWS, DIM), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    check_eb({n: libs[n] for n in ebs}, table, rng)
     ids = {B: torch.from_numpy(rng.integers(0, ROWS, (B, 1)).astype(np.int32))
            .cuda() for B in BAGS}
     for B in BAGS:
@@ -215,25 +346,7 @@ def main() -> int:
         print(f"eb three gathers turn {turn} {name}: warm "
               f"{cs.time_launches(gathers):.6f} ms, cold dirty "
               f"{cs.time_cold(gathers):.6f} ms")
-    g = make_dataset("WG", weighted=True, with_alias=True,
-                     scale_override=cs.WG_SCALE)
-    v, u, _ = cs.kernel_inputs(g, WIDTH, seed=WIDTH)
-    want = walk_step_uniform_ref(v, u, g.row_ptr, g.col)
-    wss = [n for n in VARIANTS if not n.startswith(EB)]
-    for turn, name in enumerate(wss + wss[::-1]):
-        v_next, deg = torch.empty_like(v), torch.empty_like(v)
-        call = ws_caller(libs[name], v, u, g, v_next, deg)
-        call()
-        torch.cuda.synchronize()
-        if not (torch.equal(v_next, want[0]) and torch.equal(deg, want[1])):
-            raise AssertionError(f"{name} differs from the plain version")
-        print(f"ws W={WIDTH} turn {turn} {name}: bit-equal; warm "
-              f"{cs.time_launches(call):.7f} ms, cold dirty "
-              f"{cs.time_cold(call):.7f} ms")
-    print(f"launch floor again: warm {cs.time_launches(one.zero_):.7f} ms, "
-          f"cold dirty {cs.time_cold(one.zero_):.7f} ms")
-    return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -6,18 +6,27 @@ backend and returns a :class:`Walker`:
     walker = compile(WalkProgram.deepwalk(), execution=ExecutionConfig(
         num_slots=4096, step_impl="cuda"))
     result = walker.run(graph, starts, seed=0)        # closed batch
+    stream = walker.stream(graph, capacity=4096)      # open system
     out = walker.train_embeddings(graph, dim=128)     # walks → embeddings
 
 The walk runs where the graph lives: on the card, ``step_impl="cuda"``
 and ``"fused"`` launch their kernels; on the CPU they run the kernels'
-plain versions.  Paths are a pure function of (seed, query_id, hop), so
-they are bit-identical to the reference package for the same graph,
-starts and seed, under every step implementation; the stats differ only
-in ``launches`` (one per superstep, or one per fused launch).
+plain versions.  Paths are a pure function of (seed, epoch, query_id,
+hop), so they are bit-identical to the reference package for the same
+graph, starts and seed, under every step implementation; the stats
+differ only in ``launches`` (one per superstep, or one per fused launch).
+
+Streams are continuous: query-id slots form a ring (a host-side free ring
+hands slots to arrivals; ``release`` reclaims them after harvest with
+``epoch + 1``), so an unbounded arrival stream runs in a bounded device
+buffer with no drain barrier.  Epoch ``e`` of a stream equals
+``Walker.run`` under ``rng.stream_key(seed, e)``.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -25,8 +34,10 @@ import torch
 
 from repro_torch.core import corpus_ring
 from repro_torch.core import rng as task_rng
-from repro_torch.core.tasks import WalkResult
-from repro_torch.core.walk_engine import (Drain, build_engine,
+from repro_torch.core.tasks import WalkResult, WalkStats
+from repro_torch.core.walk_engine import (Drain, StreamState, build_engine,
+                                          init_stream_state, inject_queries,
+                                          make_superstep_runner,
                                           maybe_build_cache)
 from repro_torch.models import embeddings as emb
 from repro_torch.optim import adamw
@@ -35,6 +46,16 @@ from repro_torch.walker.execution import ExecutionConfig
 from repro_torch.walker.program import WalkProgram
 
 BACKENDS = ("single", "sharded")
+
+
+def _pad_block(n: int, floor: int = 16) -> int:
+    """Next power of two >= n (>= floor): an injection uploads a block of
+    this many entries, so its uploads take O(log capacity) sizes, as the
+    reference's injections do (there it bounds the compiled shapes)."""
+    b = floor
+    while b < n:
+        b <<= 1
+    return b
 
 
 def compile(program: WalkProgram, backend: str = "single",
@@ -105,11 +126,13 @@ class Walker:
             self._engines[key] = (build_engine(spec, cfg, cache=cache), graph)
         return self._engines[key][0]
 
-    def stream(self, graph, capacity: int = 4096, seed=0):
-        """Open system — not ported yet."""
-        raise NotImplementedError(
-            "Walker.stream (the open system) is not ported yet: ROADMAP.md "
-            "queue 1 item 3")
+    def stream(self, graph, capacity: int = 4096, seed=0) -> "WalkStream":
+        """Open system: a persistent stream on the graph's device that
+        accepts injections between superstep chunks, with ring-buffer slot
+        reclamation (``release``) for continuous operation.  ``seed`` may
+        be an int or a key pair."""
+        self.program.requires(graph)
+        return WalkStream(self.program, self.execution, graph, capacity, seed)
 
     def serve(self, graph, capacity: int = 4096, chunk: int = 16, seed=0):
         """Multi-tenant service — not ported yet."""
@@ -252,3 +275,256 @@ class Walker:
         params, opt_state = state
         return {"params": params, "opt_state": opt_state, "ring": ring,
                 "step": step, "history": history, "config": sg_cfg}
+
+
+class _StreamBase:
+    """Host-side ring economy of a stream.
+
+    The host owns the free ring: slot ids 0..capacity-1 start free, an
+    injection pops slots FIFO and assigns each arrival ``(epoch, qid)``,
+    and :meth:`release` returns harvested slots with ``epoch + 1`` so the
+    next occupant samples an independent walk (`rng.task_fold` salts the
+    derivation with the epoch).  The stream therefore never drains as a
+    whole — slots individually complete, are harvested, and go around
+    again.
+    """
+
+    capacity: int
+
+    def _init_ring(self) -> None:
+        self._free = deque(range(self.capacity))
+        self._epochs = np.zeros((self.capacity,), np.int32)
+        self._live = np.zeros((self.capacity,), bool)
+        self._injected = 0
+
+    # -- subclass hooks ----------------------------------------------------
+
+    def _device_inject(self, qids: np.ndarray, starts: np.ndarray,
+                       epochs: np.ndarray) -> None:
+        raise NotImplementedError
+
+    def advance(self, k: int = 16) -> int:
+        """Run at most ``k`` supersteps on the persistent device state."""
+        raise NotImplementedError
+
+    def done_mask(self) -> np.ndarray:
+        """Per-slot completion flags (capacity-sized, includes free slots)."""
+        raise NotImplementedError
+
+    def harvest_device(self, qids):
+        """``(paths, lengths)`` for the given live query-id slots as
+        tensors on the stream's device (no host copy) — the corpus-ring
+        feed."""
+        raise NotImplementedError
+
+    # -- ring economy ------------------------------------------------------
+
+    @property
+    def num_free(self) -> int:
+        """Slots available for injection right now."""
+        return len(self._free)
+
+    @property
+    def num_live(self) -> int:
+        """Slots occupied by injected-but-not-released queries."""
+        return self.capacity - len(self._free)
+
+    @property
+    def num_injected(self) -> int:
+        """Total arrivals ever injected (monotone; exceeds capacity once
+        slots recycle)."""
+        return self._injected
+
+    def epoch_of(self, qids) -> np.ndarray:
+        """Current occupant epoch of each slot id."""
+        return self._epochs[np.asarray(qids, np.int64)]
+
+    def inject(self, starts, n_valid: Optional[int] = None):
+        """Admit arrivals into free ring slots.
+
+        Returns ``(qids, epochs)`` — the slot id and epoch assigned to each
+        arrival, the identity under which its walk is sampled and
+        harvested.  Raises if fewer than ``n_valid`` slots are free
+        (``release`` harvested queries to make room).
+        """
+        sv = np.asarray(starts, np.int32).reshape(-1)
+        n = int(sv.size if n_valid is None else n_valid)
+        if not 0 < n <= sv.size:
+            raise ValueError(
+                f"n_valid={n} must be within [1, {sv.size}] (the injected "
+                "block)")
+        if n > len(self._free):
+            raise ValueError(
+                f"injecting {n} queries overflows the slot ring "
+                f"({self.num_live}/{self.capacity} live, {len(self._free)} "
+                "free); release harvested queries or raise capacity")
+        qids = np.asarray([self._free.popleft() for _ in range(n)], np.int32)
+        epochs = self._epochs[qids]
+        self._live[qids] = True
+        self._injected += n
+        self._device_inject(qids, sv[:n], epochs)
+        return qids, epochs
+
+    def release(self, qids) -> None:
+        """Return harvested slots to the free ring with ``epoch + 1``."""
+        qids = np.asarray(qids, np.int64).reshape(-1)
+        if np.unique(qids).size != qids.size:
+            # A duplicate would enter the free ring twice and hand the same
+            # (epoch, qid) identity to two future arrivals.
+            raise ValueError("release with duplicate slot ids")
+        if not self._live[qids].all():
+            raise ValueError("release of a slot that is not live")
+        done = self.done_mask()
+        if not done[qids].all():
+            raise ValueError(
+                "release of an unfinished query: harvest only completed "
+                "slots (done_mask) before recycling them")
+        self._live[qids] = False
+        self._epochs[qids] += 1
+        self._free.extend(int(q) for q in qids)
+
+    def seek_epochs(self, epoch: int) -> None:
+        """Fast-forward every free slot's epoch (resume support): the next
+        occupant of every slot samples round ``epoch``, bit-identical to a
+        fresh stream that walked through the earlier rounds, because epoch
+        ``e`` of a slot is a pure function of ``(seed, e, qid)``."""
+        if self._live.any():
+            raise RuntimeError("seek_epochs with live queries outstanding")
+        if epoch < int(self._epochs.max(initial=0)):
+            raise ValueError(
+                f"seek_epochs({epoch}) would rewind a slot already past it "
+                f"(max epoch {int(self._epochs.max(initial=0))}) and replay "
+                "a used (epoch, qid) identity")
+        self._epochs[:] = epoch
+
+    def harvest_ids(self, qids):
+        """``(paths, lengths)`` for the given live query-id slots as numpy
+        (one recorded host round-trip over :meth:`harvest_device`)."""
+        paths, lengths = self.harvest_device(qids)
+        corpus_ring.record_host_copy("harvest_ids")
+        return paths.cpu().numpy(), lengths.cpu().numpy()
+
+    def done_live_mask(self) -> np.ndarray:
+        """(capacity,) bool — live slots whose query has terminated (the
+        harvestable set; released slots read False)."""
+        return self.done_mask() & self._live
+
+    def harvest(self, lo: int = 0, hi: Optional[int] = None):
+        """Recorded (paths, lengths) for the contiguous slot range
+        [lo, hi) as numpy.  Before any slot recycles, slots are handed out
+        FIFO, so this matches injection order; under reuse prefer
+        :meth:`harvest_ids` with the ids :meth:`inject` returned."""
+        hi = min(self._injected, self.capacity) if hi is None else hi
+        return self.harvest_ids(np.arange(lo, hi))
+
+    def drain(self, chunk: int = 64, max_chunks: int = 100_000) -> None:
+        """Advance until every live (injected, unreleased) query is done."""
+        for _ in range(max_chunks):
+            live = self._live
+            if not live.any() or bool(self.done_mask()[live].all()):
+                return
+            self.advance(chunk)
+        raise RuntimeError("stream did not drain (engine stalled?)")
+
+
+class WalkStream(_StreamBase):
+    """Persistent single-device open-system stream: inject → advance →
+    harvest → release.
+
+    A stateful handle over the superstep runner; all device state lives in
+    one :class:`~repro_torch.core.StreamState` on the graph's device, whose
+    shapes are fixed by (capacity, W, max_hops).  Under ``fused`` the state
+    is packed with its control block once, when the stream is made (and
+    again at :meth:`reset`), and keeps that block: injections write the
+    arrival counter through the block's view and the runner re-arms the
+    block's work word, so no launch re-packs.  ``host_read_s`` sums the
+    seconds spent blocked in host reads of the device state (the runner's
+    progress reads and :meth:`done_mask`) since the stream was made or
+    reset.
+    """
+
+    def __init__(self, program: WalkProgram, execution: ExecutionConfig,
+                 graph, capacity: int, seed):
+        if capacity <= 0:
+            raise ValueError(f"stream capacity must be positive, got "
+                             f"{capacity}")
+        self.program = program
+        self.graph = graph
+        self.seed = seed
+        self.capacity = int(capacity)
+        # Harvesting reads recorded paths, so recording is forced on.
+        self._cfg = dataclasses.replace(
+            execution.engine_config(program), record_paths=True)
+        self._runner = make_superstep_runner(
+            program.spec, self._cfg,
+            cache=maybe_build_cache(program.spec, self._cfg, graph))
+        self._fresh_state()
+
+    def _fresh_state(self) -> None:
+        self._key = task_rng.stream_key(self.seed)
+        self.state: StreamState = init_stream_state(
+            self._cfg, self.capacity, self.graph.device)
+        self._block = None
+        if self._cfg.step_impl == "fused":
+            from repro_torch.kernels.fused_superstep import ops as fused_ops
+            self.state, self._block = fused_ops.pack(self.state)
+        self.host_read_s = 0.0
+        self._init_ring()
+
+    @property
+    def num_slots(self) -> int:
+        """W — walker lanes of the underlying engine."""
+        return self._cfg.num_slots
+
+    @property
+    def max_hops(self) -> int:
+        """The program's hop budget (path buffers are ``max_hops + 1``)."""
+        return self.program.max_hops
+
+    @property
+    def cfg(self):
+        """The lowered engine-layer config (:class:`EngineConfig`)."""
+        return self._cfg
+
+    def _device_inject(self, qids, starts, epochs) -> None:
+        n = qids.shape[0]
+        b = min(_pad_block(n), self.capacity)
+        qb = np.full((b,), self.capacity, np.int32)  # capacity = inert pad
+        sb = np.zeros((b,), np.int32)
+        eb = np.zeros((b,), np.int32)
+        qb[:n], sb[:n], eb[:n] = qids, starts, epochs
+        self.state = inject_queries(self.state, qb, sb, eb, n)
+
+    def advance(self, k: int = 16) -> int:
+        """Run at most ``k`` supersteps; returns how many ran."""
+        self.state, ran, sync_s = self._runner(self.graph, self.state,
+                                               self._key, k, self._block)
+        self.host_read_s += sync_s
+        return ran
+
+    def done_mask(self) -> np.ndarray:
+        """(capacity,) bool — True where that slot's query terminated."""
+        t = time.perf_counter()
+        done = self.state.done.cpu().numpy()
+        self.host_read_s += time.perf_counter() - t
+        return done
+
+    def harvest_device(self, qids):
+        """Recorded (paths, lengths) rows for the given slot ids, on the
+        stream's device."""
+        idx = torch.as_tensor(np.asarray(qids, np.int64),
+                              device=self.graph.device)
+        return self.state.paths[idx], self.state.lengths[idx]
+
+    def walk_stats(self) -> WalkStats:
+        """Engine counters since construction/reset (host ints)."""
+        return WalkStats(*torch.stack(tuple(self.state.stats)).tolist())
+
+    def reset(self, seed=None) -> None:
+        """Fresh state and ring (keeps the runner and the cache); pass a
+        new ``seed`` to decorrelate from previous runs."""
+        if self._live.any():
+            raise RuntimeError("reset with live queries outstanding")
+        if seed is not None:
+            self.seed = seed
+        self._fresh_state()

@@ -585,3 +585,120 @@ def test_segment_sum_kernel_empty_and_changed_ids(card):
                                S)
         assert torch.equal(got.cpu(), want)
     assert int((second == S // 3).sum()) > 1024
+
+
+@pytest.mark.parametrize("width", [1, 31, 33, 4096, 12288])
+def test_walk_step_alias_kernel_after_the_kernels_that_wrote_its_inputs(
+        cuda_graph, width):
+    """The alias kernel (32-thread blocks, a programmatic dependent launch,
+    prob and alias loaded in one round trip) right after kernels on the
+    same stream wrote v_curr and both uniforms, with no sync between, as
+    the per-hop path copies the uniforms' columns just before it."""
+    g = cuda_graph
+    rng = np.random.default_rng(width + 11)
+    deg = (g.row_ptr[1:] - g.row_ptr[:-1]).cpu().numpy()
+    v = rng.integers(-1, g.num_vertices + 2, width).astype(np.int32)
+    v[::5] = int(np.argmax(deg))
+    v = torch.from_numpy(v).cuda()
+    u = torch.from_numpy(rng.random((width, 2), dtype=np.float32)).cuda()
+    want = ref.walk_step_alias_ref(v, u[:, 0].contiguous(),
+                                   u[:, 1].contiguous(), g.row_ptr, g.col,
+                                   g.alias_prob, g.alias_idx)
+    torch.cuda.synchronize()
+    before = LAUNCHES["walk_step_alias"]
+    v_in = v + 0
+    u_col, u_acc = (u * 1.0)[:, 0].contiguous(), u[:, 1].contiguous()
+    got = ops.walk_step_alias(v_in, u_col, u_acc, g.row_ptr, g.col,
+                              g.alias_prob, g.alias_idx)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert LAUNCHES["walk_step_alias"] == before + 1
+
+
+def _soak(stream, total, wave, chunk, seed=0):
+    """Push ``total`` random starts through ``stream`` (waves of at most
+    ``wave`` into free slots, chunks of ``chunk`` supersteps, every
+    finished slot harvested and released).  Returns ({(epoch, qid): (start,
+    path, length)}, the most epochs live at once)."""
+    rng = np.random.default_rng(seed)
+    pending = list(rng.integers(0, stream.graph.num_vertices, total))
+    harvested, live, mixed = {}, {}, 1
+    for _ in range(total):
+        if not (pending or live):
+            break
+        n = min(wave, stream.num_free, len(pending))
+        if n:
+            starts = np.asarray(pending[:n], np.int32)
+            del pending[:n]
+            qids, epochs = stream.inject(starts)
+            live.update({int(q): (int(e), int(s))
+                         for q, e, s in zip(qids, epochs, starts)})
+            mixed = max(mixed, len({e for e, _ in live.values()}))
+        stream.advance(chunk)
+        done = stream.done_live_mask()
+        ready = [q for q in live if done[q]]
+        if ready:
+            paths, lengths = stream.harvest_ids(ready)
+            for i, q in enumerate(ready):
+                e, s = live.pop(q)
+                harvested[e, q] = (s, paths[i].copy(), int(lengths[i]))
+            stream.release(ready)
+    assert len(harvested) == total, "the stream stalled"
+    return harvested, mixed
+
+
+def _same_harvest(a, b):
+    return a.keys() == b.keys() and all(
+        a[k][0] == b[k][0] and a[k][2] == b[k][2]
+        and np.array_equal(a[k][1], b[k][1]) for k in a)
+
+
+@pytest.mark.parametrize("name,budget", [(n, 0) for n in sorted(PROGRAMS)]
+                         + [("deepwalk", 1 << 15)])
+def test_fused_stream_wraps_and_equals_torch_stream(typed_graphs, name,
+                                                    budget):
+    """A fused stream on the card whose ring wraps three times or more
+    (epochs 0-3 at least, several live at once) harvests what the torch stream on the card does,
+    with every stat but ``launches`` (and, cached, the cache counters)
+    equal; its launches are the kernel's own count."""
+    g, _ = typed_graphs
+    out = {}
+    for impl in ("torch", "fused"):
+        w = compile(PROGRAMS[name], execution=ExecutionConfig(
+            num_slots=256, step_impl=impl, hops_per_launch=4,
+            cache_budget=budget if impl == "fused" else 0))
+        stream = w.stream(g, capacity=512, seed=6)
+        before = FUSED_LAUNCHES["fused_superstep"]
+        out[impl] = (*_soak(stream, 1_800, 128, 8), stream.walk_stats())
+        launched = FUSED_LAUNCHES["fused_superstep"] - before
+        assert launched == (out[impl][2].launches if impl == "fused" else 0)
+    (want, _, ws), (got, mixed, gs) = out["torch"], out["fused"]
+    assert _same_harvest(got, want)
+    assert {0, 1, 2, 3} <= {e for e, _ in got} and mixed >= 2
+    skip = {"launches", "cache_hits", "cache_misses", "cache_coalesced"}
+    assert all(a == b for f, a, b in zip(ws._fields, ws, gs) if f not in skip)
+    assert 0 < gs.launches < gs.supersteps
+    assert (gs.cache_hits > 0) == (budget > 0)
+
+
+@pytest.mark.parametrize("name", ["urw", "deepwalk"])
+def test_cuda_stream_launches_its_walk_step_kernel(cuda_graph, name):
+    """A stream under ``cuda`` launches its walk-step kernel once a
+    superstep and equals the fused stream on the card."""
+    kernel = "walk_step_alias" if name == "deepwalk" else "walk_step_uniform"
+    out = {}
+    for impl in ("cuda", "fused"):
+        w = compile(PROGRAMS[name], execution=ExecutionConfig(
+            num_slots=256, step_impl=impl))
+        stream = w.stream(cuda_graph, capacity=384, seed=2)
+        before = dict(LAUNCHES)
+        harvested, _ = _soak(stream, 1_000, 96, 16)
+        st = stream.walk_stats()
+        out[impl] = harvested, st
+        counted = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        want = {k: 0 for k in LAUNCHES}
+        if impl == "cuda":
+            want[kernel] = st.supersteps
+        assert counted == want
+    assert _same_harvest(out["cuda"][0], out["fused"][0])
+    assert out["cuda"][1].supersteps == out["fused"][1].supersteps

@@ -138,9 +138,8 @@ def test_unported_paths_raise_not_implemented(graphs, starts, monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         walker.compile(walker.WalkProgram.urw(), backend="sharded")
     w = walker.compile(walker.WalkProgram.urw())
-    for method in (w.stream, w.serve):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            method(pg)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        w.serve(pg)
     with pytest.raises(ValueError):
         walker.ExecutionConfig(step_impl="jnp")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
