@@ -112,7 +112,29 @@ its seconds.
    stream zeroes the launch counts before it and reads them after, and
    prints its walks/s (harvested walks / wall), launches, supersteps and
    the share of wall spent blocked in host reads (progress, done flags).
-6. Print the kernels' JSON summary (five rows), the card line, and last
+6. The request service (:func:`run_service`): ``compile(program).serve(
+   graph, capacity, chunk, seed)`` (``WalkService`` over a stream) at
+   W = 4,096 and 80 hops on the main path's graph, driven by
+   ``run_open_load`` with Poisson arrivals of 64-walk requests, steps of
+   8 supersteps.  URW and DeepWalk fused at capacity 65,536 for offered
+   loads rho = 0.5, 0.9 and 2.5 (2,048 requests a point, so the ring
+   wraps; ``reset_metrics()`` between points); URW fused with the
+   chunk controller from chunk 2 (1 to 256, patience 2) under rho = 2.5
+   (1,024 requests); URW and DeepWalk at capacity 8,192 under fused,
+   cuda and torch (128 requests, rho = 0.9).  Every point zeroes the
+   launch counts before it and reads them after; its requests complete
+   with disjoint (epoch, qid) identities, paths that begin at their
+   starts and hops that are edges; fused points equal their closed
+   batches under ``stream_key(seed, epoch)``; the three impls equal in
+   every request, every stat but ``launches`` and every analysis field
+   but ``msteps_per_s``; the adaptive run's trace grows and stays in
+   bounds.  Each point prints offered load and utilization, sojourn
+   (supersteps and wall ms) and admission-wait percentiles, walks/s,
+   MStep/s, bubble and starved ratios, launches, supersteps, the
+   host-read share and the wall split into the stream's calls (inject,
+   advance, the harvest's done read, harvest_ids, release, the rest;
+   timed by wrappers this script installs), beside the card line.
+7. Print the kernels' JSON summary (five rows), the card line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or when the
@@ -1486,10 +1508,11 @@ def same_harvest(a, b) -> bool:
             and bool((a["lengths"] == b["lengths"]).all()))
 
 
-def check_against_closed(name, impl, g, h, capacity, budget=0) -> None:
+def check_against_closed(name, impl, g, h, capacity, budget=0,
+                         seed=STREAM_SEED) -> None:
     """Every harvested (epoch, qid) equals row qid of the closed batch
-    ``Walker.run(g, starts_e, seed=stream_key(STREAM_SEED, e))`` under the
-    same impl, where starts_e holds each epoch's harvested starts."""
+    ``Walker.run(g, starts_e, seed=stream_key(seed, e))`` under the same
+    impl, where starts_e holds each epoch's harvested starts."""
     import torch
 
     from repro_torch.core.rng import stream_key
@@ -1498,7 +1521,7 @@ def check_against_closed(name, impl, g, h, capacity, budget=0) -> None:
         sel = np.flatnonzero(h["epochs"] == e)
         starts_e = np.zeros((capacity,), np.int32)
         starts_e[h["qids"][sel]] = h["starts"][sel]
-        res = w.run(g, starts_e, seed=stream_key(STREAM_SEED, int(e)))
+        res = w.run(g, starts_e, seed=stream_key(seed, int(e)))
         rows = torch.from_numpy(h["qids"][sel]).to(g.device)
         pick = torch.from_numpy(sel).to(g.device)
         if not (torch.equal(res.paths[rows], h["paths"][pick])
@@ -1662,6 +1685,281 @@ def run_streams(graphs) -> dict:
         print(f"stream {name} capacity {STREAM_SMALL_CAPACITY}: fused == "
               "cuda == torch in every harvested walk and every stat but "
               "launches; fused equals its closed batches")
+    return totals
+
+
+# ---------------------------------------------------------------- the service
+
+# Phase 6 runs the request service at the main path's width (W = 4,096,
+# 80 hops, 16 supersteps a fused launch) with requests of 64 walks and
+# steps of 8 supersteps, the reference's full-size serving benchmark
+# (benchmarks/serve_walks.py); its offered loads are set against E[L] =
+# max_hops, so the measured utilization is lower where walks end early.
+SERVE_CAPACITY = 65_536          # the sweep's ring: 2 x capacity walks a
+                                 # point, so every slot is reused
+SERVE_SMALL_CAPACITY = 8_192     # the impl-parity ring (the per-hop impls
+                                 # take 10-20 ms a superstep)
+SERVE_CHUNK = 8                  # supersteps a step
+SERVE_REQUEST = 64               # walks a request
+SERVE_REQUESTS = 2_048           # requests a sweep point
+SERVE_RHOS = (0.5, 0.9, 2.5)     # the reference's points below, near and
+                                 # past its saturation
+SERVE_ADAPT_REQUESTS = 1_024     # the adaptive run, at rho 2.5
+SERVE_PARITY_REQUESTS = 128      # the impl-parity runs, at rho 0.9
+SERVE_PROGRAMS = ("urw", "deepwalk")
+SERVE_SEED = 11
+SERVE_PARTS = {"inject": "inject", "advance": "advance", "done": "done_mask",
+               "harvest": "harvest_ids", "release": "release"}
+
+
+def instrument_service(svc) -> tuple:
+    """Wrap the service's stream calls (inject, advance, done_mask,
+    harvest_ids, release) with timers, and its ``submit`` with a record of
+    each request's starts.  A call made inside another timed call
+    (``release``'s own ``done_mask`` read) counts toward the outer one, so
+    ``done`` is the harvest's read.  Returns (seconds by part, starts by
+    request id), both filled as the service runs; the package itself has
+    no timer."""
+    split = dict.fromkeys(SERVE_PARTS, 0.0)
+    depth = [0]
+
+    def timed(fn, part):
+        def call(*args, **kw):
+            depth[0] += 1
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    split[part] += time.perf_counter() - t
+        return call
+    for part, method in SERVE_PARTS.items():
+        setattr(svc.stream, method, timed(getattr(svc.stream, method), part))
+    starts = {}
+    submit = svc.submit
+
+    def recording(start_vertices):
+        rid = submit(start_vertices)
+        starts[rid] = np.asarray(start_vertices, np.int32).reshape(-1)
+        return rid
+    svc.submit = recording
+    return split, starts
+
+
+def service_harvest(reqs, starts, device) -> dict:
+    """The completed requests as one harvest (the form :func:`soak`
+    returns): epochs, slot ids, starts, paths and lengths, paths and
+    lengths on ``device``."""
+    import torch
+
+    def cat(field):
+        return np.concatenate([getattr(r, field) for r in reqs])
+    return {"epochs": cat("epochs").astype(np.int64),
+            "qids": cat("qids").astype(np.int64),
+            "starts": np.concatenate([starts[r.request_id] for r in reqs]),
+            "paths": torch.from_numpy(cat("paths")).to(device),
+            "lengths": torch.from_numpy(cat("lengths")).to(device)}
+
+
+def serve_point(svc, name, impl, load, parts, card) -> dict:
+    """One load point of ``svc``: ``run_open_load`` with the launch counts
+    zeroed just before it and read just after.  Checks the launches
+    (fused: the kernel's count equals ``launches``; cuda: the walk step's
+    equals ``supersteps``), that every request completed with its walks,
+    that the (epoch, qid) identities are disjoint across requests, that
+    each request's paths begin at its starts, that every recorded hop is
+    an edge, and that the wall clocks are ordered submit <= admit <=
+    complete.  Prints the point's numbers with the card line.  Returns
+    the analysis, requests, stats, launches, harvest, wall and the seed
+    the stream ran under."""
+    import types
+
+    import torch
+
+    from repro_torch.serve import run_open_load
+    split, starts = parts
+    seed = svc.stream.seed
+    split.update(dict.fromkeys(split, 0.0))
+    reset_all_launches()
+    t0 = time.perf_counter()
+    a = run_open_load(svc, load, seed=SERVE_SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = embedding_launches()
+    reqs, st = svc.drain(), svc.walk_stats()
+    label = f"serve {name}/{impl} capacity={svc.capacity} rho={load.utilization}"
+    want = {k: 0 for k in launched}
+    if impl == "fused":
+        want["fused_superstep"] = st.launches
+    elif impl == "cuda":
+        want["walk_step_alias" if name == "deepwalk"
+             else "walk_step_uniform"] = st.supersteps
+    if launched != want:
+        raise AssertionError(f"{label}: kernel launches {launched}, "
+                             f"expected {want}")
+    walks = load.num_requests * load.request_size
+    if not (len(reqs) == load.num_requests and all(r.done for r in reqs)
+            and a.walks == walks == st.terminations):
+        raise AssertionError(f"{label}: {len(reqs)} requests, {a.walks} "
+                             f"walks completed of {walks}")
+    h = service_harvest(reqs, starts, svc.graph.device)
+    keys = h["epochs"] * svc.capacity + h["qids"]
+    if np.unique(keys).size != keys.size:
+        raise AssertionError(f"{label}: an (epoch, qid) served twice")
+    if not all(np.array_equal(r.paths[:, 0], starts[r.request_id])
+               for r in reqs):
+        raise AssertionError(f"{label}: a request's paths do not begin at "
+                             "its starts")
+    check_paths(svc.graph, torch.from_numpy(h["starts"]).to(
+        svc.graph.device), types.SimpleNamespace(
+        paths=h["paths"], lengths=h["lengths"], stats=st),
+        max_hops=svc.max_hops)
+    if not all(r.wall_submitted <= r.wall_admitted <= r.wall_completed
+               for r in reqs):
+        raise AssertionError(f"{label}: wall clocks out of order")
+    split["rest"] = wall - sum(split.values())
+    ms = np.asarray([r.wall_sojourn for r in reqs]) * 1e3
+    print(f"{label} chunk={svc.chunk}: offered "
+          f"{a.offered_load:.4f} walks/superstep, utilization "
+          f"{a.utilization:.4f}; sojourn supersteps p50={a.p50_sojourn} "
+          f"p99={a.p99_sojourn} mean={a.mean_sojourn:.4f}; wall ms "
+          f"p50={np.percentile(ms, 50):.4f} p99={np.percentile(ms, 99):.4f} "
+          f"mean={ms.mean():.4f}; admission wait p50={a.p50_admission_wait} "
+          f"p99={a.p99_admission_wait}; walks/s={walks / wall:.1f} "
+          f"MStep/s={a.msteps_per_s:.4f} bubble_ratio={a.bubble_ratio:.6f} "
+          f"starved_ratio={a.starved_ratio:.6f}; launches={st.launches} "
+          f"supersteps={st.supersteps}; host_read_share="
+          f"{svc.stream.host_read_s / wall:.4f} wall_s={wall:.4f} "
+          f"wall_split_ms={ {k: round(v * 1e3, 3) for k, v in split.items()} } "
+          f"epochs={sorted(set(h['epochs'].tolist()))} "
+          f"kernel_launches={launched} | {card}")
+    return {"analysis": a, "reqs": reqs, "stats": st, "launched": launched,
+            "harvest": h, "wall": wall, "seed": seed}
+
+
+def serve_sweep(name, g, card, add) -> None:
+    """Phase 6, step 1: one fused service for ``name`` at capacity 65,536,
+    warmed up by 8 requests, then a point for each of SERVE_RHOS with
+    ``reset_metrics()`` before it; each point's (epoch, qid) equal to its
+    closed batch under ``stream_key(seed, epoch)``, with the ring wrapped
+    (epochs 0 and 1 at least: 2 x capacity arrivals, and under a high
+    load a slot can go round twice while an early occupant of another is
+    still live)."""
+    from repro_torch.serve import OpenLoad, run_open_load
+    svc = stream_walker(name, "fused").serve(
+        g, capacity=SERVE_CAPACITY, chunk=SERVE_CHUNK, seed=SERVE_SEED)
+    parts = instrument_service(svc)
+    run_open_load(svc, OpenLoad(num_requests=8, request_size=SERVE_REQUEST,
+                                utilization=0.5), seed=99)
+    for rho in SERVE_RHOS:
+        svc.reset_metrics()
+        out = serve_point(svc, name, "fused", OpenLoad(
+            num_requests=SERVE_REQUESTS, request_size=SERVE_REQUEST,
+            utilization=rho), parts, card)
+        add(out["launched"])
+        if not {0, 1} <= set(out["harvest"]["epochs"].tolist()):
+            raise AssertionError(f"serve {name} rho={rho}: the ring did not "
+                                 "wrap")
+        check_against_closed(name, "fused", g, out["harvest"],
+                             SERVE_CAPACITY, seed=out["seed"])
+        print(f"serve {name}/fused rho={rho}: every (epoch, qid) equals its "
+              f"closed batch under stream_key({out['seed']}, epoch)")
+
+
+def serve_adaptive(g, card, add) -> None:
+    """Phase 6, step 2: URW fused from chunk 2 with the chunk controller
+    (1 to 256, patience 2) under rho 2.5: a non-empty trace that grows,
+    every chunk within bounds, the trace carried into ``analyze()``."""
+    from repro_torch.serve import HopsController, OpenLoad
+    svc = stream_walker("urw", "fused").serve(
+        g, capacity=SERVE_CAPACITY, chunk=2, seed=SERVE_SEED, adapt=True,
+        controller=HopsController(min_chunk=1, max_chunk=256, patience=2))
+    out = serve_point(svc, "urw", "fused", OpenLoad(
+        num_requests=SERVE_ADAPT_REQUESTS, request_size=SERVE_REQUEST,
+        utilization=2.5), instrument_service(svc), card)
+    add(out["launched"])
+    events = svc.adaptation
+    if not (events and any(e.reason == "grow" for e in events)
+            and all(1 <= e.chunk_after <= 256 for e in events)
+            and out["analysis"].adaptation == events):
+        raise AssertionError(f"serve urw adaptive: trace {events}")
+    check_against_closed("urw", "fused", g, out["harvest"], SERVE_CAPACITY,
+                         seed=out["seed"])
+    runs = []                    # the chunk sequence, run-length coded
+    for chunk in [2] + [e.chunk_after for e in events]:
+        if runs and runs[-1][0] == chunk:
+            runs[-1][1] += 1
+        else:
+            runs.append([chunk, 1])
+    reasons = {r: sum(e.reason == r for e in events)
+               for r in ("shrink", "grow", "hold")}
+    print(f"serve urw/fused adaptive: {len(events)} events {reasons}; "
+          f"chunks (chunk x windows) "
+          f"{', '.join(f'{c}x{n}' for c, n in runs)}; final chunk "
+          f"{svc.chunk}; trace in analyze(); every (epoch, qid) equals its "
+          "closed batch")
+
+
+def serve_parity(name, g, card, add) -> None:
+    """Phase 6, step 3: the service at capacity 8,192 under fused, cuda and
+    torch on the same load: every request equal in slot ids, epochs,
+    paths, lengths and the three superstep clocks; the stats equal but
+    ``launches``; the analyses equal but the wall-derived
+    ``msteps_per_s``; fused equal to its closed batches."""
+    import dataclasses
+
+    from repro_torch.serve import OpenLoad
+    load = OpenLoad(num_requests=SERVE_PARITY_REQUESTS,
+                    request_size=SERVE_REQUEST, utilization=0.9)
+    runs = {}
+    for impl in ("fused", "cuda", "torch"):
+        svc = stream_walker(name, impl).serve(
+            g, capacity=SERVE_SMALL_CAPACITY, chunk=SERVE_CHUNK,
+            seed=SERVE_SEED)
+        runs[impl] = serve_point(svc, name, impl, load,
+                                 instrument_service(svc), card)
+        add(runs[impl]["launched"])
+    check_against_closed(name, "fused", g, runs["fused"]["harvest"],
+                         SERVE_SMALL_CAPACITY, seed=SERVE_SEED)
+
+    def fields(a):
+        return {k: v for k, v in dataclasses.asdict(a).items()
+                if k != "msteps_per_s"}
+    want = runs["fused"]
+    for impl in ("cuda", "torch"):
+        got = runs[impl]
+        same = [all(np.array_equal(np.asarray(getattr(x, f)),
+                                   np.asarray(getattr(y, f)))
+                    for f in ("qids", "epochs", "paths", "lengths",
+                              "submitted_at", "admitted_at", "completed_at"))
+                for x, y in zip(got["reqs"], want["reqs"])]
+        if not (len(same) == len(want["reqs"]) and all(same)
+                and same_stats(got["stats"], want["stats"])
+                and fields(got["analysis"]) == fields(want["analysis"])):
+            raise AssertionError(f"serve {name}: {impl} differs from fused")
+    print(f"serve {name} capacity {SERVE_SMALL_CAPACITY}: fused == cuda == "
+          "torch in every request (slot ids, epochs, paths, lengths, "
+          "clocks), every stat but launches and every analysis field but "
+          "msteps_per_s; fused equals its closed batches")
+
+
+def run_service(graphs) -> dict:
+    """Phase 6, the request service (``Walker.serve`` -> ``WalkService``)
+    on the main path's graphs: the load sweep (URW, DeepWalk; fused), the
+    adaptive run (URW) and the impl parity (URW, DeepWalk; fused, cuda,
+    torch).  Returns each kernel's launches summed over the runs."""
+    totals = {k: 0 for k in embedding_launches()}
+    card = card_line()
+
+    def add(launched):
+        for k, n in launched.items():
+            totals[k] += n
+    for name in SERVE_PROGRAMS:
+        serve_sweep(name, graphs[name], card, add)
+    serve_adaptive(graphs["urw"], card, add)
+    for name in SERVE_PROGRAMS:
+        serve_parity(name, graphs[name], card, add)
     return totals
 
 
@@ -2409,9 +2707,9 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + emb_launches[name]
     phase("4 resume", check_embeddings_resume)
     phase("4 small run vs CPU", check_embeddings_small_against_cpu)
-    stream_launches = phase("5 streams", run_streams, graphs)
-    for name, n in stream_launches.items():
-        launches[name] = launches.get(name, 0) + n
+    for label, fn in (("5 streams", run_streams), ("6 serve", run_service)):
+        for name, n in phase(label, fn, graphs).items():
+            launches[name] = launches.get(name, 0) + n
     for name, row in rows.items():
         row["launches"] = launches[name]
         if row["launches"] <= 0:

@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -372,8 +373,8 @@ def init_stream_state(cfg: EngineConfig, capacity: int,
                               device=device))
 
 
-def inject_queries(state: StreamState, qids, new_starts, epochs,
-                   n_valid: int) -> StreamState:
+def inject_queries(state: StreamState, qids, new_starts=None, epochs=None,
+                   n_valid=None) -> StreamState:
     """Admit arrivals into ring slots (host→device injection).
 
     ``qids`` are the slot ids the host popped from its free ring (a slot is
@@ -392,9 +393,28 @@ def inject_queries(state: StreamState, qids, new_starts, epochs,
     stream's control block (which ``tail`` views) sees the arrivals; the
     fused runner re-arms the block's work word from the state before it
     reads it.  Returns ``state``.
+
+    The pre-ring form ``inject_queries(state, new_starts, n_valid)``
+    (append fresh queries at sequential slots from the tail, epoch 0)
+    survives as a deprecated shim; it reads ``tail`` once on the host and
+    then injects through the ring form, so out-of-range slots raise here
+    too.
     """
     q = state.queue
     cap = q.capacity
+    if epochs is None:  # legacy 3-arg form: (state, new_starts, n_valid)
+        warnings.warn(
+            "inject_queries(state, starts, n_valid) is deprecated; the ring "
+            "engine takes (state, qids, starts, epochs, n_valid) — or use "
+            "repro_torch.walker.compile(program).stream(graph), which owns "
+            "the slot-ring bookkeeping", DeprecationWarning, stacklevel=2)
+        starts = np.asarray(qids, np.int64).reshape(-1)
+        n_valid = new_starts
+        # Sequential fresh slots at the tail, epoch 0 — the old append
+        # semantics (pad entries beyond n_valid are not written).
+        qids = int(q.tail) + np.arange(starts.shape[0], dtype=np.int64)
+        new_starts = starts
+        epochs = np.zeros((starts.shape[0],), np.int64)
     block = np.stack([np.asarray(qids, np.int64).reshape(-1),
                       np.asarray(new_starts, np.int64).reshape(-1),
                       np.asarray(epochs, np.int64).reshape(-1)])

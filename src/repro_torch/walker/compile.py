@@ -7,6 +7,7 @@ backend and returns a :class:`Walker`:
         num_slots=4096, step_impl="cuda"))
     result = walker.run(graph, starts, seed=0)        # closed batch
     stream = walker.stream(graph, capacity=4096)      # open system
+    service = walker.serve(graph, chunk=8)            # request service
     out = walker.train_embeddings(graph, dim=128)     # walks → embeddings
 
 The walk runs where the graph lives: on the card, ``step_impl="cuda"``
@@ -134,10 +135,23 @@ class Walker:
         self.program.requires(graph)
         return WalkStream(self.program, self.execution, graph, capacity, seed)
 
-    def serve(self, graph, capacity: int = 4096, chunk: int = 16, seed=0):
-        """Multi-tenant service — not ported yet."""
-        raise NotImplementedError(
-            "Walker.serve is not ported yet: ROADMAP.md queue 1 item 6")
+    def serve(self, graph, capacity: int = 4096, chunk: int = 16,
+              seed=0, adapt: bool = False, controller=None):
+        """Multi-tenant request service over :meth:`stream` on the graph's
+        device (`repro_torch.serve.WalkService`): requests of walks are
+        admitted FIFO into free ring slots, advanced ``chunk`` supersteps
+        at a time and harvested as each request completes.
+
+        ``adapt=True`` attaches the Theorem VI.1 chunk controller
+        (`repro_torch.serve.scheduler.HopsController`, overridable via
+        ``controller``): the service adapts its supersteps per advance
+        online from the engine's occupancy stats, trace exposed on
+        ``ServiceAnalysis.adaptation``.
+        """
+        from repro_torch.serve.service import WalkService
+        return WalkService(stream=self.stream(graph, capacity=capacity,
+                                              seed=seed),
+                           chunk=chunk, adapt=adapt, controller=controller)
 
     # ------------------------------------------------- walks → embeddings
 

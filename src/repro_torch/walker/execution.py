@@ -102,3 +102,20 @@ class ExecutionConfig:
             hops_per_launch=self.hops_per_launch,
             cache_budget=self.cache_budget,
         )
+
+    @classmethod
+    def from_engine_config(cls, cfg: EngineConfig, **kw) -> "ExecutionConfig":
+        """Lift a legacy :class:`EngineConfig` (minus the program-level
+        ``max_hops``) into an ExecutionConfig — the shim path."""
+        return cls(
+            num_slots=cfg.num_slots,
+            record_paths=cfg.record_paths,
+            mode=cfg.mode,
+            injection_delay=cfg.injection_delay,
+            queue_depth_factor=cfg.queue_depth_factor,
+            max_supersteps=cfg.max_supersteps,
+            step_impl=cfg.step_impl,
+            hops_per_launch=cfg.hops_per_launch,
+            cache_budget=cfg.cache_budget,
+            **kw,
+        )

@@ -702,3 +702,62 @@ def test_cuda_stream_launches_its_walk_step_kernel(cuda_graph, name):
         assert counted == want
     assert _same_harvest(out["cuda"][0], out["fused"][0])
     assert out["cuda"][1].supersteps == out["fused"][1].supersteps
+
+
+# ------------------------------------------------------------ the service
+
+@pytest.fixture(scope="module")
+def serve_graphs():
+    """The scale-9 WG stand-in with alias tables and 3 edge types, on the
+    card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kw = dict(weighted=True, with_alias=True, num_edge_types=3,
+              scale_override=9)
+    return make_dataset("WG", **kw), make_dataset("WG", device="cpu", **kw)
+
+
+def _serve(g, name, impl):
+    """A small service (W = 32, capacity 64, chunk 4) driven by one fixed
+    sequence of submissions and steps; returns (requests, stats)."""
+    svc = compile(PROGRAMS[name], execution=ExecutionConfig(
+        num_slots=32, step_impl=impl, hops_per_launch=4)).serve(
+        g, capacity=64, chunk=4, seed=3)
+    rng = np.random.default_rng(1)
+    for i, n in enumerate((24, 40, 9, 64, 17, 33, 50, 8)):
+        svc.submit(rng.integers(0, g.num_vertices, n))
+        if i % 2:
+            svc.step()
+    return svc.drain(), svc.walk_stats()
+
+
+@pytest.mark.parametrize("impl", ["fused", "cuda"])
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_service_on_the_card_equals_cpu_torch_service(serve_graphs, name,
+                                                      impl):
+    """A service on the card under ``fused`` and ``cuda`` serves what the
+    same service under ``torch`` on the CPU does, request for request
+    (slot ids, epochs, paths, lengths, superstep clocks), with every stat
+    but ``launches`` equal; the card's launches are its kernels' counts."""
+    g, cpu = serve_graphs
+    want, want_stats = _serve(cpu, name, "torch")
+    before = {**LAUNCHES, **FUSED_LAUNCHES}
+    got, stats = _serve(g, name, impl)
+    counted = {k: v - before[k] for k, v in {**LAUNCHES,
+                                             **FUSED_LAUNCHES}.items()}
+    assert [r.request_id for r in got] == [r.request_id for r in want]
+    for a, b in zip(got, want):
+        for f in ("qids", "epochs", "paths", "lengths", "submitted_at",
+                  "admitted_at", "completed_at"):
+            assert np.array_equal(np.asarray(getattr(a, f)),
+                                  np.asarray(getattr(b, f))), (a.request_id, f)
+        assert a.wall_completed >= a.wall_admitted >= a.wall_submitted
+    assert all(x == y for f, x, y in zip(stats._fields, stats, want_stats)
+               if f != "launches")
+    assert max(int(r.epochs.max()) for r in got) >= 1
+    if impl == "fused":
+        assert counted["fused_superstep"] == stats.launches > 0
+    elif name in ("urw", "ppr", "deepwalk"):
+        kernel = "walk_step_alias" if name == "deepwalk" else \
+            "walk_step_uniform"
+        assert counted[kernel] == stats.supersteps

@@ -29,6 +29,7 @@ from repro_torch.core.samplers import SamplerSpec
 from repro_torch.core.scheduler import analyze_run
 from repro_torch.core.walk_engine import EngineConfig, _run_walks
 from repro_torch.graph import make_dataset
+from repro_torch.serve import WalkService
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PROGRAMS = ("urw", "ppr", "deepwalk")
@@ -138,8 +139,7 @@ def test_unported_paths_raise_not_implemented(graphs, starts, monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         walker.compile(walker.WalkProgram.urw(), backend="sharded")
     w = walker.compile(walker.WalkProgram.urw())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        w.serve(pg)
+    assert isinstance(w.serve(pg), WalkService)   # ported: no longer raises
     with pytest.raises(ValueError):
         walker.ExecutionConfig(step_impl="jnp")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
