@@ -134,7 +134,27 @@ its seconds.
    host-read share and the wall split into the stream's calls (inject,
    advance, the harvest's done read, harvest_ids, release, the rest;
    timed by wrappers this script installs), beside the card line.
-7. Print the kernels' JSON summary (five rows), the card line, and last
+7. The autotuner (:func:`run_tune`, ``repro_torch.tune``) on the main
+   path's graph (W = 4,096 default, 80 hops, 65,536 queries): the
+   measured ``autotune`` of URW and weighted Node2Vec (CH = 64) under
+   ``fused`` (``WalkMeasurer``, min of 3 interleaved; 6 pruned
+   candidates) into a cache file, printing every measured candidate's
+   seconds beside the fitted model's prediction, the fitted coefficients
+   and the choice against the default (never slower); the
+   ``hops_per_launch`` sweep 2..64 for URW and PPR (walks/s, launches);
+   the cost model fitted over every URW run of the phase (the card's
+   coefficients, ``tune.model.DEFAULT_COEFFS``);
+   ``ExecutionConfig`` with every tunable knob ``"auto"`` and
+   ``tune_cache`` set to that file, which must resolve to the tuned choice
+   and give the default config's paths and lengths and a fixed run of the
+   choice's stats (weighted Node2Vec's ``adaptive_chunks`` takes the
+   cached choice, and the skew gate where no entry exists); cuda DeepWalk
+   on 4,096 starts with ``num_slots="auto"`` (the model's argmin) equal
+   to W = 4,096 in paths; model-only ``autotune`` on a CPU and a card copy
+   of WG scale 9 choosing the same candidate under keys that differ in
+   the device field alone.  The launch counts are zeroed before the phase
+   and read after it.
+8. Print the kernels' JSON summary (five rows), the card line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or when the
@@ -2635,6 +2655,290 @@ def check_embeddings_small_against_cpu() -> None:
           f"rtol {TABLE_TOL['rtol']}, atol {TABLE_TOL['atol']})")
 
 
+# ------------------------------------------------------------------ tuning
+
+TUNE_QUERIES = NUM_STARTS        # the measured tuning's closed batch
+TUNE_REPEATS = 3                 # WalkMeasurer: min of 3, interleaved
+TUNE_KEEP = 6                    # model-pruned candidates measured
+TUNE_PROGRAMS = ("urw", "node2vec_w")
+SWEEP_KS = (2, 4, 8, 16, 32, 64)  # hops_per_launch, the tuner's fused grid
+SWEEP_PROGRAMS = ("urw", "ppr")
+TUNE_CUDA_STARTS = 4_096         # cuda DeepWalk's model-only resolution
+TUNE_SMALL_SCALE = 9             # the CPU / card model-only agreement
+
+
+class RecordingMeasurer:
+    """A measurer that records what each call measured (the anchors, then
+    the pruned set) and passes it on."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, []
+
+    def __call__(self, candidates, runners):
+        out = self.inner(candidates, runners)
+        self.calls.append(dict(out))
+        return out
+
+
+def tune_measured(name, g, cache_path) -> dict:
+    """Phase 7 (1): the measured autotune of ``name``, fused, W = 4,096
+    default, TUNE_QUERIES starts: prints every measured candidate's
+    seconds beside the fitted model's prediction, the fitted coefficients
+    and the choice against the default; the choice is never slower."""
+    from repro_torch import tune
+    from repro_torch.walker import ExecutionConfig
+    prog = programs()[name]
+    base = ExecutionConfig(num_slots=NUM_SLOTS, record_paths=False,
+                           step_impl="fused")
+    meas = RecordingMeasurer(tune.WalkMeasurer(repeats=TUNE_REPEATS))
+    t0 = time.perf_counter()
+    res = tune.autotune(g, prog, base, num_queries=TUNE_QUERIES,
+                        measurer=meas, keep=TUNE_KEEP,
+                        cache=tune.TuningCache(cache_path))
+    secs = time.perf_counter() - t0
+    if res.source != "measured" or len(meas.calls) != 2:
+        raise AssertionError(f"tune {name}: source {res.source}, "
+                             f"{len(meas.calls)} measuring calls")
+    sig = tune.graph_signature(g)
+    default = tune.default_candidate(prog, base, tune.knobs_for(prog, base))
+
+    def predicted(c):
+        return tune.predict_us(*c.apply(prog, base), sig, TUNE_QUERIES,
+                               res.coeffs)
+    for label, measured in zip(("anchor", "pruned"), meas.calls):
+        for c, s in measured.items():
+            print(f"tune {name} {label} {c}: measured_s={s:.6f} "
+                  f"predicted_s={predicted(c):.6f} "
+                  f"walks/s={TUNE_QUERIES / s:.1f}")
+    us = res.coeffs.as_array() * 1e6     # fitted on seconds
+    print(f"tune {name} fitted coefficients (us): superstep={us[0]:.6g} "
+          f"lane={us[1]:.6g} byte={us[2]:.6g} launch={us[3]:.6g}")
+    chosen_s, default_s = res.measured[res.candidate], res.measured[default]
+    print(f"tune {name}: chosen {res.candidate} {chosen_s:.6f} s "
+          f"({TUNE_QUERIES / chosen_s:.1f} walks/s) vs default {default} "
+          f"{default_s:.6f} s ({TUNE_QUERIES / default_s:.1f} walks/s); "
+          f"{len(res.measured)} candidates measured in {secs:.1f} s; "
+          f"key {res.key}")
+    if chosen_s > default_s:
+        raise AssertionError(f"tune {name}: the choice is slower than the "
+                             "default")
+    return {"candidate": res.candidate, "measured": res.measured}
+
+
+def tune_k_sweep(graphs) -> dict:
+    """Phase 7 (2): hops_per_launch over SWEEP_KS at W = 4,096 for URW and
+    PPR, timed interleaved by the tuner's WalkMeasurer (min of 3).
+    Returns program -> {candidate: seconds}."""
+    import torch
+
+    from repro_torch import tune
+    from repro_torch.walker import ExecutionConfig, compile
+    out = {}
+    for name in SWEEP_PROGRAMS:
+        g, prog = graphs[name], programs()[name]
+        starts = (torch.arange(TUNE_QUERIES, device=g.device)
+                  % g.num_vertices).to(torch.int32)
+        runners, last = {}, {}
+        for k in SWEEP_KS:
+            cand = tune.Candidate.of(hops_per_launch=k)
+            w = compile(prog, execution=ExecutionConfig(
+                num_slots=NUM_SLOTS, record_paths=False, step_impl="fused",
+                hops_per_launch=k))
+
+            def run(w=w, cand=cand):
+                last[cand] = w.run(g, starts, seed=0)
+                torch.cuda.synchronize()
+            runners[cand] = run
+        best = tune.WalkMeasurer(repeats=TUNE_REPEATS)(list(runners),
+                                                       runners)
+        for cand, s in best.items():
+            st = last[cand].stats
+            print(f"k sweep {name} hops_per_launch="
+                  f"{cand.get('hops_per_launch')}: walks/s="
+                  f"{TUNE_QUERIES / s:.1f} s={s:.6f} "
+                  f"launches={int(st.launches)} "
+                  f"supersteps={int(st.supersteps)}")
+        if len({int(r.stats.steps) for r in last.values()}) != 1:
+            raise AssertionError(f"k sweep {name}: steps differ with k")
+        win = min(best, key=best.get)
+        print(f"k sweep {name}: fastest hops_per_launch="
+              f"{win.get('hops_per_launch')}")
+        out[name] = best
+    return out
+
+
+def tune_card_coeffs(g, measured) -> None:
+    """Phase 7 (2b): the cost model fitted (``tune.fit``, least squares)
+    over every URW run phase 7 timed — the autotune's candidates and the
+    k sweep — the card's coefficients that ``tune.model.DEFAULT_COEFFS``
+    carries.  Prints them in microseconds and each run's measured and
+    predicted seconds."""
+    from repro_torch import tune
+    from repro_torch.walker import ExecutionConfig
+    prog = programs()["urw"]
+    base = ExecutionConfig(num_slots=NUM_SLOTS, record_paths=False,
+                           step_impl="fused")
+    sig = tune.graph_signature(g)
+    rows = {c: tune.model.features(*c.apply(prog, base), sig, TUNE_QUERIES)
+            for c in measured}
+    coeffs = tune.fit(list(rows.values()), list(measured.values()))
+    for c, s in measured.items():
+        print(f"card fit urw {c}: measured_s={s:.6f} predicted_s="
+              f"{float(rows[c] @ coeffs.as_array()):.6f}")
+    us = coeffs.as_array() * 1e6
+    print(f"card coefficients (us; urw fused, fit over {len(measured)} "
+          f"runs): superstep={us[0]:.6g} lane={us[1]:.6g} byte={us[2]:.6g} "
+          f"launch={us[3]:.6g}")
+
+
+def tune_resolve_cached(name, g, starts_np, cache_path, chosen) -> None:
+    """Phase 7 (3): every knob "auto", resolved from the written cache,
+    must give the chosen candidate; the run equals the default config's
+    in paths and lengths and a fixed run of the chosen config in every
+    stat but launches.  Weighted Node2Vec's adaptive_chunks="auto" takes
+    the cached choice; without a cache entry it takes the skew gate; paths
+    are the same either way."""
+    import torch
+
+    from repro_torch import tune
+    from repro_torch.walker import ExecutionConfig, compile
+    prog = programs()[name]
+    starts = torch.from_numpy(starts_np).to(g.device)
+    auto = dict(num_slots="auto", queue_depth_factor="auto",
+                hops_per_launch="auto", cache_budget="auto",
+                step_impl="fused")
+    w = compile(prog, execution=ExecutionConfig(tune_cache=cache_path,
+                                                **auto))
+    got = w.run(g, starts, seed=0)
+    (rprog, rex), = w._resolved.values()
+    knobs = chosen["candidate"].to_dict()
+    resolved = {k: getattr(rex, k) for k in tune.space.EXEC_KNOBS}
+    if any(resolved[k] != knobs[k] for k in resolved):
+        raise AssertionError(f"resolve {name}: {resolved}, tuned {knobs}")
+    dw = compile(prog, execution=ExecutionConfig(num_slots=NUM_SLOTS,
+                                                 step_impl="fused"))
+    default = dw.run(g, starts, seed=0)
+    fixed = compile(rprog, execution=ExecutionConfig(
+        step_impl="fused", **resolved)).run(g, starts, seed=0)
+    check_paths(g, starts, got, max_hops=prog.max_hops)
+    if not (torch.equal(got.paths, default.paths)
+            and torch.equal(got.lengths, default.lengths)
+            and same_walks(got, fixed)):
+        raise AssertionError(f"resolve {name}: the resolved run differs")
+    line = (f"resolve {name} from the cache: {resolved} == the tuned "
+            f"choice; paths and lengths == default (W = {NUM_SLOTS}, k = "
+            f"{HOPS_PER_LAUNCH}), every stat but launches == the fixed "
+            f"config (launches {int(got.stats.launches)} vs default "
+            f"{int(default.stats.launches)})")
+    if prog.spec.kind == "reservoir_n2v":
+        sig = tune.graph_signature(g)
+        if rprog.spec.adaptive_chunks != knobs["adaptive_chunks"]:
+            raise AssertionError(f"resolve {name}: adaptive_chunks "
+                                 f"{rprog.spec.adaptive_chunks}, cached "
+                                 f"{knobs['adaptive_chunks']}")
+        # The default config has no entry (no tune_cache): the gate.
+        (dprog, _), = dw._resolved.values()
+        gate = tune.adaptive_chunk_gate(sig, NUM_SLOTS,
+                                        prog.spec.reservoir_chunk)
+        if dprog.spec.adaptive_chunks != gate:
+            raise AssertionError(f"resolve {name}: no-entry resolution "
+                                 f"{dprog.spec.adaptive_chunks}, gate {gate}")
+        line += (f"; adaptive_chunks: cached {knobs['adaptive_chunks']}, "
+                 f"with no entry the gate's {gate} (live max degree "
+                 f"{tune.live_max_degree(sig, NUM_SLOTS)} of "
+                 f"{sig.max_degree}); the same walks either way")
+    print(line)
+
+
+def tune_resolve_cuda(g, starts_np) -> None:
+    """Phase 7 (4): cuda DeepWalk on TUNE_CUDA_STARTS starts with
+    num_slots="auto" and no cache entry (the model's argmin) equals the
+    fixed W = 4,096 run in paths and lengths."""
+    import torch
+
+    from repro_torch.walker import ExecutionConfig, compile
+    prog = programs()["deepwalk"]
+    starts = torch.from_numpy(starts_np[:TUNE_CUDA_STARTS]).to(g.device)
+    w = compile(prog, execution=ExecutionConfig(num_slots="auto",
+                                                step_impl="cuda"))
+    t0 = time.perf_counter()
+    got = w.run(g, starts, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (_, rex), = w._resolved.values()
+    want = compile(prog, execution=ExecutionConfig(
+        num_slots=NUM_SLOTS, step_impl="cuda")).run(g, starts, seed=0)
+    check_paths(g, starts, got, max_hops=prog.max_hops)
+    if not (torch.equal(got.paths, want.paths)
+            and torch.equal(got.lengths, want.lengths)):
+        raise AssertionError("resolve deepwalk/cuda: the run differs")
+    print(f"resolve deepwalk cuda (model): num_slots={rex.num_slots}, "
+          f"{int(got.stats.supersteps)} supersteps in {wall:.3f} s; paths "
+          f"and lengths == W = {NUM_SLOTS}")
+
+
+def tune_cpu_vs_card() -> None:
+    """Phase 7 (5): model-only autotune on a CPU and a card copy of WG
+    scale TUNE_SMALL_SCALE choose the same candidate under keys that
+    differ only in the device field."""
+    from repro_torch import tune
+    from repro_torch.graph import make_dataset
+    from repro_torch.walker import ExecutionConfig
+    for name in ("urw", "node2vec_w"):
+        prog = programs()[name]
+        out = {}
+        for dev in ("cpu", "cuda"):
+            g = make_dataset("WG", weighted=True, with_alias=True,
+                             scale_override=TUNE_SMALL_SCALE, device=dev)
+            out[dev] = tune.autotune(
+                g, prog, ExecutionConfig(record_paths=False,
+                                         step_impl="fused"),
+                num_queries=TUNE_QUERIES, measurer=None,
+                cache=tune.TuningCache(None))
+        a, b = out["cpu"].key.split("|"), out["cuda"].key.split("|")
+        diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        if (out["cpu"].candidate != out["cuda"].candidate or len(a) != len(b)
+                or diff != [3] or a[3] != "cpu"):
+            raise AssertionError(f"model-only {name}: cpu {out['cpu'].key} "
+                                 f"{out['cpu'].candidate}, card "
+                                 f"{out['cuda'].key} {out['cuda'].candidate}")
+        print(f"model-only {name} WG {TUNE_SMALL_SCALE}: cpu == card "
+              f"{out['cpu'].candidate}; device fields {a[3]!r}, {b[3]!r}")
+
+
+def run_tune(graphs, starts_np) -> dict:
+    """Phase 7, the autotuner (``repro_torch.tune``) on the main path's
+    graph: measured autotune of fused URW and weighted Node2Vec into a
+    cache file, the hops_per_launch sweep, resolution of "auto" from that
+    file, cuda DeepWalk's model-only resolution and the CPU / card
+    agreement.  The launch counts are zeroed before and read after;
+    returns them."""
+    import tempfile
+    reset_all_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        cache_path = os.path.join(tmp, "tune_cache.json")
+        chosen = {}
+        for name in TUNE_PROGRAMS:
+            t = time.perf_counter()
+            chosen[name] = tune_measured(name, graphs[name], cache_path)
+            print(f"  tune {name} time {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        sweep = tune_k_sweep(graphs)
+        tune_card_coeffs(graphs["urw"], {**chosen["urw"]["measured"],
+                                         **sweep["urw"]})
+        print(f"  k sweep time {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        for name in TUNE_PROGRAMS:
+            tune_resolve_cached(name, graphs[name], starts_np, cache_path,
+                                chosen[name])
+        print(f"  resolve time {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    tune_resolve_cuda(graphs["deepwalk"], starts_np)
+    tune_cpu_vs_card()
+    print(f"  model-only time {time.perf_counter() - t:.1f} s")
+    return embedding_launches()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: run it from the root of a checkout "
@@ -2710,6 +3014,8 @@ def main() -> int:
     for label, fn in (("5 streams", run_streams), ("6 serve", run_service)):
         for name, n in phase(label, fn, graphs).items():
             launches[name] = launches.get(name, 0) + n
+    for name, n in phase("7 tune", run_tune, graphs, starts).items():
+        launches[name] = launches.get(name, 0) + n
     for name, row in rows.items():
         row["launches"] = launches[name]
         if row["launches"] <= 0:

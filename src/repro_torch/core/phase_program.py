@@ -275,12 +275,15 @@ def reservoir_scan(spec: SamplerSpec, g, addr, deg, slots, base_key):
     ``reservoir_chunk`` candidates per trip, keeping the largest key
     ``log(u)/w'`` over the bias-scaled weights w' (weighted Node2Vec).
 
-    Degree-adaptive scan (``spec.adaptive_chunks`` True, or "auto", which
-    the reference's engine also treats as true without a tuner): the loop
-    runs ``ceil(max(live deg)/chunk)`` trips, read on the host once per
+    Degree-adaptive scan (``spec.adaptive_chunks`` True): the loop runs
+    ``ceil(max(live deg)/chunk)`` trips, read on the host once per
     superstep, instead of ``ceil(max_degree/chunk)``.  Chunks past a
     lane's degree contribute only -inf keys, so paths are the same
-    either way."""
+    either way.  A Walker resolves ``"auto"`` before building its engine
+    (`repro_torch.tune.resolve`, by the skew gate
+    `tune.model.adaptive_chunk_gate`); only an engine built directly
+    still holds ``"auto"`` here, and reads it as True, as the reference's
+    engine does."""
     CH = spec.reservoir_chunk
     n_chunks = es_num_chunks(g.max_degree, CH)
     W = addr.shape[0]

@@ -137,6 +137,17 @@ def stream_key(seed, epoch: int = 0) -> torch.Tensor:
     return torch.stack([k0, k1])
 
 
+def task_fold(base_key, query_id: torch.Tensor, hop: torch.Tensor, salt=0,
+              epoch=None) -> torch.Tensor:
+    """One key pair per task from (seed[, epoch], query_id, hop, salt): a
+    (W, 2) int64 tensor of 32-bit words.  ``epoch`` 0 (or None) folds
+    nothing, so a closed batch derives from the 3-tuple alone.
+    ``base_key`` is a key pair: a (2,) tensor or a pair of ints."""
+    k0, k1 = (int(k) for k in base_key)
+    k0, k1 = task_key_pair(k0, k1, query_id, hop, salt, epoch)
+    return torch.stack([k0, k1], dim=-1)
+
+
 def task_uniforms(base_key, query_id: torch.Tensor, hop: torch.Tensor,
                   num: int, salt=0, epoch=None) -> torch.Tensor:
     """(W, num) iid U[0,1) float32 draws, one row per task.  ``base_key`` is

@@ -28,6 +28,19 @@ def min_queue_depth(num_servers: int, mu: float = 1.0, delay: int = 0) -> int:
     return int(num_servers + math.ceil(mu * delay * num_servers))
 
 
+def butterfly_feedback_delay(num_pipelines: int) -> int:
+    """Paper §VI-D: tasks traverse log N Dispatchers + log N Mergers, each
+    ≤ 2 cycles, plus the scheduler↔pipeline round trip: C ≤ 4·log2 N."""
+    n = max(2, num_pipelines)
+    return int(4 * math.ceil(math.log2(n)))
+
+
+def per_pipeline_fifo_depth(num_pipelines: int) -> int:
+    """Paper §VI-D: D = N + 4·N·log N total → 1 + 4·log N per pipeline."""
+    n = max(2, num_pipelines)
+    return int(1 + 4 * math.ceil(math.log2(n)))
+
+
 @dataclasses.dataclass
 class RunAnalysis:
     steps: int
@@ -153,3 +166,12 @@ def analyze_service(sojourns, stats: WalkStats, num_slots: int,
         mean_admission_wait=aw_mean,
         adaptation=tuple(adaptation),
     )
+
+
+def peak_random_access_bandwidth(f_mem_hz: float, t_rrd_cycles: float,
+                                 num_channels: int, bits: int = 64) -> float:
+    """Paper Eq. (1): B_peak = f_mem / t_RRD × N_chn × bits/8  [bytes/s],
+    with t_RRD the row-to-row delay in memory-clock cycles (each walk step
+    is assumed to be a DRAM row-buffer miss).  The paper's FPGA analysis;
+    the port's bounds use the card's published memory rate instead."""
+    return f_mem_hz / t_rrd_cycles * num_channels * (bits / 8)

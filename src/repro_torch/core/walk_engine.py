@@ -544,6 +544,16 @@ def build_engine(spec: SamplerSpec, cfg: EngineConfig, cache=None):
     return run
 
 
+def make_engine(spec: SamplerSpec, cfg: EngineConfig):
+    """Deprecated alias for :func:`build_engine` — prefer
+    ``repro_torch.walker.compile(program).run(...)``."""
+    warnings.warn(
+        "make_engine is deprecated; use repro_torch.walker.compile(program)"
+        ".run(graph, starts) (or build_engine when extending the engine)",
+        DeprecationWarning, stacklevel=2)
+    return build_engine(spec, cfg)
+
+
 def _run_walks(graph: CSRGraph, start_vertices, spec: SamplerSpec,
                cfg: EngineConfig | None = None, seed=0) -> WalkResult:
     """One-shot closed-system run (engine-internal reference path)."""
@@ -552,3 +562,14 @@ def _run_walks(graph: CSRGraph, start_vertices, spec: SamplerSpec,
     run = build_engine(spec, cfg, cache=maybe_build_cache(spec, cfg, graph))
     result, _ = run(graph, sv, task_rng.stream_key(seed))
     return result
+
+
+def run_walks(graph: CSRGraph, start_vertices, spec: SamplerSpec,
+              cfg: EngineConfig | None = None, seed=0) -> WalkResult:
+    """Deprecated convenience one-shot API — prefer
+    ``repro_torch.walker.compile(program).run(graph, starts)``."""
+    warnings.warn(
+        "run_walks is deprecated; use repro_torch.walker.compile(program)"
+        ".run(graph, starts)",
+        DeprecationWarning, stacklevel=2)
+    return _run_walks(graph, start_vertices, spec, cfg, seed)

@@ -40,3 +40,29 @@ def rmat_edges(
     if undirected:
         edges = np.concatenate([edges, edges[:, ::-1]], axis=0)
     return edges, n
+
+
+def erdos_renyi_edges(num_vertices: int, num_edges: int,
+                      seed: int = 0) -> np.ndarray:
+    """Uniform random directed edges, (E, 2) int64."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, num_vertices, size=num_edges)
+    dst = rng.integers(0, num_vertices, size=num_edges)
+    return np.stack([src, dst], axis=1).astype(np.int64)
+
+
+def power_law_edges(num_vertices: int, num_edges: int, alpha: float = 1.5,
+                    seed: int = 0) -> np.ndarray:
+    """Directed power-law graph: Zipf-distributed destinations (hubs),
+    uniform sources; (E, 2) int64."""
+    rng = np.random.default_rng(seed)
+    ranks = rng.zipf(alpha, size=num_edges)
+    dst = (ranks - 1) % num_vertices
+    src = rng.integers(0, num_vertices, size=num_edges)
+    return np.stack([src, dst], axis=1).astype(np.int64)
+
+
+def dangling_fraction(edges: np.ndarray, num_vertices: int) -> float:
+    """Fraction of vertices with no outgoing edge (where walks end early)."""
+    deg = np.bincount(edges[:, 0], minlength=num_vertices)
+    return float((deg == 0).mean())

@@ -1,1 +1,2 @@
 """Optimizers (AdamW with a warmup-cosine schedule)."""
+from repro_torch.optim import adamw

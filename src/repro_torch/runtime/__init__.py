@@ -1,1 +1,2 @@
 """Training runtime: the producer/consumer pipelined loop."""
+from repro_torch.runtime import train_loop

@@ -6,8 +6,9 @@
 closed batch on the graph's device, ``.stream(graph)`` keeps an open
 system and ``.serve(graph)`` puts a request service on it.
 """
-from repro_torch.walker.compile import BACKENDS, Walker, compile
+from repro_torch.walker.compile import BACKENDS, Walker, WalkStream, compile
 from repro_torch.walker.execution import ExecutionConfig
 from repro_torch.walker.program import WalkProgram
 
-__all__ = ["WalkProgram", "ExecutionConfig", "compile", "Walker", "BACKENDS"]
+__all__ = ["WalkProgram", "ExecutionConfig", "compile", "Walker",
+           "WalkStream", "BACKENDS"]

@@ -92,8 +92,32 @@ class Walker:
         # (spec, engine config, id(graph) when a cache is wanted) ->
         # (engine, graph); see _single_engine.
         self._engines = {}
+        # (graph signature token, workload bucket) -> (program, execution);
+        # see _bind.
+        self._resolved = {}
         #: Host timing of the last :meth:`run` (wall and per-superstep sync).
         self.last_drain: Optional[Drain] = None
+
+    def _bind(self, graph, num_queries: Optional[int] = None):
+        """Concrete ``(program, execution)`` for this graph + workload.
+
+        Resolves any ``"auto"`` knob sentinels (and a reservoir spec's
+        ``adaptive_chunks="auto"``) through the tuning cache / analytical
+        model (`repro_torch.tune.resolve`) — memoized per (graph
+        signature, workload bucket), so repeat runs on a same-shaped
+        graph reuse both the resolution and the engine.  With no
+        sentinels present this is the identity.
+        """
+        from repro_torch import tune
+        if not tune.needs_resolution(self.program, self.execution):
+            return self.program, self.execution
+        sig = tune.graph_signature(graph)
+        key = (sig.token(), tune.workload_bucket(num_queries))
+        if key not in self._resolved:
+            self._resolved[key] = tune.resolve(
+                self.program, self.execution, graph, backend=self.backend,
+                num_queries=num_queries)
+        return self._resolved[key]
 
     def run(self, graph, starts, seed=0) -> WalkResult:
         """Closed system: drain the batch of ``starts`` to completion on
@@ -103,23 +127,24 @@ class Walker:
         ``seed`` may be an int or a key pair (two 32-bit words, e.g.
         ``rng.stream_key(s, e)``)."""
         self.program.requires(graph)
-        engine = self._single_engine(graph)
         if isinstance(starts, torch.Tensor):
             sv = starts.to(device=graph.device, dtype=torch.int32)
         else:
             sv = torch.as_tensor(np.asarray(starts, dtype=np.int32),
                                  device=graph.device)
+        program, execution = self._bind(graph, int(sv.shape[0]))
+        engine = self._single_engine(graph, program,
+                                     execution.engine_config(program))
         result, self.last_drain = engine(graph, sv, task_rng.stream_key(seed))
         return result
 
-    def _single_engine(self, graph, cfg=None):
-        """The engine for ``graph`` (under ``cfg``, default the execution's
-        engine config), built once.  The hot-vertex cache is a function of
-        the graph, so graph identity keys the memo whenever a cache would
-        be built; the memo holds the graph, keeping its id() stable for the
-        entry's lifetime."""
-        spec = self.program.spec
-        cfg = cfg or self.execution.engine_config(self.program)
+    def _single_engine(self, graph, program, cfg):
+        """The engine for ``program`` on ``graph`` under the engine config
+        ``cfg`` (both resolved), built once.  The hot-vertex cache is a
+        function of the graph, so graph identity keys the memo whenever a
+        cache would be built; the memo holds the graph, keeping its id()
+        stable for the entry's lifetime."""
+        spec = program.spec
         wants_cache = cfg.step_impl == "fused" and cfg.cache_budget > 0
         key = (spec, cfg, id(graph) if wants_cache else None)
         if key not in self._engines:
@@ -133,7 +158,8 @@ class Walker:
         reclamation (``release``) for continuous operation.  ``seed`` may
         be an int or a key pair."""
         self.program.requires(graph)
-        return WalkStream(self.program, self.execution, graph, capacity, seed)
+        program, execution = self._bind(graph, capacity)
+        return WalkStream(program, execution, graph, capacity, seed)
 
     def serve(self, graph, capacity: int = 4096, chunk: int = 16,
               seed=0, adapt: bool = False, controller=None):
@@ -217,8 +243,9 @@ class Walker:
         path_width = self.program.max_hops + 1
 
         # ------------------------------------------------------- producer
-        engine = self._single_engine(graph, dataclasses.replace(
-            self.execution.engine_config(self.program), record_paths=True))
+        program, execution = self._bind(graph, walks_per_round)
+        engine = self._single_engine(graph, program, dataclasses.replace(
+            execution.engine_config(program), record_paths=True))
 
         def produce(r: int):
             sv = torch.as_tensor(

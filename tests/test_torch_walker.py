@@ -130,10 +130,12 @@ def test_cli_runs_on_cpu():
 
 def test_unported_paths_raise_not_implemented(graphs, starts, monkeypatch):
     _, pg = graphs
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        walker.ExecutionConfig(num_slots="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        walker.ExecutionConfig(step_impl="fused", hops_per_launch="auto")
+    auto = walker.ExecutionConfig(num_slots="auto")   # ported: the tuner
+    assert auto.auto_knobs == ("num_slots",)
+    with pytest.raises(ValueError, match="hops_per_launch"):
+        walker.ExecutionConfig(step_impl="fused", hops_per_launch="fast")
+    with pytest.raises(ValueError, match="auto"):
+        auto.engine_config(walker.WalkProgram.urw())
     with pytest.raises(ValueError, match="cache_budget"):
         walker.ExecutionConfig(cache_budget=-1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
@@ -172,7 +174,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             root = mod.split(".")[0]
             assert root not in ("jax", "jaxlib", "repro"), (path, mod)
     code = ("import sys, repro_torch, repro_torch.walker, repro_torch.graph, "
-            "repro_torch.launch.walk, repro_torch.configs.ridgewalker; "
+            "repro_torch.launch.walk, repro_torch.configs.ridgewalker, "
+            "repro_torch.tune, repro_torch.tune.__main__, repro_torch.kernels; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "raise SystemExit(1 if bad else 0)")
