@@ -154,7 +154,24 @@ its seconds.
    of WG scale 9 choosing the same candidate under keys that differ in
    the device field alone.  The launch counts are zeroed before the phase
    and read after it.
-8. Print the kernels' JSON summary (five rows), the card line, and last
+8. The sharded backend (:func:`run_sharded`, ``compile(program,
+   backend="sharded")``: N shards stacked on the card, the plain torch
+   superstep) on the main path's graphs at W = 4,096: every program's
+   closed batch (65,536 starts, 80 hops) at 4 shards of 1,024 lanes, and
+   URW also at the paper's 16 pipelines of 256, each equal in paths and
+   lengths to the single backend's fused run of the same batch, with no
+   drop, every hop an edge and no kernel launched by the sharded run;
+   weighted Node2Vec cut in depth to phase 3's torch cut (1,024 starts,
+   16 hops; the cut is printed); a sharded URW stream (capacity 8,192, 3
+   x capacity arrivals) and a sharded service point (rho 0.9, 256
+   requests of 64 walks), each (epoch, qid) equal to its closed batch;
+   ``train_embeddings`` (DeepWalk at phase 4's width, 2 rounds of 8
+   steps) equal to the single backend's in ring, tables and moments; and
+   ``torch.profiler`` over one sharded drain (the device's busy share).
+   Each run prints walks/s and MSteps/s beside the single backend's
+   (phase 3's torch and fused), supersteps, route waits and the bubble
+   ratio of each shard.
+9. Print the kernels' JSON summary (five rows), the card line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or when the
@@ -162,6 +179,7 @@ script is run outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -1137,6 +1155,7 @@ def run_main_path(graphs, starts_np) -> dict:
             for k in totals:
                 totals[k] += launched[k]
             results.append(res)
+            RATES[name, impl] = NUM_STARTS / wall   # phase 8 prints it
             print(f"main {name} step_impl={impl}: "
                   f"walks/s={NUM_STARTS / wall:.1f} "
                   f"MSteps/s={a.msteps_per_s:.4f} supersteps={a.supersteps} "
@@ -1300,6 +1319,7 @@ def run_n2vw_torch(g, starts, fused):
         raise AssertionError("node2vec_w: torch (1,024 starts, 16 hops) "
                              "differs from the fused run's first rows")
     a = analyze_run(res.stats, wall)
+    RATES["node2vec_w", "torch"] = N2V_TORCH_STARTS / wall   # phase 8's cut
     print(f"main node2vec_w step_impl=torch starts={N2V_TORCH_STARTS} "
           f"slots={N2V_TORCH_STARTS} hops={N2V_TORCH_HOPS}: "
           f"walks/s={N2V_TORCH_STARTS / wall:.1f} "
@@ -1782,7 +1802,7 @@ def service_harvest(reqs, starts, device) -> dict:
             "lengths": torch.from_numpy(cat("lengths")).to(device)}
 
 
-def serve_point(svc, name, impl, load, parts, card) -> dict:
+def serve_point(svc, name, impl, load, parts, card, graph=None) -> dict:
     """One load point of ``svc``: ``run_open_load`` with the launch counts
     zeroed just before it and read just after.  Checks the launches
     (fused: the kernel's count equals ``launches``; cuda: the walk step's
@@ -1792,7 +1812,8 @@ def serve_point(svc, name, impl, load, parts, card) -> dict:
     an edge, and that the wall clocks are ordered submit <= admit <=
     complete.  Prints the point's numbers with the card line.  Returns
     the analysis, requests, stats, launches, harvest, wall and the seed
-    the stream ran under."""
+    the stream ran under.  ``graph`` is the CSR graph the hops are checked
+    on (default: the service's own)."""
     import types
 
     import torch
@@ -1831,8 +1852,9 @@ def serve_point(svc, name, impl, load, parts, card) -> dict:
                for r in reqs):
         raise AssertionError(f"{label}: a request's paths do not begin at "
                              "its starts")
-    check_paths(svc.graph, torch.from_numpy(h["starts"]).to(
-        svc.graph.device), types.SimpleNamespace(
+    graph = svc.graph if graph is None else graph
+    check_paths(graph, torch.from_numpy(h["starts"]).to(
+        graph.device), types.SimpleNamespace(
         paths=h["paths"], lengths=h["lengths"], stats=st),
         max_hops=svc.max_hops)
     if not all(r.wall_submitted <= r.wall_admitted <= r.wall_completed
@@ -2939,6 +2961,276 @@ def run_tune(graphs, starts_np) -> dict:
     return embedding_launches()
 
 
+# ---------------------------------------------------------- sharded backend
+
+SHARD_N = 4                      # the main path's shards: 4 x 1,024 = W
+SHARD_WIDE = 16                  # the paper's 16 pipelines: 16 x 256 = W
+SHARD_WIDE_PROGRAMS = ("urw",)
+# A shard's emission log holds every record of the batch (65,536 x 80).
+SHARD_LOG = NUM_STARTS * MAX_HOPS
+# Weighted Node2Vec's chunk ping-pong takes up to 2 x 290 + 1 supersteps a
+# hop at the hubs, each a plain superstep over every shard's pool: its
+# sharded run is cut in depth to phase 3's torch cut (1,024 starts, 16
+# hops); its width stays 4 x 1,024.
+SHARD_CUT = {"node2vec_w": (N2V_TORCH_STARTS, N2V_TORCH_HOPS)}
+SHARD_STREAM_CAPACITY = 8_192    # URW, fed 3 x capacity arrivals
+SHARD_SERVE_CAPACITY = 8_192
+SHARD_SERVE_REQUESTS = 256       # 64-walk Poisson requests at rho 0.9
+SHARD_EMB = {**EMB, "rounds": 2, "steps_per_round": 8}
+SHARD_PROFILE_STARTS = NUM_SLOTS  # the profiled drain: one pool's worth
+RATES = {}   # (program, impl) -> walks/s of phase 3's last run of it
+
+
+def sharded_walker(prog, n_shards=SHARD_N):
+    from repro_torch.walker import ExecutionConfig, compile
+    return compile(prog, backend="sharded", execution=ExecutionConfig(
+        num_slots=NUM_SLOTS, num_devices=n_shards, log_capacity=SHARD_LOG))
+
+
+def fused_walker(prog):
+    from repro_torch.walker import ExecutionConfig, compile
+    return compile(prog, execution=ExecutionConfig(
+        num_slots=NUM_SLOTS, step_impl="fused",
+        hops_per_launch=HOPS_PER_LAUNCH))
+
+
+SHARD_WARMUP = 8                 # starts of each timed run's warm-up
+
+
+def timed_run(w, g, starts) -> tuple:
+    """A warm-up on a few starts, then ``w.run`` timed with the launch
+    counts zeroed just before it and read just after: (result, wall
+    seconds, launches)."""
+    import torch
+    w.run(g, starts[:SHARD_WARMUP], seed=0)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    res = w.run(g, starts, seed=0)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, embedding_launches()
+
+
+def shard_line(st) -> str:
+    """Supersteps, route waits and bubble ratio of each shard."""
+    ratio = (st.bubbles.double() / st.slot_steps.clamp(min=1)).tolist()
+    return (f"per shard: supersteps={st.supersteps.tolist()} "
+            f"route_waits={st.route_waits.tolist()} "
+            f"bubble_ratio={[round(x, 6) for x in ratio]}")
+
+
+def sharded_closed(name, prog, g, starts, n_shards, card, add) -> None:
+    """One sharded closed batch through ``Walker.run`` against the single
+    backend's fused run of the same batch: paths and lengths equal, no
+    drop, every hop an edge, no kernel launched by the sharded run (its
+    superstep is plain torch).  Prints walks/s and MSteps/s beside the
+    single backend's (this batch fused; phase 3's torch and fused)."""
+    import torch
+
+    from repro_torch.core.scheduler import analyze_run
+    single, single_wall, launched = timed_run(fused_walker(prog), g, starts)
+    add(launched)
+    w = sharded_walker(prog, n_shards)
+    res, wall, launched = timed_run(w, g, starts)
+    label = f"sharded {name} N={n_shards}x{NUM_SLOTS // n_shards}"
+    if any(launched.values()):
+        raise AssertionError(f"{label}: kernel launches {launched}")
+    if int(res.stats.drops) != 0:
+        raise AssertionError(f"{label}: {int(res.stats.drops)} drops")
+    if not (torch.equal(res.paths, single.paths)
+            and torch.equal(res.lengths, single.lengths)):
+        raise AssertionError(f"{label}: walks differ from the single "
+                             "backend's")
+    check_paths(g, starts, res,
+                prog.spec.metapath if name == "metapath" else None,
+                max_hops=prog.max_hops)
+    a = analyze_run(res.stats, wall)
+    n = int(starts.shape[0])
+    # Phase 3's runs of a cut program: its torch run has the same cut.
+    impls = ("torch",) if name in SHARD_CUT else ("torch", "fused")
+    phase3 = " ".join(f"phase 3 {impl} {RATES[name, impl]:.1f}"
+                      for impl in impls if (name, impl) in RATES)
+    print(f"{label} starts={n} hops={prog.max_hops}: walks/s={n / wall:.1f} "
+          f"MSteps/s={a.msteps_per_s:.6f} supersteps={a.supersteps} "
+          f"steps={a.steps} route_waits={a.route_waits} drops={a.drops} "
+          f"bubble_ratio={a.bubble_ratio:.6f} "
+          f"wall_ms_per_superstep={wall / a.supersteps * 1e3:.4f} "
+          f"wall_s={wall:.4f}; {shard_line(w.last_shard_stats)}; single "
+          f"backend: this batch fused walks/s {n / single_wall:.1f} "
+          f"supersteps {int(single.stats.supersteps)}"
+          f"{'; ' + phase3 if phase3 else ''}; paths, lengths == the single "
+          f"backend's | {card}")
+
+
+def sharded_stream(g, card, add) -> None:
+    """A sharded URW stream (4 x 1,024 lanes, capacity 8,192) fed 3 x
+    capacity arrivals by :func:`soak`: every (epoch, qid) equals its
+    closed batch (the single backend, fused), the ring wrapped, no drop,
+    no kernel launched by the stream."""
+    prog = programs()["urw"]
+    stream = sharded_walker(prog).stream(g, capacity=SHARD_STREAM_CAPACITY,
+                                         seed=STREAM_SEED)
+    reset_all_launches()
+    h = soak(stream, stream_starts(g, SHARD_STREAM_CAPACITY))
+    launched = embedding_launches()
+    st = stream.walk_stats()
+    label = f"sharded stream urw N={SHARD_N} capacity={SHARD_STREAM_CAPACITY}"
+    if any(launched.values()) or st.drops:
+        raise AssertionError(f"{label}: launches {launched}, drops "
+                             f"{st.drops}")
+    if len(set(h["epochs"].tolist())) < 3:
+        raise AssertionError(f"{label}: the ring did not wrap twice")
+    reset_all_launches()
+    check_against_closed("urw", "fused", g, h, SHARD_STREAM_CAPACITY)
+    add(embedding_launches())
+    walks = h["epochs"].size
+    split = {k: round(v * 1e3, 3) for k, v in h["split"].items()}
+    print(f"{label}: {walks} walks, walks/s={walks / h['wall']:.1f} "
+          f"supersteps={st.supersteps} route_waits={st.route_waits} "
+          f"bubble_ratio={st.bubbles / max(st.slot_steps, 1):.6f} "
+          f"host_read_share={stream.host_read_s / h['wall']:.4f} "
+          f"wall_s={h['wall']:.4f} wall_split_ms={split} "
+          f"epochs={sorted(set(h['epochs'].tolist()))}; every (epoch, qid) "
+          f"equals its closed batch | {card}")
+
+
+def sharded_service(g, card, add) -> None:
+    """One Poisson point (rho 0.9, 64-walk requests) of a WalkService over
+    the sharded URW stream: :func:`serve_point`'s checks, no kernel
+    launched, each request equal to its closed batch."""
+    from repro_torch.serve import OpenLoad
+    svc = sharded_walker(programs()["urw"]).serve(
+        g, capacity=SHARD_SERVE_CAPACITY, chunk=SERVE_CHUNK, seed=SERVE_SEED)
+    out = serve_point(svc, "urw", f"sharded N={SHARD_N}", OpenLoad(
+        num_requests=SHARD_SERVE_REQUESTS, request_size=SERVE_REQUEST,
+        utilization=0.9), instrument_service(svc), card, graph=g)
+    if out["stats"].drops:
+        raise AssertionError("sharded service: drops")
+    reset_all_launches()
+    check_against_closed("urw", "fused", g, out["harvest"],
+                         SHARD_SERVE_CAPACITY, seed=out["seed"])
+    add(embedding_launches())
+    print(f"sharded service urw: every request equals its closed batch "
+          f"under stream_key({out['seed']}, epoch)")
+
+
+def sharded_embeddings(g, card, add) -> None:
+    """``train_embeddings`` at phase 4's width (DeepWalk, dim 128, batch
+    4,096, 65,536 walks a round; 2 rounds of 8 steps) on the sharded
+    backend (its producer a sharded stream) and on the single backend
+    (fused): rings, tables and moments equal; the sharded run launches
+    3 embedding-bag and 3 segment-sum kernels a step and nothing else."""
+    import torch
+    prog = programs()["deepwalk"]
+    steps = SHARD_EMB["rounds"] * SHARD_EMB["steps_per_round"]
+    outs = {}
+    for label, w in (("single", fused_walker(prog)),
+                     ("sharded", sharded_walker(prog))):
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[label] = w.train_embeddings(g, **SHARD_EMB)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = embedding_launches()
+        add(launched)
+        check_embedding_launches(label, launched, steps)
+        walks = SHARD_EMB["rounds"] * SHARD_EMB["walks_per_round"]
+        print(f"sharded embeddings {label}: {walks} walks and {steps} steps "
+              f"in {wall:.3f} s; kernel launches {launched} | {card}")
+    a, b = outs["single"], outs["sharded"]
+    if not (all(torch.equal(x, y) for x, y in zip(a["ring"], b["ring"]))
+            and all(torch.equal(a["params"][k], b["params"][k])
+                    and torch.equal(a["opt_state"].nu[k],
+                                    b["opt_state"].nu[k])
+                    for k in a["params"])):
+        raise AssertionError("sharded embeddings differ from the single "
+                             "backend's")
+    print("sharded embeddings: ring, tables and moments == the single "
+          "backend's")
+
+
+def check_embedding_launches(label, launched, steps) -> None:
+    """3 embedding-bag and 3 segment-sum launches a step, fused launches
+    for the single backend's producer and none for the sharded one's."""
+    want = {k: 0 for k in launched}
+    want.update(embedding_bag=3 * steps, segment_sum=3 * steps)
+    if label == "single" and launched["fused_superstep"] > 0:
+        want["fused_superstep"] = launched["fused_superstep"]
+    if launched != want:
+        raise AssertionError(f"embeddings {label}: launches {launched}")
+
+
+def sharded_profile(g) -> None:
+    """Device busy share of one sharded drain (URW, 4 x 1,024, one pool's
+    worth of starts) from ``torch.profiler``: busy time over wall, device
+    launches a superstep, the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    w = sharded_walker(programs()["urw"])
+    starts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, g.num_vertices, SHARD_PROFILE_STARTS).astype(np.int32)).to(
+        g.device)
+    w.run(g, starts[:NUM_SLOTS // 4], seed=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = w.run(g, starts, seed=0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    supersteps = int(res.stats.supersteps)
+    if busy_ms == 0:
+        print("profile sharded urw: device time not measured (the profiler "
+              "recorded no device activity)")
+        return
+    top = "; ".join(f"{k[:60]} {us / 1e3:.3f} ms x{n}"
+                    for us, n, k in rows[:5])
+    print(f"profile sharded urw N={SHARD_N} starts={SHARD_PROFILE_STARTS}: "
+          f"supersteps={supersteps} wall_ms={wall_ms:.3f} "
+          f"device_busy_ms={busy_ms:.3f} "
+          f"device_busy_share={busy_ms / wall_ms:.4f} "
+          f"device_launches_per_superstep="
+          f"{sum(r[1] for r in rows) / supersteps:.2f} "
+          f"wall_ms_per_superstep={wall_ms / supersteps:.4f} top: {top}")
+
+
+def run_sharded(graphs, starts_np) -> dict:
+    """Phase 8, the sharded backend (``compile(program,
+    backend="sharded")``, N shards stacked on the card) on the main path's
+    graphs; returns each kernel's launches summed over the phase's runs
+    (the single backend's comparison runs and the training steps: the
+    sharded superstep launches none)."""
+    import torch
+    totals = {k: 0 for k in embedding_launches()}
+    card = card_line()
+
+    def add(launched):
+        for k, n in launched.items():
+            totals[k] += n
+    for name, prog in programs().items():
+        g = graphs[name]
+        starts = torch.from_numpy(starts_np).to(g.device)
+        if name in SHARD_CUT:
+            n, hops = SHARD_CUT[name]
+            prog = dataclasses.replace(prog, max_hops=hops)
+            starts = starts[:n]
+            print(f"sharded {name}: cut in depth to {n} starts and {hops} "
+                  f"hops (width {SHARD_N} x {NUM_SLOTS // SHARD_N} kept)")
+        t = time.perf_counter()
+        sharded_closed(name, prog, g, starts, SHARD_N, card, add)
+        if name in SHARD_WIDE_PROGRAMS:
+            sharded_closed(name, prog, g, starts, SHARD_WIDE, card, add)
+        print(f"  sharded {name} time {time.perf_counter() - t:.1f} s")
+    sharded_stream(graphs["urw"], card, add)
+    sharded_service(graphs["urw"], card, add)
+    sharded_embeddings(graphs["deepwalk"], card, add)
+    sharded_profile(graphs["urw"])
+    return totals
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: run it from the root of a checkout "
@@ -3015,6 +3307,8 @@ def main() -> int:
         for name, n in phase(label, fn, graphs).items():
             launches[name] = launches.get(name, 0) + n
     for name, n in phase("7 tune", run_tune, graphs, starts).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in phase("8 sharded", run_sharded, graphs, starts).items():
         launches[name] = launches.get(name, 0) + n
     for name, row in rows.items():
         row["launches"] = launches[name]

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,10 +36,10 @@ from repro_torch.core.rng import SALT_CHUNK0, SALT_COLUMN
 from repro_torch.core.samplers import (SamplerSpec, _uniform_index,
                                        es_chunk_score, es_merge,
                                        es_num_chunks, n2v_bias,
-                                       rejection_choose)
+                                       rejection_choose, vertex_row)
 
 __all__ = ["Phase", "PhaseProgram", "lower", "make_sampler",
-           "reservoir_scan", "chunk_gather"]
+           "reservoir_scan", "chunk_gather", "chunk_score"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +86,27 @@ class PhaseProgram:
     loop: bool = False
     carry: str = "none"
     requires: Tuple[str, ...] = ()
+
+    @property
+    def schedule(self) -> str:
+        """Sharded execution schedule implied by the residencies:
+        ``single_phase`` (whole hop at owner(v_curr)), ``two_phase``
+        (propose at owner(v_curr), verify at owner(v_prev)), or
+        ``chunked_loop`` (per-chunk gather/score ping-pong)."""
+        if self.loop:
+            return "chunked_loop"
+        if any(p.residency == "v_prev" for p in self.phases):
+            return "two_phase"
+        return "single_phase"
+
+    @property
+    def capability(self) -> Optional[str]:
+        """Sharded capability the program declares (the key
+        `core.distributed` allocates the task word and routing schedule
+        from); every program declares one."""
+        return {"single_phase": "first_order",
+                "two_phase": "two_phase",
+                "chunked_loop": "chunked_reservoir"}[self.schedule]
 
     @property
     def cuda(self) -> bool:
@@ -198,7 +219,7 @@ def _exec_gather_typed(ph: Phase, ctx: _Ctx):
     g, s, spec = ctx.g, ctx.slots, ctx.spec
     sched = torch.tensor(spec.metapath, dtype=torch.int32, device=s.hop.device)
     t = sched[(s.hop % len(spec.metapath)).long()].long()
-    row = torch.clamp(s.v_curr, 0, g.num_vertices - 1).long()
+    row = vertex_row(g, s.v_curr).long()
     base = g.type_offsets[row, t]
     ctx.seg_base = base
     ctx.seg_cnt = g.type_offsets[row, t + 1] - base
@@ -321,6 +342,19 @@ def chunk_gather(g, addr, deg, chunk, width):
     w_edge = g.weights[e] if g.weights is not None else torch.ones(
         pos.shape, device=pos.device)
     return y, torch.where(valid, w_edge, 0.0)
+
+
+def chunk_score(spec: SamplerSpec, g, slots, chunk, width, base_key):
+    """Score one staged chunk at owner(v_prev): E-S keys under the local
+    adjacency bias, folded into the carried reservoir maximum — the score
+    phase of the chunked-loop program on the sharded engine.  ``chunk`` is
+    the lane's chunk index (a tensor), which also salts its draws."""
+    u = task_rng.task_uniforms(base_key, slots.query_id, slots.hop, width,
+                               SALT_CHUNK0 + chunk, epoch=slots.epoch)
+    w = slots.cand_w * n2v_bias(spec, g, slots.v_prev, slots.cand)
+    c_best, c_key = es_chunk_score(u, slots.cand >= 0, w)
+    return es_merge(slots.best_key, slots.best_idx, chunk, width, c_best,
+                    c_key)
 
 
 def make_sampler(spec: SamplerSpec):

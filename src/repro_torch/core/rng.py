@@ -74,7 +74,8 @@ def fold_in_pair(k0, k1, data):
 def task_key_pair(k0, k1, query_id, hop, salt, epoch=None):
     """Per-task key pair from (seed[, epoch], query_id, hop, salt).  Epoch
     0 (or None) folds nothing, so a closed batch derives from the 3-tuple
-    alone."""
+    alone.  ``salt`` is an int or a per-task tensor (a reservoir chunk's
+    salt is its lane's chunk index)."""
     if epoch is not None:
         s0, s1 = fold_in_pair(k0, k1, epoch)
         use_salted = epoch.to(torch.int32) > 0
@@ -82,7 +83,10 @@ def task_key_pair(k0, k1, query_id, hop, salt, epoch=None):
         k1 = torch.where(use_salted, s1, _word(k1))
     k0, k1 = fold_in_pair(k0, k1, query_id)
     k0, k1 = fold_in_pair(k0, k1, hop)
-    return fold_in_pair(k0, k1, torch.full_like(k0, _word(salt)))
+    salt = _word(salt)
+    if not isinstance(salt, torch.Tensor):
+        salt = torch.full_like(k0, salt)
+    return fold_in_pair(k0, k1, salt)
 
 
 def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:

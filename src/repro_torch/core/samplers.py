@@ -123,9 +123,18 @@ def _col_at(g, e: torch.Tensor) -> torch.Tensor:
 
 
 def vertex_row(g, v: torch.Tensor) -> torch.Tensor:
-    """The row of vertex ``v`` in the per-vertex arrays; negative and
-    out-of-range ids clamp to a valid row (callers mask validity)."""
-    return torch.clamp(torch.where(v >= 0, v, 0), 0, g.num_vertices - 1)
+    """The row of vertex ``v`` in ``g``'s per-vertex arrays (``row_ptr``,
+    ``type_offsets``); negative and out-of-range ids clamp to a valid row
+    (callers mask validity).  The identity on a `CSRGraph`; on the sharded
+    engine's stacked view (`core.distributed.LocalView`, whose shards lie
+    end to end) it is the owner's block ``(v % N) · rows_per_shard`` plus
+    the local row ``v // N``, so one expression serves every shard."""
+    v = torch.where(v >= 0, v, 0)
+    shards = getattr(g, "num_shards", 0)
+    if shards:
+        local = torch.clamp(v // shards, 0, g.rows_per_shard - 2)
+        return (v % shards) * g.rows_per_shard + local
+    return torch.clamp(v, 0, g.num_vertices - 1)
 
 
 def edge_exists(g, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:

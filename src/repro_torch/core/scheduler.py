@@ -41,6 +41,16 @@ def per_pipeline_fifo_depth(num_pipelines: int) -> int:
     return int(1 + 4 * math.ceil(math.log2(n)))
 
 
+def routing_capacity(local_slots: int, num_devices: int,
+                     margin: float = 2.0) -> int:
+    """Per-destination bucket capacity of the sharded engine's router:
+    expected load is ``local_slots / num_devices`` (uniform mixing, paper
+    §IV-A); ``margin`` absorbs the short-lived fluctuations the paper's
+    FIFOs absorb. Capacity overflow is retained, never dropped."""
+    expected = max(1, local_slots // max(num_devices, 1))
+    return int(math.ceil(margin * expected))
+
+
 @dataclasses.dataclass
 class RunAnalysis:
     steps: int

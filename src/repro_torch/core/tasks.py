@@ -42,6 +42,74 @@ def empty_slots(width: int, device) -> WalkerSlots:
         epoch=full(0))
 
 
+class N2VSlots(NamedTuple):
+    """Two-phase second-order task word of the sharded engine (rejection
+    Node2Vec): phase A draws K proposals at owner(v_curr), phase B verifies
+    them against N(v_prev) — the task tuple extended with the previous
+    vertex and the K proposals carried between the phases."""
+
+    v_curr: torch.Tensor    # (S,) int32
+    v_prev: torch.Tensor    # (S,) int32
+    query_id: torch.Tensor  # (S,) int32 (-1 = free)
+    hop: torch.Tensor       # (S,) int32
+    active: torch.Tensor    # (S,) bool
+    phase: torch.Tensor     # (S,) int32: 0 = propose (A), 1 = verify (B)
+    cand: torch.Tensor      # (S, K) int32 — proposals carried A -> B
+    epoch: torch.Tensor     # (S,) int32 — slot-reuse epoch
+
+
+def empty_n2v_slots(width: int, k: int, device) -> N2VSlots:
+    def full(shape, v):
+        return torch.full(shape, v, dtype=torch.int32, device=device)
+    return N2VSlots(
+        v_curr=full((width,), -1), v_prev=full((width,), -1),
+        query_id=full((width,), -1), hop=full((width,), 0),
+        active=torch.zeros((width,), dtype=torch.bool, device=device),
+        phase=full((width,), 0), cand=full((width, k), -1),
+        epoch=full((width,), 0))
+
+
+class ReservoirSlots(NamedTuple):
+    """Chunked-scan second-order task word of the sharded engine (weighted
+    Node2Vec, Efraimidis–Spirakis reservoir).  The scan over N(v_curr)
+    ping-pongs between owner(v_curr) (gather a chunk of candidates and
+    their edge weights) and owner(v_prev) (score the chunk against the
+    local adjacency bias), carrying the running reservoir maximum."""
+
+    v_curr: torch.Tensor    # (S,) int32
+    v_prev: torch.Tensor    # (S,) int32
+    query_id: torch.Tensor  # (S,) int32 (-1 = free)
+    hop: torch.Tensor       # (S,) int32
+    active: torch.Tensor    # (S,) bool
+    phase: torch.Tensor     # (S,) int32: 2c = gather chunk c @owner(v_curr),
+                            #             2c+1 = score chunk c @owner(v_prev),
+                            #             2·n_chunks = finalize @owner(v_curr)
+    cand: torch.Tensor      # (S, CH) int32 — chunk candidates (-1 = padding)
+    cand_w: torch.Tensor    # (S, CH) float32 — candidate edge weights
+    best_key: torch.Tensor  # (S,) float32 — running E-S reservoir key
+    best_idx: torch.Tensor  # (S,) int32 — running argmax neighbor offset
+    last_chunk: torch.Tensor  # (S,) bool — the scored chunk was the last
+                            # one deg(v_curr) needs (early finalize)
+    epoch: torch.Tensor     # (S,) int32 — slot-reuse epoch
+
+
+def empty_reservoir_slots(width: int, chunk: int, device) -> ReservoirSlots:
+    def full(shape, v):
+        return torch.full(shape, v, dtype=torch.int32, device=device)
+    return ReservoirSlots(
+        v_curr=full((width,), -1), v_prev=full((width,), -1),
+        query_id=full((width,), -1), hop=full((width,), 0),
+        active=torch.zeros((width,), dtype=torch.bool, device=device),
+        phase=full((width,), 0), cand=full((width, chunk), -1),
+        cand_w=torch.zeros((width, chunk), dtype=torch.float32,
+                           device=device),
+        best_key=torch.full((width,), -torch.inf, dtype=torch.float32,
+                            device=device),
+        best_idx=full((width,), 0),
+        last_chunk=torch.zeros((width,), dtype=torch.bool, device=device),
+        epoch=full((width,), 0))
+
+
 class QueryQueue(NamedTuple):
     """Device-resident pending-query ring (the Theorem VI.1 queue).
 

@@ -1,4 +1,5 @@
-"""Graph substrate: CSR representation, generators, alias tables, datasets."""
+"""Graph substrate: CSR representation, generators, alias tables, datasets,
+partitioning."""
 from repro_torch.graph.alias import build_alias_tables
 from repro_torch.graph.csr import (CSRGraph, build_csr, degrees,
                                    from_reference_arrays, validate_csr)
@@ -8,6 +9,8 @@ from repro_torch.graph.generators import (BALANCED, GRAPH500,
 from repro_torch.graph.hot_cache import (HotVertexCache, build_hot_cache,
                                          edge_payload_bytes,
                                          vertex_overhead_bytes)
+from repro_torch.graph.partition import (PartitionedGraph, owner_of,
+                                         partition_graph)
 
 __all__ = [
     "CSRGraph", "build_csr", "degrees", "validate_csr",
@@ -16,4 +19,5 @@ __all__ = [
     "build_alias_tables", "make_dataset", "DATASET_SPECS",
     "HotVertexCache", "build_hot_cache", "edge_payload_bytes",
     "vertex_overhead_bytes",
+    "partition_graph", "PartitionedGraph", "owner_of",
 ]

@@ -4,10 +4,14 @@
       --dataset WG --queries 2000 --slots 1024 --step-impl fused \
       --hops-per-launch 16
   PYTHONPATH=src python -m repro_torch.launch.walk --device cpu --scale 9
+  PYTHONPATH=src python -m repro_torch.launch.walk --algo node2vec \
+      --backend sharded --devices 4 --slots 4096
 
 Prints the graph's size and one summary line (steps, supersteps, launches,
-MStep/s, occupancy, starved lane-supersteps, drops).  Throughput is wall time around
-the drain, on the device named by ``--device``.
+MStep/s, occupancy, starved lane-supersteps, drops; route waits on the
+sharded backend).  Throughput is wall time around the drain, on the device
+named by ``--device``.  ``--backend sharded`` partitions the graph into
+``--devices`` shards, all on that device (the plain torch superstep).
 """
 from __future__ import annotations
 
@@ -41,6 +45,9 @@ def main():
                     help="fused only: supersteps per kernel launch")
     ap.add_argument("--backend", default="single",
                     choices=list(walker.BACKENDS))
+    ap.add_argument("--devices", type=int, default=8,
+                    help="sharded only: shard count (every shard on "
+                         "--device)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--record-paths", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
@@ -49,9 +56,18 @@ def main():
     spec = ALGORITHMS[args.algo]
     program = walker.WalkProgram(spec=spec, max_hops=args.max_hops,
                                  name=args.algo)
-    execution = walker.ExecutionConfig(
-        num_slots=args.slots, record_paths=args.record_paths, mode=args.mode,
-        step_impl=args.step_impl, hops_per_launch=args.hops_per_launch)
+    if args.backend == "sharded":
+        if args.mode != "zero_bubble" or args.step_impl != "torch":
+            ap.error("--mode/--step-impl only apply to --backend single "
+                     "(the sharded superstep is always zero-bubble torch)")
+        execution = walker.ExecutionConfig(
+            num_slots=args.slots, record_paths=args.record_paths,
+            num_devices=args.devices)
+    else:
+        execution = walker.ExecutionConfig(
+            num_slots=args.slots, record_paths=args.record_paths,
+            mode=args.mode, step_impl=args.step_impl,
+            hops_per_launch=args.hops_per_launch)
     w = walker.compile(program, backend=args.backend, execution=execution)
     g = make_dataset(args.dataset,
                      weighted=spec.kind in ("alias", "reservoir_n2v"),
@@ -71,7 +87,9 @@ def main():
     a = analyze_run(res.stats, dt)
     print(f"steps={a.steps} supersteps={a.supersteps} launches={a.launches} "
           f"throughput={a.msteps_per_s:.3f} MStep/s "
-          f"occupancy={a.occupancy:.3f} starved={a.starved} drops={a.drops}")
+          f"occupancy={a.occupancy:.3f} starved={a.starved} drops={a.drops}"
+          + (f" route_waits={a.route_waits} shards={args.devices}"
+             if args.backend == "sharded" else ""))
 
 
 if __name__ == "__main__":

@@ -6,6 +6,11 @@ models).
       --dataset WG --rho 0.8 --requests 64 --request-size 16 --slots 512 \
       --chunk 8 --step-impl fused --hops-per-launch 16
   PYTHONPATH=src python -m repro_torch.launch.walk_serve --device cpu --scale 9
+  PYTHONPATH=src python -m repro_torch.launch.walk_serve --backend sharded \
+      --devices 4 --slots 4096
+
+Sharded serving runs the same service over the sharded superstep, every
+shard on ``--device``.
 
 Prints the graph's size, the backend and offered load, the counts
 (requests, walks, supersteps, drops), the sojourn percentiles in
@@ -32,7 +37,10 @@ def main():
     ap.add_argument("--algo", default="urw", choices=sorted(ALGORITHMS))
     ap.add_argument("--backend", default="single",
                     choices=sorted(walker.BACKENDS),
-                    help="single device (sharded is not ported yet)")
+                    help="single device, or sharded into --devices shards "
+                         "on --device")
+    ap.add_argument("--devices", type=int, default=4,
+                    help="sharded only: shard count")
     ap.add_argument("--dataset", default="WG")
     ap.add_argument("--scale", type=int, default=None,
                     help="RMAT scale override (default: the dataset's "
@@ -61,9 +69,16 @@ def main():
     spec = ALGORITHMS[args.algo]
     program = walker.WalkProgram(spec=spec, max_hops=args.max_hops,
                                  name=args.algo)
-    execution = walker.ExecutionConfig(
-        num_slots=args.slots, injection_delay=args.injection_delay,
-        step_impl=args.step_impl, hops_per_launch=args.hops_per_launch)
+    if args.backend == "sharded":
+        if args.step_impl != "torch":
+            ap.error("--step-impl only applies to --backend single (the "
+                     "sharded superstep is always plain torch)")
+        execution = walker.ExecutionConfig(num_slots=args.slots,
+                                           num_devices=args.devices)
+    else:
+        execution = walker.ExecutionConfig(
+            num_slots=args.slots, injection_delay=args.injection_delay,
+            step_impl=args.step_impl, hops_per_launch=args.hops_per_launch)
     w = walker.compile(program, backend=args.backend, execution=execution)
     weighted = spec.kind in ("alias", "reservoir_n2v")
     g = make_dataset(args.dataset, weighted=weighted,

@@ -87,9 +87,13 @@ def _weighted_quantile(sorted_deg: np.ndarray, cum: np.ndarray,
 
 
 def graph_signature(graph) -> GraphSignature:
-    """Fingerprint a `CSRGraph` on either device for the cache (host
-    numpy work over one copy of its row pointers)."""
-    deg = np.diff(graph.row_ptr.cpu().numpy().astype(np.int64))
+    """Fingerprint a `CSRGraph` or `PartitionedGraph` on either device
+    for the cache (host numpy work over one copy of its row pointers)."""
+    row_ptr = graph.row_ptr.cpu().numpy().astype(np.int64)
+    if row_ptr.ndim == 2:       # PartitionedGraph: per-shard row pointers
+        deg = np.diff(row_ptr, axis=1).reshape(-1)
+    else:
+        deg = np.diff(row_ptr)
     if deg.size == 0:
         deg = np.zeros((1,), np.int64)
     sd = np.sort(deg)

@@ -12,10 +12,14 @@ backend and returns a :class:`Walker`:
 
 The walk runs where the graph lives: on the card, ``step_impl="cuda"``
 and ``"fused"`` launch their kernels; on the CPU they run the kernels'
-plain versions.  Paths are a pure function of (seed, epoch, query_id,
-hop), so they are bit-identical to the reference package for the same
-graph, starts and seed, under every step implementation; the stats
-differ only in ``launches`` (one per superstep, or one per fused launch).
+plain versions.  ``backend="sharded"`` partitions the graph into N shards
+stacked on its device (`repro_torch.core.distributed`: per-phase butterfly
+routing, flow-controlled lossless refill; the plain torch superstep) and
+offers the same four calls.  Paths are a pure function of (seed, epoch,
+query_id, hop), so they are bit-identical to the reference package for
+the same graph, starts and seed, under every step implementation and
+either backend; on the single backend the stats differ only in
+``launches`` (one per superstep, or one per fused launch).
 
 Streams are continuous: query-id slots form a ring (a host-side free ring
 hands slots to arrivals; ``release`` reclaims them after harvest with
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from collections import deque
 from typing import Optional
 
@@ -35,11 +40,19 @@ import torch
 
 from repro_torch.core import corpus_ring
 from repro_torch.core import rng as task_rng
+from repro_torch.core.distributed import (DistLogs, assemble_paths,
+                                          init_dist_stream_state,
+                                          inject_stream_queries,
+                                          make_distributed_engine,
+                                          make_sharded_stream_engine,
+                                          shard_starts)
 from repro_torch.core.tasks import WalkResult, WalkStats
 from repro_torch.core.walk_engine import (Drain, StreamState, build_engine,
                                           init_stream_state, inject_queries,
                                           make_superstep_runner,
                                           maybe_build_cache)
+from repro_torch.distributed.mesh import Mesh
+from repro_torch.graph.partition import PartitionedGraph, partition_graph
 from repro_torch.models import embeddings as emb
 from repro_torch.optim import adamw
 from repro_torch.runtime import train_loop
@@ -60,12 +73,16 @@ def _pad_block(n: int, floor: int = 16) -> int:
 
 
 def compile(program: WalkProgram, backend: str = "single",
-            execution: Optional[ExecutionConfig] = None) -> "Walker":
+            execution: Optional[ExecutionConfig] = None,
+            mesh: Optional[Mesh] = None) -> "Walker":
     """Bind ``program`` to an execution backend.
 
     backend:
       ``single``  — one device: slot-pool engine with zero-bubble refill.
-      ``sharded`` — not ported yet (raises NotImplementedError).
+      ``sharded`` — N shards stacked on the graph's device (``mesh``, or
+                    ``execution.num_devices``, or a `PartitionedGraph`'s
+                    own count): vertex-partitioned graph, per-phase
+                    butterfly routing, flow-controlled lossless refill.
     """
     if not isinstance(program, WalkProgram):
         raise TypeError(
@@ -75,20 +92,21 @@ def compile(program: WalkProgram, backend: str = "single",
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
-    if backend == "sharded":
-        raise NotImplementedError(
-            "backend='sharded' is not ported yet: ROADMAP.md queue 1 item 9")
-    return Walker(program, backend, execution or ExecutionConfig())
+    return Walker(program, backend, execution or ExecutionConfig(), mesh)
 
 
 class Walker:
-    """A compiled walk program on the single backend."""
+    """A compiled walk program: one algorithm, four execution styles."""
 
     def __init__(self, program: WalkProgram, backend: str,
-                 execution: ExecutionConfig):
+                 execution: ExecutionConfig, mesh: Optional[Mesh] = None):
         self.program = program
         self.backend = backend
         self.execution = execution
+        self._mesh = mesh
+        # sharded runners keyed by graph shape and resolved config; see
+        # _dist_engine.
+        self._dist_cache = {}
         # (spec, engine config, id(graph) when a cache is wanted) ->
         # (engine, graph); see _single_engine.
         self._engines = {}
@@ -97,6 +115,8 @@ class Walker:
         self._resolved = {}
         #: Host timing of the last :meth:`run` (wall and per-superstep sync).
         self.last_drain: Optional[Drain] = None
+        #: Per-shard `WalkStats` (each field (N,)) of the last sharded run.
+        self.last_shard_stats: Optional[WalkStats] = None
 
     def _bind(self, graph, num_queries: Optional[int] = None):
         """Concrete ``(program, execution)`` for this graph + workload.
@@ -119,13 +139,96 @@ class Walker:
                 num_queries=num_queries)
         return self._resolved[key]
 
+    def _partition(self, graph) -> PartitionedGraph:
+        """``graph`` as shards: a `PartitionedGraph` as it is, a `CSRGraph`
+        partitioned over the mesh's shards, ``execution.num_devices``, or
+        the number of visible cards (at least 1)."""
+        if isinstance(graph, PartitionedGraph):
+            return graph
+        if self._mesh is not None:
+            n = self._mesh.num_shards
+        else:
+            n = (self.execution.num_devices
+                 or max(torch.cuda.device_count(), 1))
+        return partition_graph(graph, n)
+
+    def _requires_sharded(self, graph) -> None:
+        if not isinstance(graph, PartitionedGraph):
+            self.program.requires(graph)
+        elif self.program.spec.kind == "alias" and graph.alias_prob is None:
+            raise ValueError(
+                "alias (DeepWalk) programs need alias tables on the "
+                "partitioned graph — build the CSRGraph with alias tables "
+                "before partition_graph")
+
+    def _dist_engine(self, pg: PartitionedGraph, program, execution):
+        """The closed sharded runner for graphs shaped like ``pg`` under
+        the resolved ``(program, execution)``, built once, and its
+        `DistConfig`."""
+        key = (pg.num_devices, pg.vertices_per_device, tuple(pg.col.shape),
+               pg.max_degree, pg.weights is not None,
+               pg.alias_prob is not None, program.spec, execution)
+        if key not in self._dist_cache:
+            cfg = execution.dist_config(program, pg.num_devices)
+            self._dist_cache[key] = (
+                make_distributed_engine(pg, program.spec, cfg, self._mesh),
+                cfg)
+        return self._dist_cache[key]
+
+    def _run_sharded(self, graph, starts, seed) -> WalkResult:
+        self._requires_sharded(graph)
+        pg = self._partition(graph)
+        starts_np = (starts.cpu().numpy() if isinstance(starts, torch.Tensor)
+                     else np.asarray(starts)).astype(np.int32).reshape(-1)
+        program, execution = self._bind(pg, starts_np.size)
+        run, cfg = self._dist_engine(pg, program, execution)
+        starts_sh, qcount = shard_starts(starts_np, pg.num_devices)
+        log_q, log_h, log_v, cursor, stats = run(
+            pg, starts_sh, qcount, task_rng.stream_key(seed))
+        self.last_shard_stats = stats
+        # Shards run the lockstep superstep loop the same number of times:
+        # supersteps/launches are global clocks (max), the rest is additive.
+        total = WalkStats(*(
+            v.max() if name in ("supersteps", "launches") else v.sum()
+            for name, v in zip(WalkStats._fields, stats)))
+        if int(total.supersteps) >= cfg.max_supersteps:
+            warnings.warn(
+                f"sharded run hit max_supersteps={cfg.max_supersteps} before "
+                "draining — walks may be truncated; raise "
+                "ExecutionConfig.max_supersteps", RuntimeWarning,
+                stacklevel=3)
+        if int(total.drops) > 0:
+            # Routing drops are structurally impossible (flow-controlled
+            # refill), so any drop is an emission-log overflow: recorded
+            # paths have holes.
+            warnings.warn(
+                f"{int(total.drops)} path records dropped (emission log "
+                "overflow) — assembled paths are incomplete; raise "
+                "ExecutionConfig.log_capacity", RuntimeWarning, stacklevel=3)
+        if cfg.record_paths:
+            logs = DistLogs(qid=log_q, hop=log_h, vertex=log_v, cursor=cursor)
+            paths, lengths = assemble_paths(logs, starts_np,
+                                            self.program.max_hops)
+            return WalkResult(paths=paths, lengths=lengths, stats=total)
+        dev = pg.device
+        return WalkResult(
+            paths=torch.full((1, 1), -1, dtype=torch.int32, device=dev),
+            lengths=torch.zeros((1,), dtype=torch.int32, device=dev),
+            stats=total)
+
     def run(self, graph, starts, seed=0) -> WalkResult:
         """Closed system: drain the batch of ``starts`` to completion on
         the graph's device (per superstep, or in fused launches of
         ``hops_per_launch`` supersteps).
 
         ``seed`` may be an int or a key pair (two 32-bit words, e.g.
-        ``rng.stream_key(s, e)``)."""
+        ``rng.stream_key(s, e)``).  On the sharded backend ``graph`` may be
+        a ``CSRGraph`` (partitioned on the fly) or a ``PartitionedGraph``;
+        the emission logs are assembled into the single backend's
+        ``WalkResult`` layout, with the shards' stats folded (max of
+        ``supersteps`` and ``launches``, sum of the rest)."""
+        if self.backend == "sharded":
+            return self._run_sharded(graph, starts, seed)
         self.program.requires(graph)
         if isinstance(starts, torch.Tensor):
             sv = starts.to(device=graph.device, dtype=torch.int32)
@@ -152,11 +255,23 @@ class Walker:
             self._engines[key] = (build_engine(spec, cfg, cache=cache), graph)
         return self._engines[key][0]
 
-    def stream(self, graph, capacity: int = 4096, seed=0) -> "WalkStream":
+    def stream(self, graph, capacity: int = 4096, seed=0):
         """Open system: a persistent stream on the graph's device that
         accepts injections between superstep chunks, with ring-buffer slot
         reclamation (``release``) for continuous operation.  ``seed`` may
-        be an int or a key pair."""
+        be an int or a key pair.
+
+        A :class:`WalkStream` on the single backend, a
+        :class:`ShardedWalkStream` on the sharded one; both expose the same
+        inject / advance / harvest_ids / release surface, so `WalkService`
+        runs unchanged over either."""
+        if self.backend == "sharded":
+            self._requires_sharded(graph)
+            pg = self._partition(graph)
+            program, execution = self._bind(pg, capacity)
+            cfg = execution.dist_config(program, pg.num_devices)
+            return ShardedWalkStream(program, cfg, pg, capacity, seed,
+                                     self._mesh)
         self.program.requires(graph)
         program, execution = self._bind(graph, capacity)
         return WalkStream(program, execution, graph, capacity, seed)
@@ -164,7 +279,8 @@ class Walker:
     def serve(self, graph, capacity: int = 4096, chunk: int = 16,
               seed=0, adapt: bool = False, controller=None):
         """Multi-tenant request service over :meth:`stream` on the graph's
-        device (`repro_torch.serve.WalkService`): requests of walks are
+        device, on either backend (`repro_torch.serve.WalkService`, which
+        speaks only the stream interface): requests of walks are
         admitted FIFO into free ring slots, advanced ``chunk`` supersteps
         at a time and harvested as each request completes.
 
@@ -193,7 +309,9 @@ class Walker:
                          ckpt_every: int = 0, log_every: int = 0,
                          batch_hook=None) -> dict:
         """Device-resident walks → embeddings pipeline (DeepWalk/node2vec),
-        on the graph's device.
+        on the graph's device.  The single backend produces each round as a
+        closed batch; the sharded backend through a stream (round r is the
+        stream's epoch r), with the same walks.
 
         Runs ``rounds`` walk-production rounds of ``walks_per_round`` walks
         each; completed paths land directly in a corpus ring on the device
@@ -237,22 +355,42 @@ class Walker:
                 "use_kernel=False is not supported: the gathers always run "
                 "on the embedding-bag and segment-sum kernels (ROADMAP.md "
                 "queue 3)")
-        self.program.requires(graph)
         nv = int(graph.num_vertices)
         device = graph.device
         path_width = self.program.max_hops + 1
 
         # ------------------------------------------------------- producer
-        program, execution = self._bind(graph, walks_per_round)
-        engine = self._single_engine(graph, program, dataclasses.replace(
-            execution.engine_config(program), record_paths=True))
+        stream = None
+        if self.backend == "single":
+            self.program.requires(graph)
+            program, execution = self._bind(graph, walks_per_round)
+            engine = self._single_engine(graph, program, dataclasses.replace(
+                execution.engine_config(program), record_paths=True))
 
-        def produce(r: int):
-            sv = torch.as_tensor(
-                ((r * walks_per_round + np.arange(walks_per_round)) % nv)
-                .astype(np.int32), device=device)
-            res, _ = engine(graph, sv, task_rng.stream_key(seed, r))
-            return res.paths, res.lengths
+            def produce(r: int):
+                sv = torch.as_tensor(
+                    ((r * walks_per_round + np.arange(walks_per_round)) % nv)
+                    .astype(np.int32), device=device)
+                res, _ = engine(graph, sv, task_rng.stream_key(seed, r))
+                return res.paths, res.lengths
+        else:
+            # The stream's epoch r is round r: its walks are the closed
+            # batch under stream_key(seed, r), as on the single backend.
+            stream = self.stream(graph, capacity=walks_per_round, seed=seed)
+
+            def produce(r: int):
+                starts = (r * walks_per_round
+                          + np.arange(walks_per_round)) % nv
+                qids, epochs = stream.inject(starts)
+                if int(epochs[0]) != r:
+                    raise RuntimeError(
+                        f"producer stream is at epoch {int(epochs[0])} but "
+                        f"round {r} was requested (rounds must be produced "
+                        "in order; use seek_epochs after a resume)")
+                stream.drain()
+                paths, lengths = stream.harvest_device(qids)
+                stream.release(qids)
+                return paths, lengths
 
         # ------------------------------------------------------- consumer
         sg_cfg = emb.SkipGramConfig(num_vertices=nv, dim=dim,
@@ -287,10 +425,18 @@ class Walker:
 
         # ----------------------------------------------------------- ring
         cap = ring_capacity or 2 * walks_per_round
+        if stream is not None:
+            # A multiple of the shard count, as the reference rounds it to
+            # shard the ring's rows; here every shard shares the graph's
+            # device, so the ring and tables are not placed per shard.
+            ndev = stream.graph.num_devices
+            cap = -(-cap // ndev) * ndev
         ring0 = corpus_ring.init_ring(cap, path_width, device)
         state, ring, start_step = train_loop.resume_pipeline(
             ckpt_dir, state0, ring0)
         rounds_done = int(ring.tail) // walks_per_round
+        if stream is not None:
+            stream.seek_epochs(rounds_done)
 
         if overlap:
             def append(ring, walks):
@@ -564,6 +710,116 @@ class WalkStream(_StreamBase):
     def reset(self, seed=None) -> None:
         """Fresh state and ring (keeps the runner and the cache); pass a
         new ``seed`` to decorrelate from previous runs."""
+        if self._live.any():
+            raise RuntimeError("reset with live queries outstanding")
+        if seed is not None:
+            self.seed = seed
+        self._fresh_state()
+
+
+class ShardedWalkStream(_StreamBase):
+    """Persistent sharded open-system stream (``backend="sharded"``).
+
+    Same interface and same ring economy as :class:`WalkStream`, running
+    over the capability-dispatched sharded superstep: arrivals are staged
+    round-robin onto per-shard arrival rings and the butterfly router
+    carries each new task to owner(start_vertex); the flow control admits
+    injections only while global live tasks stay ≤ N·W_loc, so the closed
+    engine's losslessness (drops == 0) carries over to the open system.
+    Harvest max-folds the per-shard path windows (each hop is recorded by
+    exactly the shard that executed it).  ``host_read_s`` sums the seconds
+    spent blocked in host reads (the runner's work flag and
+    :meth:`done_mask`) since the stream was made or reset.
+
+    Bit-identity: the ``(epoch, qid)`` occupant samples exactly the walk
+    ``Walker.run`` samples for query ``qid`` under ``rng.stream_key(seed,
+    epoch)`` — identical across backends.
+    """
+
+    def __init__(self, program: WalkProgram, cfg, pg: PartitionedGraph,
+                 capacity: int, seed, mesh: Optional[Mesh] = None):
+        if capacity <= 0:
+            raise ValueError(f"stream capacity must be positive, got "
+                             f"{capacity}")
+        self.program = program
+        self.graph = pg
+        self.seed = seed
+        self.capacity = int(capacity)
+        self._cfg = cfg
+        self._runner = make_sharded_stream_engine(pg, program.spec, cfg,
+                                                  mesh, self.capacity)
+        self._fresh_state()
+
+    def _fresh_state(self) -> None:
+        self.state = init_dist_stream_state(self.graph, self.program.spec,
+                                            self._cfg, self.capacity)
+        self._base_key = task_rng.stream_key(self.seed)
+        self._next_dev = 0  # round-robin staging cursor
+        self.host_read_s = 0.0
+        self._init_ring()
+
+    @property
+    def num_slots(self) -> int:
+        """W — total lanes across the shards (shards × W_loc)."""
+        return self.graph.num_devices * self._cfg.slots_per_device
+
+    @property
+    def max_hops(self) -> int:
+        """The program's hop budget (path buffers are ``max_hops + 1``)."""
+        return self.program.max_hops
+
+    @property
+    def cfg(self):
+        """The lowered engine-layer config (:class:`DistConfig`)."""
+        return self._cfg
+
+    def _device_inject(self, qids, starts, epochs) -> None:
+        n = qids.shape[0]
+        N = self.graph.num_devices
+        # Arrival i goes to shard (next + i) % N, at column i // N there.
+        i = np.arange(n)
+        r = (self._next_dev + i) % N
+        b = -(-n // N)
+        blocks = np.zeros((3, N, b), np.int32)
+        blocks[:, r, i // N] = starts, qids, epochs
+        cnt = np.bincount(r, minlength=N)
+        self._next_dev = (self._next_dev + n) % N
+        self.state = inject_stream_queries(self.state, *blocks, cnt)
+
+    def advance(self, k: int = 16) -> int:
+        """Run at most ``k`` supersteps; returns how many ran."""
+        self.state, ran, sync_s = self._runner(self.graph, self.state,
+                                               self._base_key, k)
+        self.host_read_s += sync_s
+        return ran
+
+    def done_mask(self) -> np.ndarray:
+        """(capacity,) bool — a slot is done once any shard terminated its
+        occupant's walk."""
+        t = time.perf_counter()
+        done = self.state.done[:, :self.capacity].any(0).cpu().numpy()
+        self.host_read_s += time.perf_counter() - t
+        return done
+
+    def harvest_device(self, qids):
+        """Max-fold the per-shard path windows for the given slot ids — a
+        reduction over the shard axis, on the stream's device."""
+        idx = torch.as_tensor(np.asarray(qids, np.int64),
+                              device=self.graph.device)
+        return (self.state.paths[:, idx, :].amax(0),
+                self.state.lengths[:, idx].amax(0))
+
+    def walk_stats(self) -> WalkStats:
+        """Engine counters summed across shards (supersteps/launches are
+        the global lockstep clock: max), as host ints."""
+        return WalkStats(*(
+            int(v.max()) if name in ("supersteps", "launches")
+            else int(v.sum())
+            for name, v in zip(WalkStats._fields, self.state.stats)))
+
+    def reset(self, seed=None) -> None:
+        """Fresh state and ring (keeps the runner); pass a new ``seed`` to
+        decorrelate from previous runs."""
         if self._live.any():
             raise RuntimeError("reset with live queries outstanding")
         if seed is not None:

@@ -1,15 +1,18 @@
 """Execution configuration (the machine half of the walker API).
 
 Everything here is a machine knob — lane count, scheduling mode,
-injection latency, step implementation.  None of it changes which walks
-are sampled: paths depend only on ``(seed, query_id, hop)``, so one
-:class:`WalkProgram` runs bit-identically under any ExecutionConfig.
+injection latency, step implementation, shard count, routing capacities.
+None of it changes which walks are sampled: paths depend only on
+``(seed, query_id, hop)``, so one :class:`WalkProgram` runs bit-identically
+under any ExecutionConfig and either backend.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
+from repro_torch.core.distributed import DistConfig
 from repro_torch.core.walk_engine import (EngineConfig, MODES as _MODES,
                                           check_step_impl)
 
@@ -25,7 +28,10 @@ TUNABLE_KNOBS = ("num_slots", "hops_per_launch", "queue_depth_factor",
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionConfig:
-    """Machine knobs for compiled walkers on the single backend.
+    """Machine knobs for compiled walkers, on either backend.
+
+    Single-device knobs map onto :class:`repro_torch.core.EngineConfig`;
+    sharded knobs onto :class:`repro_torch.core.distributed.DistConfig`.
 
     ``num_slots``, ``queue_depth_factor``, ``hops_per_launch`` and
     ``cache_budget`` also accept the string ``"auto"``: the Walker
@@ -36,7 +42,9 @@ class ExecutionConfig:
     manually.
 
     Attributes:
-      num_slots:        W — walker lanes.
+      num_slots:        W — total walker lanes (divided across shards on
+                        the sharded backend unless ``slots_per_device`` is
+                        given).
       record_paths:     keep per-query path buffers.
       mode:             ``zero_bubble`` (per-superstep compaction+refill)
                         or ``static`` (bulk-synchronous batches).
@@ -57,6 +65,18 @@ class ExecutionConfig:
                         memory there, and reads a larger one from device
                         memory; either way only the three cache counters
                         of the stats change.
+      num_devices:      sharded backend only — shard count (default: the
+                        number of visible cards, at least 1; a
+                        `PartitionedGraph` brings its own).  Every shard
+                        lives on the graph's device.
+      slots_per_device: sharded backend only — W_loc override (default
+                        ``num_slots // num_devices``).
+      capacity_margin:  × Theorem VI.1 margin on routing bucket capacity.
+      retention_factor: × the global live-task bound N·W_loc sizing the
+                        router retention region; >= 1.0 is provably
+                        lossless under the flow-controlled refill.
+      log_capacity:     per-shard emission-log entries (path write-back).
+      axis_name:        name of the shard axis (the reference's mesh axis).
       tune_cache:       optional path of a tuning-cache JSON consulted
                         when resolving ``"auto"`` knobs (default: the
                         ``RIDGEWALKER_TUNE_CACHE`` environment variable,
@@ -72,6 +92,13 @@ class ExecutionConfig:
     step_impl: str = "torch"
     hops_per_launch: "int | str" = 16
     cache_budget: "int | str" = 0
+    # ---- sharded backend ----
+    num_devices: Optional[int] = None
+    slots_per_device: Optional[int] = None
+    capacity_margin: float = 2.0
+    retention_factor: float = 1.0
+    log_capacity: int = 1 << 16
+    axis_name: str = "ch"
     tune_cache: Optional[str] = None
 
     def __post_init__(self):
@@ -107,6 +134,19 @@ class ExecutionConfig:
             raise ValueError(
                 f"cache_budget is a byte budget and cannot be negative, got "
                 f"{self.cache_budget}")
+        if self.num_devices is not None and self.num_devices <= 0:
+            raise ValueError(f"num_devices must be positive, got "
+                             f"{self.num_devices}")
+        if self.slots_per_device is not None and self.slots_per_device <= 0:
+            raise ValueError(f"slots_per_device must be positive, got "
+                             f"{self.slots_per_device}")
+        if self.capacity_margin <= 0 or self.retention_factor <= 0:
+            raise ValueError(
+                f"capacity_margin / retention_factor must be positive, got "
+                f"{self.capacity_margin} / {self.retention_factor}")
+        if self.log_capacity <= 0:
+            raise ValueError(f"log_capacity must be positive, got "
+                             f"{self.log_capacity}")
 
     # ------------------------------------------------------ auto sentinels
 
@@ -162,6 +202,27 @@ class ExecutionConfig:
             step_impl=self.step_impl,
             hops_per_launch=self.hops_per_launch,
             cache_budget=self.cache_budget,
+        )
+
+    def dist_config(self, program, num_devices: int) -> DistConfig:
+        """Sharded engine view of these knobs for ``program``."""
+        self._require_concrete("sharded DistConfig")
+        if self.mode != "zero_bubble" or self.step_impl != "torch":
+            warnings.warn(
+                f"mode={self.mode!r} / step_impl={self.step_impl!r} do not "
+                "apply to the sharded backend (it always runs the "
+                "zero-bubble plain torch superstep) and are ignored",
+                RuntimeWarning, stacklevel=3)
+        w_loc = self.slots_per_device or max(self.num_slots // num_devices, 1)
+        return DistConfig(
+            slots_per_device=w_loc,
+            max_hops=program.max_hops,
+            capacity_margin=self.capacity_margin,
+            retention_factor=self.retention_factor,
+            log_capacity=self.log_capacity,
+            record_paths=self.record_paths,
+            max_supersteps=self.max_supersteps,
+            axis_name=self.axis_name,
         )
 
     @classmethod

@@ -40,6 +40,27 @@ NAMES = [
     ("core.scheduler", "per_pipeline_fifo_depth"),
     ("core.scheduler", "peak_random_access_bandwidth"),
     ("core.rng", "task_fold"),
+    ("walker", "ShardedWalkStream"),
+    ("core", "N2VSlots"), ("core", "ReservoirSlots"),
+    ("core.tasks", "empty_n2v_slots"), ("core.tasks", "empty_reservoir_slots"),
+    ("core.scheduler", "routing_capacity"),
+    ("core.phase_program", "chunk_score"),
+    ("graph", "partition_graph"), ("graph", "PartitionedGraph"),
+    ("graph", "owner_of"), ("graph.partition", "local_id"),
+    ("core.router", "RouteResult"), ("core.router", "pack_buckets"),
+    ("core.router", "exchange"),
+    ("core.distributed", "DistConfig"), ("core.distributed", "LocalView"),
+    ("core.distributed", "DistLogs"), ("core.distributed", "StepOut"),
+    ("core.distributed", "ProgramCapability"),
+    ("core.distributed", "get_capability"),
+    ("core.distributed", "make_distributed_engine"),
+    ("core.distributed", "DistStreamState"),
+    ("core.distributed", "init_dist_stream_state"),
+    ("core.distributed", "inject_stream_queries"),
+    ("core.distributed", "make_sharded_stream_engine"),
+    ("core.distributed", "shard_starts"),
+    ("core.distributed", "run_distributed"),
+    ("core.distributed", "assemble_paths"),
 ]
 
 
@@ -79,6 +100,10 @@ def test_scheduler_formulas_equal():
                 == ref_s.butterfly_feedback_delay(n))
         assert (port_s.per_pipeline_fifo_depth(n)
                 == ref_s.per_pipeline_fifo_depth(n))
+        for w in (1, 7, 256, 1024):
+            for margin in (0.5, 1.0, 2.0, 3.3):
+                assert (port_s.routing_capacity(w, n, margin)
+                        == ref_s.routing_capacity(w, n, margin))
     for args in ((1.6e9, 4.0, 4), (2.4e9, 6.5, 32, 128)):
         assert (port_s.peak_random_access_bandwidth(*args)
                 == ref_s.peak_random_access_bandwidth(*args))

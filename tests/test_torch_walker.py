@@ -138,8 +138,13 @@ def test_unported_paths_raise_not_implemented(graphs, starts, monkeypatch):
         auto.engine_config(walker.WalkProgram.urw())
     with pytest.raises(ValueError, match="cache_budget"):
         walker.ExecutionConfig(cache_budget=-1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        walker.compile(walker.WalkProgram.urw(), backend="sharded")
+    sharded = walker.compile(walker.WalkProgram.urw(4), backend="sharded",
+                             execution=walker.ExecutionConfig(
+                                 num_devices=2, num_slots=64))
+    res = sharded.run(pg, starts)   # ported: runs, as the single backend
+    single = walker.compile(walker.WalkProgram.urw(4)).run(pg, starts)
+    assert torch.equal(res.paths, single.paths)
+    assert int(res.stats.drops) == 0
     w = walker.compile(walker.WalkProgram.urw())
     assert isinstance(w.serve(pg), WalkService)   # ported: no longer raises
     with pytest.raises(ValueError):
