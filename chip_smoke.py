@@ -171,8 +171,19 @@ its seconds.
    Each run prints walks/s and MSteps/s beside the single backend's
    (phase 3's torch and fused), supersteps, route waits and the bubble
    ratio of each shard.
-9. Print the kernels' JSON summary (five rows), the card line, and last
-   the result line ``{"ok": true, "device": {...}}``.
+9. The static verifier (:func:`run_verifier`): ``repro_torch.analysis.
+   run_all()`` and ``python -m repro_torch.analysis --check`` and
+   ``python -m repro_torch.core.phase_program --check`` on this checkout
+   (any finding or docs drift raises); then, with the timers' clock
+   (``repro_torch.core.clock.now``) replaced by one that returns random
+   values, URW and PPR fused closed batches at the main path's width
+   (65,536 starts, W = 4,096, 80 hops, k = 16), each equal to phase 3's
+   fused run in paths, lengths and every stat but ``launches``, and a
+   fused URW stream at capacity 8,192 equal to the same stream under the
+   real clock in every harvested walk and every stat but ``launches``.
+   The launch counts are zeroed before each run and read after it.
+10. Print the kernels' JSON summary (five rows), the card line, and last
+    the result line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or when the
 script is run outside a checkout of the repository.
@@ -1156,6 +1167,8 @@ def run_main_path(graphs, starts_np) -> dict:
                 totals[k] += launched[k]
             results.append(res)
             RATES[name, impl] = NUM_STARTS / wall   # phase 8 prints it
+            if impl == "fused" and name in VERIFIER_PROGRAMS:
+                MAIN_FUSED.setdefault(name, res)    # phase 9 compares
             print(f"main {name} step_impl={impl}: "
                   f"walks/s={NUM_STARTS / wall:.1f} "
                   f"MSteps/s={a.msteps_per_s:.4f} supersteps={a.supersteps} "
@@ -3231,6 +3244,120 @@ def run_sharded(graphs, starts_np) -> dict:
     return totals
 
 
+# Phase 9: the closed batches run again with the timers' clock replaced by
+# random values, against phase 3's fused runs of the same batches.
+VERIFIER_PROGRAMS = ("urw", "ppr")
+VERIFIER_CLOCK_SEED = 9
+MAIN_FUSED = {}   # program -> phase 3's first fused WalkResult
+
+
+def random_clock():
+    """A stand-in for ``repro_torch.core.clock.now`` that returns uniform
+    random seconds, and the list its calls append to."""
+    rng = np.random.default_rng(VERIFIER_CLOCK_SEED)
+    reads = []
+
+    def now():
+        reads.append(1)
+        return float(rng.uniform(-1e6, 1e6))
+    return now, reads
+
+
+def run_verifier(graphs, starts_np) -> dict:
+    """Phase 9: the static verifier on this checkout
+    (``repro_torch.analysis.run_all()`` and both ``--check`` CLIs, each
+    in a fresh process: any finding or docs drift raises), then the
+    timers' clock replaced by random values (``random_clock``): fused URW
+    and PPR closed batches at the main path's width, each equal to phase
+    3's fused run of the same batch in paths, lengths and every stat but
+    ``launches``, and a fused URW stream at capacity 8,192 equal to the
+    same stream with the real clock in every harvested walk and every
+    stat but ``launches``.  Every run zeroes the launch counts before it
+    and reads them after; returns the fused kernel's launches summed."""
+    import torch
+
+    from repro_torch.analysis import render_findings, run_all
+    from repro_torch.core import clock
+    from repro_torch.kernels.fused_superstep import ops as fused_ops
+    from repro_torch.walker import ExecutionConfig, compile
+    t = time.perf_counter()
+    findings = run_all()
+    if findings:
+        raise AssertionError("verifier findings:\n"
+                             + render_findings(findings))
+    env = dict(os.environ, PYTHONPATH=SRC)
+    for module in ("repro_torch.analysis", "repro_torch.core.phase_program"):
+        r = subprocess.run([sys.executable, "-m", module, "--check"],
+                           cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=300)
+        if r.returncode != 0:
+            raise AssertionError(f"python -m {module} --check exited "
+                                 f"{r.returncode}:\n{r.stdout}{r.stderr}")
+        print(f"verifier python -m {module} --check: "
+              f"{' / '.join(r.stdout.strip().splitlines())}")
+    print(f"verifier: run_all() holds, both CLIs exit 0 "
+          f"({time.perf_counter() - t:.1f} s)")
+
+    def launched(stats):
+        n = fused_ops.LAUNCHES["fused_superstep"]
+        if n != int(stats.launches) or n <= 0:
+            raise AssertionError(f"fused launches {n}, stats say "
+                                 f"{int(stats.launches)}")
+        return n
+
+    total, real_now = 0, clock.now
+    now, reads = random_clock()
+    try:
+        clock.now = now
+        for name in VERIFIER_PROGRAMS:
+            g = graphs[name]
+            w = compile(programs()[name], execution=ExecutionConfig(
+                num_slots=NUM_SLOTS, record_paths=True, step_impl="fused",
+                hops_per_launch=HOPS_PER_LAUNCH))
+            starts = torch.from_numpy(starts_np).to(g.device)
+            fused_ops.reset_launches()
+            res = w.run(g, starts, seed=0)
+            torch.cuda.synchronize()
+            total += launched(res.stats)
+            if not same_walks(MAIN_FUSED[name], res):
+                raise AssertionError(f"verifier {name}: the random clock "
+                                     "changed the walks or stats")
+            print(f"verifier {name} fused, random clock: == phase 3's fused "
+                  f"run in paths, lengths and the {len(res.stats) - 1} stats "
+                  f"other than launches (drain wall_s read "
+                  f"{w.last_drain.wall_s:.6g})")
+    finally:
+        clock.now = real_now
+
+    g = graphs["urw"]
+    starts = stream_starts(g, STREAM_SMALL_CAPACITY)
+    runs = {}
+    for label, fn in (("real", real_now), ("random", now)):
+        stream = stream_walker("urw", "fused").stream(
+            g, capacity=STREAM_SMALL_CAPACITY, seed=STREAM_SEED)
+        fused_ops.reset_launches()
+        try:
+            clock.now = fn
+            h = soak(stream, starts)
+        finally:
+            clock.now = real_now
+        st = stream.walk_stats()
+        total += launched(st)
+        runs[label] = (h, st, stream.host_read_s)
+    (h0, st0, read0), (h1, st1, read1) = runs["real"], runs["random"]
+    if not (same_harvest(h0, h1) and same_stats(st0, st1)) \
+            or len(h1["epochs"]) != len(starts):
+        raise AssertionError("verifier stream: the random clock changed "
+                             "the harvest or stats")
+    if not reads:
+        raise AssertionError("verifier: no timer read clock.now")
+    print(f"verifier stream urw fused capacity {STREAM_SMALL_CAPACITY}, "
+          f"random clock: {len(starts)} walks == the real clock's in every "
+          f"harvested walk and stat but launches (host_read_s {read0:.6g} "
+          f"real, {read1:.6g} random; {len(reads)} clock reads)")
+    return {"fused_superstep": total}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: run it from the root of a checkout "
@@ -3309,6 +3436,8 @@ def main() -> int:
     for name, n in phase("7 tune", run_tune, graphs, starts).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in phase("8 sharded", run_sharded, graphs, starts).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in phase("9 verifier", run_verifier, graphs, starts).items():
         launches[name] = launches.get(name, 0) + n
     for name, row in rows.items():
         row["launches"] = launches[name]

@@ -46,6 +46,15 @@ import torch
 from repro_torch.core import rng as task_rng
 from repro_torch.core.rng import SALT_CORPUS, SALT_NEGATIVE
 
+# Draw streams the corpus consumer adds to every sampler's task draws:
+# `repro_torch.analysis`'s rng pass appends these to each kind's stream
+# set (consumer (qid, hop) tuples overlap walk tasks under the round-0 key,
+# so salt disjointness is the only separator).  Widths: the window draw is
+# 3 uniforms (row, center, offset); negatives default to 5 a batch element
+# (`SkipGramConfig.num_negatives`).
+CORPUS_DRAW_STREAMS = (("corpus.window_draw", SALT_CORPUS, 3),
+                       ("corpus.negatives", SALT_NEGATIVE, 5))
+
 
 class CorpusRing(NamedTuple):
     """Device-resident walk corpus: a ring of completed path rows.

@@ -50,14 +50,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 import warnings
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core import rng as task_rng, router
+from repro_torch.core import clock, rng as task_rng, router
 from repro_torch.core.phase_program import (PhaseProgram, chunk_gather,
                                             chunk_score, lower, make_sampler,
                                             reservoir_scan)
@@ -998,18 +997,18 @@ def make_sharded_stream_engine(pg: PartitionedGraph, spec: SamplerSpec,
         view = local_view(graph)
         base_key = tuple(int(x) for x in base_key)
         rank = _lane_ranks(N, S, graph.device)
-        t = time.perf_counter()
+        t = clock.now()
         work = bool((state.slots.active.sum() + torch.clamp(
             state.tail - state.head, min=0).sum()) > 0)
-        sync_s = time.perf_counter() - t
+        sync_s = clock.now() - t
         ran = 0
         while work and ran < k:
             state, flag = _superstep_dist_stream(cap_, cfg, N, capacity,
                                                  base_key, view, rank, state)
             ran += 1
-            t = time.perf_counter()
+            t = clock.now()
             work = bool(flag)   # once per superstep
-            sync_s += time.perf_counter() - t
+            sync_s += clock.now() - t
         return Chunk(state, ran, sync_s)
 
     return run

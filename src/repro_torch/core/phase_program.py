@@ -22,24 +22,35 @@ Phase vocabulary
     ``first_accept``, ``es_reservoir``.
 ``commit``
     Column access on the chosen offset + hop advance (engine-owned).
+
+The static verifier reads the programs' declarations
+(:meth:`PhaseProgram.draw_streams`, the derived ``schedule`` /
+``capability`` / ``fused`` / ``cuda`` facts), and the docs tables are
+generated from them: ``python -m repro_torch.core.phase_program`` prints
+the sampler × step_impl × backend support matrix embedded in
+``README.md``, ``--schedule`` the phase-program → schedule table embedded
+in ``docs/architecture.md`` (the reference's lines, since the phase lists
+are the same), and ``--check`` fails on drift in either.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core import rng as task_rng
 from repro_torch.core.rng import SALT_CHUNK0, SALT_COLUMN
-from repro_torch.core.samplers import (SamplerSpec, _uniform_index,
+from repro_torch.core.samplers import (KINDS, SamplerSpec, _uniform_index,
                                        es_chunk_score, es_merge,
                                        es_num_chunks, n2v_bias,
                                        rejection_choose, vertex_row)
 
-__all__ = ["Phase", "PhaseProgram", "lower", "make_sampler",
-           "reservoir_scan", "chunk_gather", "chunk_score"]
+__all__ = ["KINDS", "Phase", "PhaseProgram", "DrawStream", "lower",
+           "make_sampler", "reservoir_scan", "chunk_gather", "chunk_score",
+           "fused_kinds", "support_rows", "render_support_matrix",
+           "render_schedule_table"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,9 +120,18 @@ class PhaseProgram:
                 "chunked_loop": "chunked_reservoir"}[self.schedule]
 
     @property
+    def fused(self) -> bool:
+        """Lowerable to the fused superstep kernel: True for every program
+        (loop-free phase lists run as one pass, the looping reservoir as an
+        in-kernel chunk loop), so the engine never falls back to the plain
+        superstep under ``step_impl="fused"``."""
+        return True
+
+    @property
     def cuda(self) -> bool:
         """Covered by the one-hop walk-step CUDA kernels
-        (single-residency programs over the plain/alias CSR segments)."""
+        (single-residency programs over the plain/alias CSR segments); the
+        reference calls this ``pallas``."""
         return all(p.residency == "v_curr" for p in self.phases) and not (
             self.loop or "typed" in self.requires)
 
@@ -137,6 +157,40 @@ class PhaseProgram:
                          "chunk": ["weights"],
                          "csr": []}[ph.variant]
         return tuple(payloads)
+
+    def draw_streams(self) -> Tuple["DrawStream", ...]:
+        """The RNG draw streams this program consumes per task, for the
+        verifier's RNG-collision pass: one stream per ``draw`` phase at its
+        salt channel; in a looping program the draw repeats per chunk at
+        ``salt + chunk``, an open-ended *family*.  Engine-issued draws (the
+        PPR stop draw) are declared apart
+        (`repro_torch.core.walk_engine.ENGINE_DRAW_STREAMS`)."""
+        streams = []
+        for n, ph in enumerate(self.phases):
+            if ph.op != "draw":
+                continue
+            streams.append(DrawStream(
+                site=f"{self.kind}.phases[{n}].draw",
+                salt=ph.salt, width=ph.width, family=self.loop))
+        return tuple(streams)
+
+
+class DrawStream(NamedTuple):
+    """One per-task RNG draw stream: ``width`` uniforms at salt ``salt``
+    (or, for a chunk *family*, at every salt in ``[salt, ∞)``, one chunk a
+    salt).  Streams with distinct salts are disjoint by the Threefry key
+    fold; two that share a salt both consume counters ``[0, width)`` there
+    and collide."""
+
+    site: str
+    salt: int
+    width: int
+    family: bool = False
+
+    def salt_span(self) -> Tuple[int, Optional[int]]:
+        """Half-open salt interval this stream draws from (``None`` hi =
+        unbounded chunk family)."""
+        return (self.salt, None if self.family else self.salt + 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -376,3 +430,160 @@ def make_sampler(spec: SamplerSpec):
         return ctx.index, ctx.ok
 
     return sample
+
+
+# ==========================================================================
+# Docs tables, generated from the programs: the support matrix is embedded
+# in README.md's port section, the schedule table in docs/architecture.md.
+# ==========================================================================
+
+_KIND_LABEL = {
+    "uniform": "uniform (urw/ppr)",
+    "alias": "alias (deepwalk)",
+    "rejection_n2v": "rejection_n2v (node2vec)",
+    "reservoir_n2v": "reservoir_n2v (weighted node2vec)",
+    "metapath": "metapath",
+}
+
+
+def _default_spec(kind: str) -> SamplerSpec:
+    return SamplerSpec(kind=kind,
+                       metapath=(0,) if kind == "metapath" else ())
+
+
+def support_rows():
+    """One row per sampler kind: which step_impl lowers it natively, which
+    sharded capability it declares, and the schedule / carry / residency
+    facts, all read off the phase programs."""
+    rows = []
+    for kind in KINDS:
+        prog = lower(_default_spec(kind))
+        residency = ("v_curr + v_prev"
+                     if any(p.residency == "v_prev" for p in prog.phases)
+                     else "v_curr")
+        rows.append({
+            "kind": kind,
+            "label": _KIND_LABEL[kind],
+            "torch": True,
+            "cuda": prog.cuda,
+            "fused": prog.fused,
+            "capability": prog.capability,
+            "schedule": prog.schedule,
+            "carry": prog.carry,
+            "residency": residency,
+            "requires": prog.requires,
+            "phases": prog.phases,
+            "cache_payloads": prog.cache_payloads,
+        })
+    return rows
+
+
+def render_support_matrix() -> str:
+    """Markdown sampler × step_impl × backend matrix (embedded verbatim in
+    README.md's port section)."""
+    lines = [
+        "| sampler | `torch` | `cuda` (one-hop kernel) "
+        "| `fused` (k-superstep kernel) | `sharded` capability |",
+        "|---|---|---|---|---|",
+    ]
+    for r in support_rows():
+        cuda = "✓" if r["cuda"] else "plain superstep"
+        fused = "✓" if r["fused"] else "plain superstep"
+        lines.append(f"| {r['label']} | ✓ | {cuda} | {fused} "
+                     f"| `{r['capability']}` |")
+    return "\n".join(lines)
+
+
+def _phase_sig(ph: Phase) -> str:
+    """Compact one-token rendering of a phase for the schedule table."""
+    tag = ph.op if not ph.variant else f"{ph.op}:{ph.variant}"
+    if ph.op in ("draw", "gather") and ph.width > 1:
+        tag += f"×{ph.width}"
+    if ph.residency == "v_prev":
+        tag += "@v_prev"
+    return tag
+
+
+def render_schedule_table() -> str:
+    """Markdown phase-program → schedule table (embedded verbatim in
+    docs/architecture.md).  Widths are the default spec's (K = 12, CH =
+    64); the schedule / carry / residency columns do not depend on them."""
+    lines = [
+        "| sampler | phases | schedule | carry | residency "
+        "| graph payloads | hot-cache payloads |",
+        "|---|---|---|---|---|---|---|",
+    ]
+    for r in support_rows():
+        phases = " → ".join(_phase_sig(p) for p in r["phases"])
+        loop = " (looped per chunk)" if r["schedule"] == "chunked_loop" \
+            else ""
+        req = ", ".join(f"`{x}`" for x in r["requires"]) or "—"
+        hot = ", ".join(f"`{x}`" for x in r["cache_payloads"])
+        lines.append(f"| {r['label']} | `{phases}`{loop} "
+                     f"| `{r['schedule']}` | `{r['carry']}` "
+                     f"| {r['residency']} | {req} | {hot} |")
+    return "\n".join(lines)
+
+
+def fused_kinds() -> Tuple[str, ...]:
+    """Sampler kinds the fused kernel covers (read off the programs)."""
+    return tuple(r["kind"] for r in support_rows() if r["fused"])
+
+
+def _check_docs_embeddings() -> int:
+    """Exit code 0 when every generated line appears in its doc, else 1
+    with the missing lines."""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[3]
+    targets = [
+        (root / "README.md", render_support_matrix(), "support matrix"),
+        (root / "docs" / "architecture.md", render_schedule_table(),
+         "schedule table"),
+    ]
+    failures = []
+    for path, table, name in targets:
+        text = path.read_text() if path.exists() else ""
+        missing = [ln for ln in table.splitlines() if ln not in text]
+        if missing:
+            failures.append((path, name, missing))
+    for path, name, missing in failures:
+        print(f"DRIFT: {path} is missing {len(missing)} generated "
+              f"{name} line(s):")
+        for ln in missing:
+            print(f"  {ln}")
+    if failures:
+        print("regenerate with `python -m repro_torch.core.phase_program` "
+              "/ `--schedule` and paste the output into the docs")
+        return 1
+    print("docs embeddings up to date")
+    return 0
+
+
+def _main(argv=None) -> int:
+    """CLI: print the generated docs tables or check them for drift."""
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.core.phase_program",
+        description="Generate (or drift-check) the docs tables derived "
+                    "from the sampler phase programs.")
+    ap.add_argument("--schedule", action="store_true",
+                    help="print the phase-program → schedule table "
+                         "(docs/architecture.md) instead of the support "
+                         "matrix (README.md)")
+    ap.add_argument("--check", action="store_true",
+                    help="verify the docs embed the generated tables "
+                         "verbatim; exit 1 on drift")
+    args = ap.parse_args(argv)
+    if args.check:
+        return _check_docs_embeddings()
+    print(render_schedule_table() if args.schedule
+          else render_support_matrix())
+    return 0
+
+
+if __name__ == "__main__":
+    # Run as ``python -m``, this file is ``__main__`` beside the package's
+    # own copy (which `repro_torch.core` imported): use that one, so the
+    # tables come from the programs every other module sees.
+    from repro_torch.core import phase_program as _module
+    raise SystemExit(_module._main())

@@ -13,20 +13,130 @@ or compare, so every 32-bit word is held in an int64 tensor and masked back
 to 32 bits after each operation that can carry out of the word.  A negative
 int32 id (the -1 of an idle lane) wraps to its two's-complement word, as a
 uint32 cast does.
+
+Every salt channel is registered in :data:`SALTS` (a
+:class:`SaltRegistry`, which rejects an overlapping channel at import), and
+the CUDA kernels' ``kSalt*`` constants (``kernels/csrc/walk_common.cuh``)
+must equal their channels: ``python -m repro_torch.analysis --check``
+proves both, and that every draw stream of every sampler is salt-disjoint.
+This module is also the one place that seeds a ``torch.Generator``
+(:func:`seeded_generator`); the determinism pass bans ambient RNG
+everywhere else in the walk path.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-# Salt channels for decorrelated draws within one hop (values shared with
-# the reference's registry, so both packages draw the same streams).
-SALT_COLUMN = 0   # which neighbor column
-SALT_ACCEPT = 1   # alias/rejection accept
-SALT_STOP = 2     # PPR termination draw
-SALT_CORPUS = 3   # SGNS batch sampler: ring row, center, window offset
-SALT_NEGATIVE = 4  # SGNS negative ids
-SALT_CHUNK0 = 8   # reservoir chunk c draws at SALT_CHUNK0 + c
+# --------------------------------------------------------------------------
+# Salt registry: the single source of truth for every salt channel.
+#
+# A task's draw stream is keyed by (seed, epoch, query_id, hop, salt); two
+# streams with distinct salts are disjoint (the salt folds into the Threefry
+# key), so the RNG-collision argument reduces to: no two independent uses
+# share a salt.  Every SALT_* constant is registered here, disjointness is
+# asserted at import, and `repro_torch.analysis` reads the registry as
+# ground truth for the per-sampler stream model and the call-site audits.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SaltChannel:
+    """One registered salt channel.
+
+    A scalar channel owns exactly ``value``.  A *family* (``family=True``)
+    owns the open-ended range ``[value, ∞)``: the reservoir's chunk ``c``
+    draws at ``SALT_CHUNK0 + c`` with a degree-dependent chunk count, so
+    the family must sit above every scalar channel.
+    """
+
+    name: str
+    value: int
+    family: bool = False
+
+    def covers(self, salt: int) -> bool:
+        """Does this channel own the concrete salt value ``salt``?"""
+        return salt >= self.value if self.family else salt == self.value
+
+
+class SaltRegistry:
+    """Name → :class:`SaltChannel` registry with import-time disjointness.
+
+    ``register`` raises when a new channel overlaps an existing one (a
+    duplicate scalar value, a scalar inside a family's range, or a second
+    open-ended family, since two unbounded families always overlap).
+    """
+
+    def __init__(self):
+        self._channels: Dict[str, SaltChannel] = {}
+
+    def register(self, name: str, value: int, family: bool = False) -> int:
+        ch = SaltChannel(name, int(value), family)
+        if name in self._channels:
+            raise ValueError(f"salt channel {name!r} registered twice")
+        for other in self._channels.values():
+            span = self._overlap(ch, other)
+            if span is not None:
+                lo, hi = span
+                rng_s = f"[{lo}, ∞)" if hi is None else f"[{lo}, {hi})"
+                raise ValueError(
+                    f"salt channel {name}={value!r} overlaps "
+                    f"{other.name}={other.value!r} on {rng_s} — every "
+                    f"salt channel must own a disjoint value range")
+        self._channels[name] = ch
+        return ch.value
+
+    @staticmethod
+    def _overlap(a: SaltChannel,
+                 b: SaltChannel) -> Optional[Tuple[int, Optional[int]]]:
+        """Overlap interval of two channels' owned ranges, or None."""
+        if a.family and b.family:
+            return (max(a.value, b.value), None)
+        if a.family or b.family:
+            fam, sc = (a, b) if a.family else (b, a)
+            return (sc.value, sc.value + 1) if sc.value >= fam.value else None
+        return (a.value, a.value + 1) if a.value == b.value else None
+
+    def channels(self) -> Tuple[SaltChannel, ...]:
+        return tuple(self._channels.values())
+
+    def lookup(self, salt: int) -> Optional[SaltChannel]:
+        """The channel owning concrete salt value ``salt``, if any."""
+        for ch in self._channels.values():
+            if ch.covers(int(salt)):
+                return ch
+        return None
+
+    def names(self) -> Tuple[str, ...]:
+        return tuple(self._channels)
+
+    def __getitem__(self, name: str) -> SaltChannel:
+        return self._channels[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._channels
+
+
+#: The registry instance: every salt channel of the port, in one place.
+SALTS = SaltRegistry()
+
+# Salt channels for decorrelated draws within one hop (names, values and
+# the family flag are the reference's, so both packages draw the same
+# streams).
+SALT_COLUMN = SALTS.register("SALT_COLUMN", 0)   # which neighbor column
+SALT_ACCEPT = SALTS.register("SALT_ACCEPT", 1)   # alias/rejection accept
+SALT_STOP = SALTS.register("SALT_STOP", 2)       # PPR termination draw
+# The corpus consumer (`core/corpus_ring.py`) folds (qid = batch element,
+# hop = grad step) under the round-0 stream key, the tuples walk tasks
+# fold, so its channels must be disjoint from every walk channel.
+SALT_CORPUS = SALTS.register("SALT_CORPUS", 3)       # ring row/center/offset
+SALT_NEGATIVE = SALTS.register("SALT_NEGATIVE", 4)   # SGNS negative ids
+# Reservoir chunk c draws at SALT_CHUNK0 + c: an open-ended family above
+# every scalar channel.
+SALT_CHUNK0 = SALTS.register("SALT_CHUNK0", 8, family=True)
 
 _MASK = 0xFFFFFFFF
 # Threefry-2x32 key-schedule parity constant (Salmon et al., SC'11).
@@ -159,3 +269,20 @@ def task_uniforms(base_key, query_id: torch.Tensor, hop: torch.Tensor,
     k0, k1 = (int(k) for k in base_key)
     k0, k1 = task_key_pair(k0, k1, query_id, hop, salt, epoch)
     return bits_to_uniform(key_bits(k0, k1, num))
+
+
+def task_bits(base_key, query_id: torch.Tensor, hop: torch.Tensor, num: int,
+              salt=0, epoch=None) -> torch.Tensor:
+    """(W, num) 32-bit random words per task (int64 in [0, 2**32)), for
+    code that does its own fixed-point arithmetic.  ``base_key`` is a key
+    pair: a (2,) tensor or a pair of ints."""
+    k0, k1 = (int(k) for k in base_key)
+    k0, k1 = task_key_pair(k0, k1, query_id, hop, salt, epoch)
+    return key_bits(k0, k1, num)
+
+
+def seeded_generator(seed: int) -> torch.Generator:
+    """A CPU ``torch.Generator`` seeded with ``seed``: the walk path's one
+    entry to torch's own RNG, for draws that need not match the
+    reference's bits (embedding initialisation)."""
+    return torch.Generator().manual_seed(int(seed))

@@ -51,14 +51,13 @@ an injection update every state tensor they touch in place.
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import rng as task_rng, scheduler as sched
+from repro_torch.core import clock, rng as task_rng, scheduler as sched
 from repro_torch.core.phase_program import lower as lower_program, make_sampler
 from repro_torch.core.rng import SALT_COLUMN, SALT_STOP
 from repro_torch.core.samplers import SamplerSpec
@@ -70,6 +69,15 @@ from repro_torch.kernels.walk_step import ops as walk_ops
 
 MODES = ("zero_bubble", "static")
 STEP_IMPLS = ("torch", "cuda", "fused")
+
+# Draw streams the engine itself issues per task, outside any sampler
+# phase program, for the static verifier (`repro_torch.analysis`).  The PPR
+# stop draw shares the task's (seed, epoch, qid, hop) fold with the
+# sampler's draws, so its salt must stay disjoint from every
+# `PhaseProgram.draw_streams()` stream.  Every impl (the torch superstep,
+# the sharded engine and the fused kernel's ``kSaltStop``) issues this one
+# logical draw.
+ENGINE_DRAW_STREAMS = (("engine.stop_draw", SALT_STOP, 1),)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -474,17 +482,17 @@ def make_superstep_runner(spec: SamplerSpec, cfg: EngineConfig, cache=None):
             blocks[device] = fused_ops.cache_block(cache, device)
         cached = blocks.get(device)
         fused_ops.rearm(state, block)
-        t = time.perf_counter()
+        t = clock.now()
         more, first = fused_ops.progress(block)
-        sync_s = time.perf_counter() - t
+        sync_s = clock.now() - t
         ran = 0
         while more and ran < k:
             state = fused_ops.fused_superstep(
                 graph, spec, cfg, depth, state, key,
                 min(cfg.hops_per_launch, k - ran), block, cache=cached)
-            t = time.perf_counter()
+            t = clock.now()
             more, supersteps = fused_ops.progress(block)   # per launch
-            sync_s += time.perf_counter() - t
+            sync_s += clock.now() - t
             ran = supersteps - first
         return Chunk(state, ran, sync_s)
 
@@ -495,9 +503,9 @@ def make_superstep_runner(spec: SamplerSpec, cfg: EngineConfig, cache=None):
             return run_fused(graph, state, key, k, block)
         ran, sync_s = 0, 0.0
         while ran < k:
-            t = time.perf_counter()
+            t = clock.now()
             more = bool(_work_left(state))   # once per superstep
-            sync_s += time.perf_counter() - t
+            sync_s += clock.now() - t
             if not more:
                 break
             state = _count_launch(_superstep(graph, spec, cfg, key, depth,
@@ -522,14 +530,14 @@ def build_engine(spec: SamplerSpec, cfg: EngineConfig, cache=None):
     depth = _stage_depth(cfg)
 
     def run(graph: CSRGraph, start_vertices: torch.Tensor, key):
-        t0 = time.perf_counter()
+        t0 = clock.now()
         device = graph.device
         sv = start_vertices.to(device=device, dtype=torch.int32)
         if sv.shape[0] == 0:
             paths, lengths = _fresh_buffers(cfg, 0, device)
             return (WalkResult(paths=paths, lengths=lengths,
                                stats=zero_stats(device)),
-                    Drain(time.perf_counter() - t0, 0.0))
+                    Drain(clock.now() - t0, 0.0))
         state, block = init_state(cfg, depth, sv), None
         if cfg.step_impl == "fused":
             state, block = fused_ops.pack(state)   # the drain's control block
@@ -539,7 +547,7 @@ def build_engine(spec: SamplerSpec, cfg: EngineConfig, cache=None):
             torch.cuda.synchronize(device)   # may have ended without a read
         result = WalkResult(paths=state.paths, lengths=state.lengths,
                             stats=state.stats)
-        return result, Drain(time.perf_counter() - t0, sync_s)
+        return result, Drain(clock.now() - t0, sync_s)
 
     return run
 

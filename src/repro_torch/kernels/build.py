@@ -19,7 +19,8 @@ import re
 import shutil
 import subprocess
 import tempfile
-import time
+
+from repro_torch.core import clock
 
 _KERNELS = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
@@ -104,11 +105,11 @@ def build(names=None) -> dict[str, float]:
                str(_KERNELS / SOURCES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, out, time.perf_counter())
+        jobs[name] = (proc, tmp, out, clock.now())
     failures = []
     for name, (proc, tmp, out, t0) in jobs.items():
         log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
+        seconds[name] = clock.now() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
             failures.append(f"nvcc failed for {name} "

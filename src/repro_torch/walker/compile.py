@@ -30,7 +30,6 @@ buffer with no drain barrier.  Epoch ``e`` of a stream equals
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from collections import deque
 from typing import Optional
@@ -38,7 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import corpus_ring
+from repro_torch.core import clock, corpus_ring
 from repro_torch.core import rng as task_rng
 from repro_torch.core.distributed import (DistLogs, assemble_paths,
                                           init_dist_stream_state,
@@ -399,7 +398,7 @@ class Walker:
         opt_cfg = opt_cfg or adamw.AdamWConfig(
             lr=1e-2, warmup_steps=max(1, rounds * steps_per_round // 10),
             total_steps=rounds * steps_per_round)
-        params0 = emb.init_params(torch.Generator().manual_seed(seed), sg_cfg,
+        params0 = emb.init_params(task_rng.seeded_generator(seed), sg_cfg,
                                   device=device)
         state0 = (params0, adamw.init_state(params0))
         sampler = corpus_ring.make_batch_sampler(nv, batch_size, window,
@@ -691,9 +690,9 @@ class WalkStream(_StreamBase):
 
     def done_mask(self) -> np.ndarray:
         """(capacity,) bool — True where that slot's query terminated."""
-        t = time.perf_counter()
+        t = clock.now()
         done = self.state.done.cpu().numpy()
-        self.host_read_s += time.perf_counter() - t
+        self.host_read_s += clock.now() - t
         return done
 
     def harvest_device(self, qids):
@@ -796,9 +795,9 @@ class ShardedWalkStream(_StreamBase):
     def done_mask(self) -> np.ndarray:
         """(capacity,) bool — a slot is done once any shard terminated its
         occupant's walk."""
-        t = time.perf_counter()
+        t = clock.now()
         done = self.state.done[:, :self.capacity].any(0).cpu().numpy()
-        self.host_read_s += time.perf_counter() - t
+        self.host_read_s += clock.now() - t
         return done
 
     def harvest_device(self, qids):

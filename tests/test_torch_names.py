@@ -61,6 +61,28 @@ NAMES = [
     ("core.distributed", "shard_starts"),
     ("core.distributed", "run_distributed"),
     ("core.distributed", "assemble_paths"),
+    ("core.rng", "SaltChannel"), ("core.rng", "SaltRegistry"),
+    ("core.rng", "SALTS"), ("core.rng", "task_bits"),
+    ("core.phase_program", "KINDS"), ("core.phase_program", "DrawStream"),
+    ("core.phase_program", "fused_kinds"),
+    ("core.phase_program", "support_rows"),
+    ("core.phase_program", "render_support_matrix"),
+    ("core.phase_program", "render_schedule_table"),
+    ("core.walk_engine", "ENGINE_DRAW_STREAMS"),
+    ("core.corpus_ring", "CORPUS_DRAW_STREAMS"),
+    ("analysis", "Finding"), ("analysis", "render_findings"),
+    ("analysis", "run_all"),
+    ("analysis.rng_collisions", "spec_streams"),
+    ("analysis.rng_collisions", "check_streams"),
+    ("analysis.rng_collisions", "check_kinds"),
+    ("analysis.rng_collisions", "check_call_sites"),
+    ("analysis.rng_collisions", "check_source"),
+    ("analysis.residency", "check_program"),
+    ("analysis.determinism", "check_source"),
+    ("analysis.tables", "render_salt_table"),
+    ("analysis.tables", "render_stream_table"),
+    ("analysis.tables", "render_table"),
+    ("analysis.fixtures", "FIXTURES"), ("analysis.fixtures", "run_fixture"),
 ]
 
 
