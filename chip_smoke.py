@@ -182,7 +182,37 @@ its seconds.
    fused URW stream at capacity 8,192 equal to the same stream under the
    real clock in every harvested walk and every stat but ``launches``.
    The launch counts are zeroed before each run and read after it.
-10. Print the kernels' JSON summary (five rows), the card line, and last
+10. The graph-learning zoo (:func:`run_zoo`, ``repro_torch.models``) at
+    full width on the reference's shape cells: PNA on ``full_graph_sm``
+    (``make_cora_like(0)``: 2,708 nodes, 1,433 features, 7 classes) and on
+    ``minibatch_lg`` (``sample_blocks`` of 1,024 seeds, fanouts (15, 10)
+    on the main path's WG graph, bit-equal to the same call on a CPU copy;
+    the union graph relabelled with ``torch.unique``; 602 features a node
+    gathered each step from a (V x 602) table on the card; 47 classes),
+    MeshGraphNet on ``full_graph_sm`` (``gnn_batch`` with 4 edge
+    features), SchNet and MACE on ``molecule`` (``molecule_batch(30, 64,
+    128)``), DCN-v2 on ``train_batch`` (65,536; 26 tables of 1,000,000 x
+    16), ``serve_p99`` / ``serve_bulk`` (``predict`` at 512 and 262,144)
+    and ``retrieval_cand`` (one query against 1,000,000 x 64 candidates).
+    First both kernels at every row width the zoo gives them (1, 3, 75,
+    602, 1,152, 1,433) over Cora's edges, bit-equal to their plain
+    versions.  Each training cell: one forward, the loss and every
+    gradient on the card against the same code on the CPU (DCN at batch
+    512), each output and gradient leaf within a relative norm error of
+    the CPU tests' rtol (PNA 10x; ``ZOO_NORM``); two 8-step runs of
+    ``runtime.train_loop.run`` from the same parameters under
+    ``torch.use_deterministic_algorithms`` (``CUBLAS_WORKSPACE_CONFIG``
+    is set at the top of this script), whose losses and final parameters
+    must be bit-identical; the median step time of steps 3-8, peak memory,
+    the longest segment and both kernels' launches; then a step's wall
+    with and without deterministic algorithms and a ``torch.profiler``
+    trace of 3 steps (device busy time, device launches, top kernels).
+    The serving cells run 8 calls each, bit-identical, timed.  Last
+    ``python -m repro_torch.launch.train`` on the card: PNA and DCN-v2 for
+    6 steps, then PNA resumed to 8.  The launch counts are zeroed before
+    each run and read after it; the comparisons' launches do not count.
+    A mismatch in any cell raises at the end of the phase.
+11. Print the kernels' JSON summary (five rows), the card line, and last
     the result line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or when the
@@ -201,6 +231,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
+# cuBLAS is deterministic only with a fixed workspace, which must be set
+# before CUDA starts; phase 10 runs under torch.use_deterministic_algorithms.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 NUM_STARTS = 65_536
 NUM_SLOTS = 4_096
@@ -3358,6 +3391,575 @@ def run_verifier(graphs, starts_np) -> dict:
     return {"fused_superstep": total}
 
 
+# ---------------------------------------------------------------- phase 10
+#
+# The graph-learning zoo (``repro_torch.models``) at full width on the
+# reference's shape cells (``configs/base.py``): one forward, loss and
+# gradient on the card against the same port code on the CPU, two 8-step
+# runs of ``runtime.train_loop.run`` under deterministic algorithms that
+# must agree bit for bit, and the step's numbers.  The gathers and sums
+# run on the embedding-bag and segment-sum kernels.
+
+ZOO_STEPS = 8                    # steps a determinism run
+ZOO_TIMED_FROM = 2               # median over steps 3-8
+ZOO_FWD = dict(rtol=1e-4, atol=1e-5)    # the CPU tests' tolerances
+ZOO_LOSS_RTOL = 1e-5
+ZOO_GRAD = dict(rtol=1e-3, atol=1e-6)
+ZOO_PNA_ATOL = 1e-4              # PNA: atol = this x the array's max |x|
+# Card vs CPU at full width: each output and gradient leaf within a
+# relative norm error, ||card - cpu|| / ||cpu||, of the CPU tests' rtol
+# (1e-4 outputs, 1e-3 gradients).  Elementwise, the cuBLAS and CPU BLAS
+# summation orders over 15 layers and K = 1,433 miss the SMOKE sizes'
+# atol on near-zero elements (MeshGraphNet: 95.6 times the elementwise
+# tolerance at a leaf norm error of 5.1e-5, on an H100).  PNA: 10x
+# both, for its std aggregator: where a segment's messages are (nearly)
+# equal (duplicates the sampler draws, one in-edge), sqrt(v + 1e-6) has
+# slope up to 500 at v ~ 0 and scales each device's rounding residue of
+# E[m^2] - E[m]^2 (PNA on the minibatch: gradient norm error 1.37e-3).
+# The elementwise ratios are printed beside.
+ZOO_NORM = {"out": 1e-4, "grad": 1e-3}
+ZOO_NORM_PNA = {"out": 1e-3, "grad": 1e-2}
+# Row widths the zoo hands the two kernels: degree counts and energies,
+# positions, PNA, the minibatch features, MACE's l=2 rows (C·9), Cora.
+ZOO_WIDTHS = (1, 3, 75, 602, 1_152, 1_433)
+ZOO_MB_SEEDS = 1_024             # minibatch_lg (launch/specs.py:130-177)
+ZOO_MB_FANOUTS = (15, 10)
+ZOO_MB_FEAT = 602
+ZOO_MB_CLASSES = 47
+ZOO_DCN_TRAIN = 65_536           # train_batch
+ZOO_DCN_CHECK = 512              # card vs CPU at serve_p99's batch
+ZOO_SERVE = {"serve_p99": 512, "serve_bulk": 262_144}
+ZOO_CANDIDATES = 1_000_000       # retrieval_cand
+ZOO_CALLS = 8                    # timed predict / retrieval calls
+ZOO_LAUNCHER_STEPS = 6
+
+
+def tree_map(fn, tree):
+    from repro_torch.checkpoint import checkpointer
+    return checkpointer.tree_map(fn, tree)
+
+
+def tree_leaves(tree):
+    from repro_torch.checkpoint import checkpointer
+    return checkpointer.leaves(tree)
+
+
+def zoo_counts() -> dict:
+    """The launches of the zoo's two kernels since the last reset."""
+    launched = embedding_launches()
+    return {k: launched[k] for k in ("embedding_bag", "segment_sum")}
+
+
+def worst_ratio(got, want, rtol, atol) -> float:
+    """max |got - want| / (atol + rtol |want|) on ``got``'s device (at most
+    1 passes; NaN fails)."""
+    want = want.to(got.device)
+    if got.numel() == 0:
+        return 0.0
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def longest_segment(*ids) -> int:
+    """The most rows any one segment of the step's sums takes."""
+    import torch
+    return max(int(torch.bincount(x.reshape(-1).long()).max()) for x in ids)
+
+
+def zoo_forward(arch, cfg):
+    """The arch's forward output as a function of (params, batch)."""
+    from repro_torch.launch.train import gnn_module
+    if arch == "dcn_v2":
+        from repro_torch.models.recsys import dcn
+        return lambda p, b: dcn.predict(p, b["dense"], b["sparse"], cfg)
+    m = gnn_module(arch)
+    if arch in ("schnet", "mace"):
+        return lambda p, b: m.apply(p, b["species"], b["positions"],
+                                    b["edge_index"], cfg, b["mol_id"],
+                                    b["energies"].shape[0])
+    if arch == "meshgraphnet":
+        return lambda p, b: m.apply(p, b["node_feats"], b["edge_feats"],
+                                    b["edge_index"], cfg)
+    return lambda p, b: m.apply(p, b["node_feats"], b["edge_index"], cfg)
+
+
+def zoo_loss(arch, cfg):
+    from repro_torch.launch.train import gnn_module
+    if arch == "dcn_v2":
+        from repro_torch.models.recsys import dcn
+        return lambda p, b: dcn.train_loss(p, b, cfg)
+    m = gnn_module(arch)
+    return lambda p, b: m.train_loss(p, b, cfg)
+
+
+def zoo_loss_grads(loss_fn, params, batch):
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import unflatten
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss = loss_fn(unflatten(params, iter(leaves)), batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), grads
+
+
+def zoo_card_vs_cpu(label, arch, cfg, params_cpu, batch_cpu,
+                    failures) -> None:
+    """One forward, the loss and every gradient leaf on the card against
+    the same port code on the CPU (whose plain path the CPU tests hold to
+    the JAX reference), within the CPU tests' tolerances; a miss is
+    appended to ``failures`` (the phase raises on them at its end)."""
+    import torch
+    fwd, loss_fn = zoo_forward(arch, cfg), zoo_loss(arch, cfg)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = params_cpu if dev == "cpu" else tree_map(lambda x: x.cuda(),
+                                                     params_cpu)
+        b = batch_cpu if dev == "cpu" else tree_map(lambda x: x.cuda(),
+                                                    batch_cpu)
+        with torch.no_grad():
+            out = fwd(p, b)
+        res[dev] = (out, *zoo_loss_grads(loss_fn, p, b))
+        del p, b
+    (oc, lc, gc), (oh, lh, gh) = res["cuda"], res["cpu"]
+    pna = arch == "pna"
+    tol = ZOO_NORM_PNA if pna else ZOO_NORM
+
+    def elementwise(a, b, rtol, atol):
+        return worst_ratio(a, b, rtol, ZOO_PNA_ATOL * float(b.abs().max())
+                           if pna else atol)
+    e_out = norm_error(oc, oh)
+    r_out = elementwise(oc, oh, **ZOO_FWD)
+    r_loss = abs(float(lc) - float(lh)) / (ZOO_LOSS_RTOL * abs(float(lh)))
+    from repro_torch.checkpoint.checkpointer import flatten_with_paths
+    paths = [p for p, _ in flatten_with_paths(params_cpu)]
+    norms = [norm_error(a, b) for a, b in zip(gc, gh)]
+    ratios = [elementwise(a, b, **ZOO_GRAD) for a, b in zip(gc, gh)]
+    worst = int(np.nanargmax(norms))
+    print(f"zoo {label} {arch}: card vs CPU, output norm error {e_out:.3g} "
+          f"(tolerance {tol['out']:g}; elementwise {r_out:.3g} of the CPU "
+          f"tests' tolerance), loss {r_loss:.3g} of its tolerance, gradient "
+          f"leaves' norm errors up to {norms[worst]:.3g} ({paths[worst]}; "
+          f"tolerance {tol['grad']:g}; elementwise up to "
+          f"{float(np.nanmax(ratios)):.3g}); loss {float(lc):.8g} card, "
+          f"{float(lh):.8g} CPU")
+    bad = [f"{p} {e:.3g}" for p, e in zip(paths, norms)
+           if not e <= tol["grad"]]
+    if not (e_out <= tol["out"] and r_loss <= 1.0) or bad:
+        failures.append(f"zoo {label} {arch}: the card differs from the CPU "
+                        f"(output norm error {e_out:.3g}, loss {r_loss:.3g} "
+                        f"of its tolerance, leaves {bad})")
+
+
+def norm_error(got, want) -> float:
+    """||got - want|| / ||want|| on ``got``'s device (0 for two zeros)."""
+    want = want.to(got.device)
+    den = float(want.norm())
+    num = float((got - want).norm())
+    return num / den if den > 0 else num
+
+
+def zoo_train(label, arch, cfg, params, batch_fn, segment_ids) -> dict:
+    """Two runs of ZOO_STEPS steps through ``train_loop.run`` from copies of
+    ``params`` (on the card) under ``torch.use_deterministic_algorithms``:
+    losses and final parameters bit-identical.  Prints the median step
+    time of steps 3-8, peak memory, the longest segment and the kernels'
+    launches; returns the launches of both runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.train import make_grad_step
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop
+    opt = adamw.AdamWConfig(total_steps=ZOO_STEPS, warmup_steps=1)
+    step = make_grad_step(zoo_loss(arch, cfg), opt)
+    launched = {"embedding_bag": 0, "segment_sum": 0}
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) \
+                as d:
+            for r in range(2):
+                p = tree_map(torch.clone, params)
+                state = (p, adamw.init_state(p))
+                del p
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_all_launches()
+                t0 = time.perf_counter()
+                state, n, hist, _ = train_loop.run(
+                    step, state, batch_fn, train_loop.TrainLoopConfig(
+                        total_steps=ZOO_STEPS, ckpt_dir=os.path.join(d, str(r)),
+                        ckpt_every=ZOO_STEPS + 1, log_every=1))
+                wall = time.perf_counter() - t0
+                shutil.rmtree(os.path.join(d, str(r)))
+                counts = zoo_counts()
+                if n != ZOO_STEPS or min(counts.values()) <= 0:
+                    raise AssertionError(f"zoo {label} {arch}: run {r} took "
+                                         f"{n} steps, launches {counts}")
+                for k in launched:
+                    launched[k] += counts[k]
+                runs.append((hist, tree_leaves(state[0]), wall, counts,
+                             torch.cuda.max_memory_allocated()))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (h0, p0, wall0, c0, peak), (h1, p1, wall1, _, _) = runs
+    losses = [h["loss"] for h in h0]
+    if losses != [h["loss"] for h in h1] or not all(
+            torch.equal(a, b) for a, b in zip(p0, p1)):
+        raise AssertionError(f"zoo {label} {arch}: two runs from the same "
+                             "parameters differ (not deterministic)")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"zoo {label} {arch}: a loss is not finite")
+    ms = float(np.median([h["dt_s"] for h in h0[ZOO_TIMED_FROM:]])) * 1e3
+    print(f"zoo {label} {arch}: {ms:.4f} ms a training step (median of "
+          f"steps {ZOO_TIMED_FROM + 1}-{ZOO_STEPS}), peak memory "
+          f"{peak / 2**30:.3f} GiB, longest segment "
+          f"{longest_segment(*segment_ids)} rows, launches a run "
+          f"embedding_bag {c0['embedding_bag']} segment_sum "
+          f"{c0['segment_sum']}; losses {losses[0]:.6g} -> {losses[-1]:.6g} "
+          f"and final parameters bit-identical over 2 runs of {ZOO_STEPS} "
+          f"steps (deterministic algorithms; run walls {wall0:.2f}, "
+          f"{wall1:.2f} s with the final checkpoint)")
+    del runs, p0, p1
+    zoo_profile(label, arch, step, state, batch_fn)
+    return launched
+
+
+def zoo_profile(label, arch, step, state, batch_fn, reps=4, traced=3):
+    """Where a step's time goes, continuing from ``state``: the synchronised
+    wall of a step (batch included) without and with deterministic
+    algorithms (median of ``reps`` each), then ``torch.profiler`` over
+    ``traced`` deterministic steps: device busy ms and device launches a
+    step and the top kernels.  The profiler's own overhead is not in the
+    walls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    walls = {}
+    try:
+        for det in (False, True):
+            torch.use_deterministic_algorithms(det)
+            ts = []
+            for i in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = step(state, batch_fn(i))
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            walls[det] = float(np.median(ts)) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(traced):
+                state, _ = step(state, batch_fn(i))
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3 / traced
+    top = "; ".join(f"{k[:48]} {us / 1e3 / traced:.3f} ms x{n / traced:g}"
+                    for us, n, k in rows[:5])
+    print(f"zoo {label} {arch} profile: {walls[False]:.4f} ms a step without "
+          f"deterministic algorithms, {walls[True]:.4f} with; device busy "
+          f"{busy:.4f} ms a step ({busy / walls[True]:.4f} of the "
+          f"deterministic wall), {sum(r[1] for r in rows) / traced:.0f} "
+          f"device launches a step; top: {top}")
+
+
+def zoo_widths(cora_g) -> None:
+    """Both kernels at every row width the zoo gives them, over Cora's
+    edges (E rows gathered by source, summed by destination), bit-equal to
+    their plain versions on CPU copies."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.kernels.segment_sum import segment_sum
+    from repro_torch.kernels.segment_sum.ref import segment_sum_ref
+    src, dst = cora_edges(cora_g)
+    n = cora_g.num_vertices
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for width in ZOO_WIDTHS:
+        table = torch.randn((n, width), generator=gen, device="cuda")
+        rows = embedding_bag(src[:, None].cuda(), table)
+        sums = segment_sum(rows, dst.cuda(), n)
+        torch.cuda.synchronize()
+        if not torch.equal(rows.cpu(), embedding_bag_ref(src[:, None],
+                                                         table.cpu())):
+            raise AssertionError(f"zoo widths: embedding_bag at D = {width} "
+                                 "differs from its plain version")
+        if not torch.equal(sums.cpu(), segment_sum_ref(rows.cpu(), dst, n)):
+            raise AssertionError(f"zoo widths: segment_sum at D = {width} "
+                                 "differs from its plain version")
+    print(f"zoo widths: embedding_bag and segment_sum at D = "
+          f"{', '.join(map(str, ZOO_WIDTHS))} over Cora's {src.numel()} "
+          f"edges bit-equal to their plain versions")
+
+
+def cora_edges(g):
+    """(src, dst) int32 CPU tensors of a CSR graph's edges."""
+    import torch
+    rp = g.row_ptr.cpu()
+    src = torch.repeat_interleave(torch.arange(g.num_vertices,
+                                               dtype=torch.int32),
+                                  (rp[1:] - rp[:-1]).long())
+    return src, g.col.cpu()
+
+
+def zoo_cell(label, arch, cfg, batch_cpu, segment_keys, failures) -> dict:
+    """A cell whose batch is fixed: card vs CPU, then the two runs."""
+    import torch
+
+    from repro_torch.core.rng import seeded_generator
+    from repro_torch.launch.train import gnn_module
+    params = gnn_module(arch).init_params(seeded_generator(0), cfg,
+                                          device="cpu")
+    zoo_card_vs_cpu(label, arch, cfg, params, batch_cpu, failures)
+    params = tree_map(lambda x: x.cuda(), params)
+    batch = tree_map(lambda x: x.cuda(), batch_cpu)
+    ids = [batch_cpu["edge_index"][0], batch_cpu["edge_index"][1]] + \
+        [batch_cpu[k] for k in segment_keys]
+    out = zoo_train(label, arch, cfg, params, lambda step: batch, ids)
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_minibatch(g, add, failures) -> None:
+    """``minibatch_lg``: 1,024 seeds sampled (15, 10) on the WG graph (the
+    blocks bit-equal to a CPU copy's), the union graph relabelled to local
+    ids, features gathered from a (V x 602) table on the card each step."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.rng import seeded_generator, stream_key
+    from repro_torch.graph.csr import CSRGraph
+    from repro_torch.graph.sampling_service import (block_union_graph,
+                                                    sample_blocks,
+                                                    sample_neighbors)
+    from repro_torch.models import layers as L
+    from repro_torch.models.gnn import pna
+    seeds = np.random.default_rng(0).integers(0, g.num_vertices,
+                                              ZOO_MB_SEEDS)
+    blocks, nodes = sample_blocks(g, seeds, ZOO_MB_FANOUTS, seed=0)
+    g_cpu = CSRGraph(row_ptr=g.row_ptr.cpu(), col=g.col.cpu(),
+                     num_vertices=g.num_vertices, num_edges=g.num_edges,
+                     max_degree=g.max_degree)
+    blocks_cpu, nodes_cpu = sample_blocks(g_cpu, seeds, ZOO_MB_FANOUTS,
+                                          seed=0)
+    if not (torch.equal(nodes.cpu(), nodes_cpu) and all(
+            torch.equal(a.edge_index.cpu(), b.edge_index)
+            for a, b in zip(blocks, blocks_cpu))):
+        raise AssertionError("zoo minibatch: the sampler's blocks on the card "
+                             "differ from the CPU's")
+    hop_ms = []
+    key, frontier = stream_key(0), torch.as_tensor(seeds, device="cuda") \
+        .to(torch.int32)
+    for h, f in enumerate(ZOO_MB_FANOUTS):
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nb = sample_neighbors(g, frontier, f, key, h)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        hop_ms.append(float(np.median(ts)) * 1e3)
+        frontier = nb.reshape(-1)
+    union = block_union_graph(blocks)
+    uniq, local = torch.unique(union, return_inverse=True)
+    local = local.to(torch.int32)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    feats = torch.rand((g.num_vertices, ZOO_MB_FEAT), generator=gen,
+                       device="cuda")
+    labels = torch.randint(0, ZOO_MB_CLASSES, (g.num_vertices,),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    node_feats = L.gather_rows(feats, uniq)
+    if not torch.equal(node_feats, feats[uniq.long()]):
+        raise AssertionError("zoo minibatch: the feature gather differs from "
+                             "indexing")
+    print(f"zoo minibatch_lg sampler: {ZOO_MB_SEEDS} seeds, fanouts "
+          f"{ZOO_MB_FANOUTS}: {nodes.numel()} sampled ids, "
+          f"{union.shape[1]} edges, {uniq.numel()} distinct nodes; hops "
+          f"{hop_ms[0]:.4f}, {hop_ms[1]:.4f} ms; blocks and ids bit-equal "
+          f"to the same call on a CPU copy of the graph; features "
+          f"({g.num_vertices} x {ZOO_MB_FEAT}, "
+          f"{feats.numel() * 4 / 1e9:.2f} GB) on the card")
+    cfg = dataclasses.replace(get_arch("pna").FULL, node_in=ZOO_MB_FEAT,
+                              out_dim=ZOO_MB_CLASSES)
+    batch_labels = labels[uniq.long()]
+    batch_cpu = {"node_feats": node_feats.cpu(), "edge_index": local.cpu(),
+                 "labels": batch_labels.cpu()}
+    params = pna.init_params(seeded_generator(0), cfg, device="cpu")
+    zoo_card_vs_cpu("minibatch_lg", "pna", cfg, params, batch_cpu, failures)
+    params = tree_map(lambda x: x.cuda(), params)
+
+    def batch_fn(step):
+        return {"node_feats": L.gather_rows(feats, uniq),
+                "edge_index": local, "labels": batch_labels}
+    add(zoo_train("minibatch_lg", "pna", cfg, params, batch_fn,
+                  [local[0], local[1]]))
+    del feats, params
+    torch.cuda.empty_cache()
+
+
+def zoo_dcn(add, failures) -> None:
+    """DCN-v2 FULL: card vs CPU at batch 512, ``train_batch`` (65,536)
+    trained twice, ``serve_p99`` / ``serve_bulk`` predicts and
+    ``retrieval_cand`` (one query against 1,000,000 x 64 candidates), each
+    run twice and equal."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.rng import seeded_generator
+    from repro_torch.data.pipeline import recsys_batch, to_device
+    from repro_torch.models.recsys import dcn
+    cfg = get_arch("dcn_v2").FULL
+    t0 = time.perf_counter()
+    params_cpu = dcn.init_params(seeded_generator(0), cfg, device="cpu")
+    init_s = time.perf_counter() - t0
+
+    def batch(n, seed, device):
+        return to_device(recsys_batch(n, cfg.n_dense, cfg.n_sparse,
+                                      cfg.vocabs(), seed=seed), device)
+    zoo_card_vs_cpu("train_batch", "dcn_v2", cfg, params_cpu,
+                    batch(ZOO_DCN_CHECK, 99, "cpu"), failures)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cands = torch.nn.functional.normalize(torch.randn(
+        (ZOO_CANDIDATES, cfg.retrieval_dim), generator=gen, device="cuda"),
+        dim=-1)
+    q = batch(1, 7, "cpu")
+    with torch.no_grad():
+        want = dcn.retrieval_scores(params_cpu, q["dense"], q["sparse"],
+                                    cands.cpu(), cfg)
+    params = tree_map(lambda x: x.cuda(), params_cpu)
+    del params_cpu
+    with torch.no_grad():
+        got = dcn.retrieval_scores(params, q["dense"].cuda(),
+                                   q["sparse"].cuda(), cands, cfg)
+    r = worst_ratio(got, want, **ZOO_FWD)
+    print(f"zoo retrieval_cand dcn_v2: scores against {ZOO_CANDIDATES} "
+          f"candidates on the card vs the CPU {r:.3g} of the tolerance "
+          f"(params made on the CPU in {init_s:.1f} s)")
+    if not r <= 1.0:
+        failures.append(f"zoo retrieval_cand: the card differs from the CPU "
+                        f"({r:.3g} of the tolerance)")
+    batches = [batch(ZOO_DCN_TRAIN, s, "cuda") for s in range(ZOO_STEPS)]
+    add(zoo_train("train_batch", "dcn_v2", cfg, params,
+                  lambda step: batches[step],
+                  [batches[0]["sparse"][:, i] for i in range(cfg.n_sparse)]))
+    del batches
+    def predict(b):
+        return lambda: dcn.predict(params, b["dense"], b["sparse"], cfg)
+    calls = {name: predict(batch(n, 5, "cuda"))
+             for name, n in ZOO_SERVE.items()}
+    qc = tree_map(lambda x: x.cuda(), q)
+    calls["retrieval_cand"] = lambda: dcn.retrieval_scores(
+        params, qc["dense"], qc["sparse"], cands, cfg)
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        times, outs = [], []
+        with torch.no_grad():
+            for _ in range(ZOO_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(fn())
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        counts = zoo_counts()
+        add(counts)
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError(f"zoo {name}: two calls differ")
+        print(f"zoo {name} dcn_v2: {float(np.median(times[1:])) * 1e3:.4f} ms "
+              f"a call (median of calls 2-{ZOO_CALLS}, output "
+              f"{tuple(outs[0].shape)}), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+              f"launches embedding_bag {counts['embedding_bag']} "
+              f"segment_sum {counts['segment_sum']}; {ZOO_CALLS} calls "
+              f"bit-identical")
+    del params, cands, calls, outs
+    torch.cuda.empty_cache()
+
+
+def zoo_launchers() -> None:
+    """``python -m repro_torch.launch.train`` on the card: PNA and DCN-v2
+    for ZOO_LAUNCHER_STEPS steps, then PNA resumed to 2 more steps."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=SRC)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        runs = [("pna", ZOO_LAUNCHER_STEPS, False),
+                ("dcn_v2", ZOO_LAUNCHER_STEPS, False),
+                ("pna", ZOO_LAUNCHER_STEPS + 2, True)]
+        for arch, steps, resume in runs:
+            t0 = time.perf_counter()
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                   arch, "--steps", str(steps), "--ckpt-dir",
+                   os.path.join(d, arch)] + (["--resume"] if resume else [])
+            r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                               cwd=ROOT, timeout=300)
+            want = [f"done at step {steps}"] + (
+                [f"resumed at step {ZOO_LAUNCHER_STEPS}"] if resume else [])
+            if r.returncode != 0 or not all(w in r.stdout for w in want):
+                raise AssertionError(f"zoo launcher {' '.join(cmd[2:])}: exit "
+                                     f"{r.returncode}\n{r.stdout}\n{r.stderr}")
+            print(f"zoo launcher --arch {arch} --steps {steps}"
+                  f"{' --resume' if resume else ''}: exit 0 in "
+                  f"{time.perf_counter() - t0:.1f} s; "
+                  f"{r.stdout.strip().splitlines()[-1]}")
+
+
+def run_zoo(g) -> dict:
+    """Phase 10: every cell of the zoo on the card; returns the kernels'
+    launches summed over the cells' runs (the comparisons' launches are
+    not counted)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.graph import make_cora_like
+    if torch.get_float32_matmul_precision() != "highest" \
+            or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("zoo: float32 matmuls must run at 'highest' "
+                             "precision (no TF32)")
+    launched = {"embedding_bag": 0, "segment_sum": 0}
+    failures = []
+
+    def add(counts):
+        for k in launched:
+            launched[k] += counts[k]
+    cora_g, cora_x, cora_y = make_cora_like(0, device="cuda")
+    zoo_widths(cora_g)
+    src, dst = cora_edges(cora_g)
+    pna_cfg = dataclasses.replace(get_arch("pna").FULL,
+                                  node_in=cora_x.shape[1])
+    add(zoo_cell("full_graph_sm", "pna", pna_cfg, {
+        "node_feats": torch.from_numpy(cora_x),
+        "edge_index": torch.stack([src, dst]),
+        "labels": torch.from_numpy(cora_y)}, (), failures))
+    cell = get_arch("meshgraphnet").SHAPES["full_graph_sm"].dims
+    mgn_cfg = dataclasses.replace(get_arch("meshgraphnet").FULL,
+                                  node_in=cell["d_feat"], edge_in=4)
+    mgn = pipeline.to_device(pipeline.gnn_batch(
+        cell["n_nodes"], cell["n_edges"], cell["d_feat"], d_edge=4), "cpu")
+    add(zoo_cell("full_graph_sm", "meshgraphnet", mgn_cfg, mgn, (),
+                 failures))
+    mol = get_arch("schnet").SHAPES["molecule"].dims
+    mol_b = pipeline.to_device(pipeline.molecule_batch(
+        mol["n_nodes"], mol["n_edges"], mol["batch"]), "cpu")
+    for arch in ("schnet", "mace"):
+        add(zoo_cell("molecule", arch, get_arch(arch).FULL, mol_b,
+                     ("species", "mol_id"), failures))
+    zoo_minibatch(g, add, failures)
+    zoo_dcn(add, failures)
+    zoo_launchers()
+    if failures:
+        raise AssertionError("zoo: " + "; ".join(failures))
+    print(f"zoo launches over the phase's runs: {launched} "
+          f"({card_line()})")
+    return launched
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: run it from the root of a checkout "
@@ -3438,6 +4040,8 @@ def main() -> int:
     for name, n in phase("8 sharded", run_sharded, graphs, starts).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in phase("9 verifier", run_verifier, graphs, starts).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in phase("10 zoo", run_zoo, g).items():
         launches[name] = launches.get(name, 0) + n
     for name, row in rows.items():
         row["launches"] = launches[name]

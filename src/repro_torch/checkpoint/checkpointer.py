@@ -50,6 +50,18 @@ def unflatten(like, leaves):
     return next(leaves)
 
 
+def leaves(tree) -> list:
+    """``tree``'s leaves in the reference's leaf order."""
+    return [leaf for _, leaf in flatten_with_paths(tree)]
+
+
+def tree_map(fn, tree, *rest):
+    """``tree``'s structure with each leaf ``x`` replaced by ``fn(x, *ys)``,
+    ``ys`` the matching leaves of ``rest`` (trees of the same structure)."""
+    return unflatten(tree, iter([fn(*xs) for xs in zip(
+        leaves(tree), *map(leaves, rest), strict=True)]))
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()

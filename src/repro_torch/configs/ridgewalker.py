@@ -3,6 +3,7 @@
 from repro_torch.core.samplers import SamplerSpec
 from repro_torch.core.walk_engine import EngineConfig
 
+FAMILY = "walk"
 ALGORITHMS = {
     "urw": SamplerSpec(kind="uniform"),
     "ppr": SamplerSpec(kind="uniform", stop_prob=0.15),
@@ -13,3 +14,4 @@ ALGORITHMS = {
 QUERY_LENGTH = 80          # paper §VIII-A4
 ENGINE = EngineConfig(num_slots=4096, max_hops=QUERY_LENGTH,
                       record_paths=False)
+DATASETS = ("WG", "CP", "AS", "LJ", "AB", "UK")

@@ -73,3 +73,18 @@ def make_dataset(
     if with_alias:
         g = build_alias_tables(g)
     return g
+
+
+def make_cora_like(seed: int = 0, device=None
+                   ) -> tuple[CSRGraph, np.ndarray, np.ndarray]:
+    """Cora-shaped citation graph for GNN ``full_graph_sm``: 2708 nodes,
+    10556 directed edges, 1433-dim features, 7 classes; the reference's
+    graph, features and labels for a seed.  The graph is on ``device``
+    (default ``"cuda"``); features and labels are numpy."""
+    n, e, d, c = 2708, 10556, 1433, 7
+    rng = np.random.default_rng(seed)
+    edges = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)], axis=1)
+    g = build_csr(edges, n, device=device)
+    feats = (rng.random((n, d)) < 0.01).astype(np.float32)  # bag-of-words
+    labels = rng.integers(0, c, n).astype(np.int32)
+    return g, feats, labels

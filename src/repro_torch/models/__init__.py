@@ -1,1 +1,2 @@
-"""Models trained on the walk corpus (skip-gram with negative sampling)."""
+"""Model zoo: skip-gram embeddings (the walk corpus's trainer), GNNs
+(SchNet, PNA, MeshGraphNet, MACE) and recsys (DCN-v2)."""

@@ -21,8 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.embedding_bag import embedding_bag
-from repro_torch.kernels.segment_sum import segment_sum
+from repro_torch.models.layers import gather_rows, tree_from_reference
 from repro_torch.optim import adamw
 
 
@@ -67,53 +66,13 @@ def params_from_reference(params, device=None) -> dict:
 
 
 def opt_state_from_reference(state, device=None) -> adamw.AdamWState:
-    """The reference's ``AdamWState`` (step, mu, nu) as the port's."""
+    """The reference's ``AdamWState`` (step, mu, nu) as the port's; the
+    moments may be any nested tree (``layers.tree_from_reference``)."""
     return adamw.AdamWState(
         step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
                           device=device),
-        mu=params_from_reference(state.mu, device),
-        nu=params_from_reference(state.nu, device))
-
-
-# ------------------------------------------------------------ row gathers
-#
-# The SGNS step is three random-row gathers per step, each id a one-row
-# bag of the embedding-bag kernel.  The gradient of a gather is a scatter
-# of the output gradient back to the rows; it runs on the segment-sum
-# kernel, which sums each row's contributions in a fixed order, so the
-# gradient (and so a whole training run) is the same bits every time on
-# the card — unlike index_add_, whose atomics add in no fixed order.
-
-
-class _KernelGather(torch.autograd.Function):
-    """``table[flat_ids]`` on the embedding-bag kernel; backward on the
-    segment-sum kernel (the ids get no gradient)."""
-
-    @staticmethod
-    def forward(ctx, table, flat_ids):
-        ctx.save_for_backward(flat_ids)
-        ctx.rows = table.shape[0]
-        return embedding_bag(flat_ids[:, None], table)
-
-    @staticmethod
-    def backward(ctx, g):
-        (flat_ids,) = ctx.saved_tensors
-        grad = None
-        if ctx.needs_input_grad[0]:
-            grad = segment_sum(g.contiguous(), flat_ids, ctx.rows)
-        return grad, None
-
-
-def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` with the forward on the embedding-bag kernel and the
-    backward on the segment-sum kernel (their plain versions for CPU
-    tensors).
-
-    ``ids`` may carry any leading shape; the row axis is appended last.
-    """
-    flat = ids.reshape(-1).to(torch.int32).contiguous()
-    rows = _KernelGather.apply(table, flat)
-    return rows.reshape(*ids.shape, table.shape[1])
+        mu=tree_from_reference(state.mu, device),
+        nu=tree_from_reference(state.nu, device))
 
 
 def loss_fn(params: dict, centers, contexts, negatives,

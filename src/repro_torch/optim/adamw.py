@@ -1,15 +1,17 @@
 """AdamW with global-norm clipping and a warmup-cosine learning rate.
 
-The same update as the reference's ``repro.optim.adamw``, on dicts of
-float32 tensors.  :func:`apply_updates` updates the parameters and both
+The same update as the reference's ``repro.optim.adamw``, on any nested
+tree (dicts, lists, tuples) of float32 tensors.  :func:`apply_updates` updates the parameters and both
 moments **in place** (the reference donates those buffers to XLA for the
 same reason): at the SGNS step's full width the two tables and their
 moments are 3 GiB, and a second copy a step is avoided.  The step
 counter, the learning rate and the clipping scale stay on the parameters'
 device, so an update reads nothing back to the host.
 
-Leaves are visited in sorted key order, the reference's pytree order, so
-the global norm sums the leaves' squared norms in the same order.
+Leaves are visited in the reference's pytree order
+(`checkpoint/checkpointer.py::flatten_with_paths`: dicts by sorted key,
+lists and tuples by index), so the global norm sums the leaves' squared
+norms in the same order; a flat dict is visited in sorted key order.
 Within a leaf the reductions, ``cos`` and ``pow`` differ from XLA's by a
 few ulps, and XLA contracts the moment updates into fused multiply-adds,
 so the result agrees with the reference within a tolerance, not bit for
@@ -22,6 +24,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.checkpoint.checkpointer import leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,19 +43,19 @@ class AdamWConfig:
 
 class AdamWState(NamedTuple):
     step: torch.Tensor   # () int32, on the parameters' device
-    mu: dict             # first moments, float32, keyed as the params
-    nu: dict             # second moments
+    mu: object           # first moments, float32, a tree like the params
+    nu: object           # second moments
 
 
-def init_state(params: dict) -> AdamWState:
-    """Zero moments and step 0 for ``params`` (a dict of tensors)."""
-    device = next(iter(params.values())).device
+def init_state(params) -> AdamWState:
+    """Zero moments and step 0 for ``params`` (a tree of tensors)."""
+    def zeros():
+        return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                        params)
     return AdamWState(
-        step=torch.zeros((), dtype=torch.int32, device=device),
-        mu={k: torch.zeros_like(p, dtype=torch.float32)
-            for k, p in params.items()},
-        nu={k: torch.zeros_like(p, dtype=torch.float32)
-            for k, p in params.items()})
+        step=torch.zeros((), dtype=torch.int32,
+                         device=leaves(params)[0].device),
+        mu=zeros(), nu=zeros())
 
 
 def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -64,16 +68,15 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squared norm, leaves in sorted key
-    order."""
-    return torch.sqrt(sum(torch.sum(torch.square(tree[k].float()))
-                          for k in sorted(tree)))
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squared norm, leaves in the
+    reference's pytree order."""
+    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
+                          for leaf in leaves(tree)))
 
 
 @torch.no_grad()
-def apply_updates(params: dict, grads: dict, state: AdamWState,
-                  cfg: AdamWConfig):
+def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig):
     """One AdamW step with global-norm clipping, in place on ``params`` and
     the moments.  Returns ``(params, state, stats)``."""
     gnorm = global_norm(grads)
@@ -82,9 +85,9 @@ def apply_updates(params: dict, grads: dict, state: AdamWState,
     lr = cosine_lr(cfg, step)
     b1c = 1 - cfg.b1 ** step.float()
     b2c = 1 - cfg.b2 ** step.float()
-    for k in sorted(params):
-        p, m, v = params[k], state.mu[k], state.nu[k]
-        g = grads[k].float() * scale
+    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.mu),
+                          leaves(state.nu), strict=True):
+        g = g.float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
         delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \

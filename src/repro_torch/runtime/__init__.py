@@ -1,2 +1,3 @@
-"""Training runtime: the producer/consumer pipelined loop."""
+"""Training runtime: the generic loop and the producer/consumer pipelined
+loop."""
 from repro_torch.runtime import train_loop

@@ -1,19 +1,30 @@
-"""The producer/consumer training loop of the walks→embeddings pipeline.
+"""Fault-tolerant training runtime: the generic loop (:func:`run`) of the
+model zoo's launcher and the producer/consumer loop (:func:`run_pipelined`)
+of the walks→embeddings pipeline.
 
-* checkpoint every N steps (atomic commits) and at the end;
+* checkpoint every N steps (atomic commits), at the end, and on SIGTERM
+  (preemption-safe: the loop stops after the step in flight);
 * resume from the latest checkpoint: the data pipeline's state is the
-  step counter and the corpus ring, so a restart is bit-identical;
+  step counter (and the corpus ring), so a restart is bit-identical;
 * straggler watchdog: EWMA of step wall time; steps slower than
-  ``factor × EWMA`` are counted.
+  ``factor × EWMA`` are logged and counted;
+* a history record every ``log_every`` steps (and at every straggler),
+  also written as JSON lines to ``metrics_path``.
 
 Waiting for the device (``block_until_ready`` in the reference) is a
-synchronize of the state's device, a no-op on the CPU.  The generic
-``run`` / ``resume_or_init`` loop of the reference's language-model
-launchers is not ported yet.
+synchronize of the state's device, a no-op on the CPU.  Checkpoints are
+written synchronously: the reference's ``async_checkpoint`` writes on a
+thread, but the port's AdamW updates the state in place, so a thread
+would read tensors the next step is changing.  The knob is kept and
+ignored.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import signal
+import tempfile
 import time
 from typing import Any, Callable, Optional
 
@@ -47,6 +58,72 @@ def block_until_ready(tree) -> None:
             if leaf.device.type == "cuda":
                 torch.cuda.synchronize(leaf.device)
             return
+
+
+@dataclasses.dataclass
+class TrainLoopConfig:
+    total_steps: int = 100
+    ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+    ckpt_every: int = 50
+    log_every: int = 10
+    straggler_factor: float = 3.0
+    async_checkpoint: bool = True   # accepted; saves block (module doc)
+    metrics_path: Optional[str] = None
+
+
+def run(step_fn: Callable, state: Any, batch_fn: Callable,
+        cfg: TrainLoopConfig, start_step: int = 0):
+    """Generic loop: ``state, aux = step_fn(state, batch)``; ``state`` is
+    a tree (params, opt_state, ...) and ``batch_fn(step)`` gives the
+    step's device batch.  Returns ``(state, step, history, watchdog)``."""
+    os.makedirs(cfg.ckpt_dir, exist_ok=True)
+    stop = {"flag": False}
+
+    def _on_sigterm(signum, frame):
+        stop["flag"] = True
+
+    old = signal.signal(signal.SIGTERM, _on_sigterm)
+    watchdog = StragglerWatchdog(cfg.straggler_factor)
+    metrics_f = open(cfg.metrics_path, "a") if cfg.metrics_path else None
+    step = start_step
+    history = []
+    try:
+        while step < cfg.total_steps and not stop["flag"]:
+            t0 = time.perf_counter()
+            batch = batch_fn(step)
+            state, aux = step_fn(state, batch)
+            block_until_ready(state)
+            dt = time.perf_counter() - t0
+            straggler = watchdog.observe(dt)
+            step += 1
+            if step % cfg.log_every == 0 or straggler:
+                rec = {"step": step, "dt_s": dt,
+                       "straggler": straggler,
+                       **{k: float(v) for k, v in (aux or {}).items()}}
+                history.append(rec)
+                if metrics_f:
+                    metrics_f.write(json.dumps(rec) + "\n")
+                    metrics_f.flush()
+            if step % cfg.ckpt_every == 0:
+                checkpointer.save(cfg.ckpt_dir, step, state)
+    finally:
+        # Preemption / completion checkpoint.
+        checkpointer.save(cfg.ckpt_dir, step, state)
+        if metrics_f:
+            metrics_f.close()
+        signal.signal(signal.SIGTERM, old)
+    return state, step, history, watchdog
+
+
+def resume_or_init(ckpt_dir: str, init_state: Any, shardings=None):
+    """Restart: load the latest checkpoint into ``init_state``'s structure
+    (each leaf on its device and dtype) or return the fresh state, with
+    the step to start from.  ``shardings`` is accepted for the reference's
+    signature and ignored: one card holds every leaf whole."""
+    last = checkpointer.latest_step(ckpt_dir)
+    if last is None:
+        return init_state, 0
+    return checkpointer.restore(ckpt_dir, last, init_state), last
 
 
 @dataclasses.dataclass

@@ -7,6 +7,7 @@ Integer and key outputs are compared exactly; the one float formula
 (``peak_random_access_bandwidth``) is the same expression in float64 in
 both packages, so it is compared exactly too.
 """
+import ast
 import importlib
 import inspect
 import warnings
@@ -91,7 +92,65 @@ def _kind(x) -> str:
             else "callable" if callable(x) else type(x).__name__)
 
 
-@pytest.mark.parametrize("module,name", NAMES)
+# The graph-learning zoo (models, configs, data, sampler, loop, launcher):
+# every public name the reference defines in these modules, found by
+# reading the reference, less the language-model slice's names (ROADMAP
+# item 11b) and ``shard_batch``, a JAX sharding, which the port's
+# ``data.pipeline.to_device`` replaces.
+ZOO_MODULES = (
+    "models.layers", "models.gnn", "models.gnn.common", "models.gnn.schnet",
+    "models.gnn.pna", "models.gnn.meshgraphnet", "models.gnn.mace",
+    "models.recsys", "models.recsys.embedding", "models.recsys.dcn",
+    "configs", "configs.base", "configs.schnet", "configs.pna",
+    "configs.meshgraphnet", "configs.mace", "configs.dcn_v2",
+    "configs.ridgewalker", "data", "data.pipeline", "graph.datasets",
+    "graph.sampling_service", "runtime.train_loop", "launch.train",
+    "optim.adamw",
+)
+DEFERRED = {
+    ("models.layers", n) for n in ("rope_freqs", "apply_rope",
+                                   "attention_init", "attention",
+                                   "ffn_init", "ffn")
+} | {("launch.train", "make_lm_step"), ("data.pipeline", "shard_batch")}
+
+
+def _public_names(module: str):
+    """The names ``repro.<module>`` defines: its functions and classes,
+    its constants and the submodules its own source imports (not what it
+    imports from elsewhere, nor submodules that other imports attached to
+    a package: the list must not depend on what was imported before)."""
+    ref = importlib.import_module(f"repro.{module}")
+    own = {alias.name for node in ast.walk(ast.parse(inspect.getsource(ref)))
+           if isinstance(node, ast.ImportFrom)
+           and node.module == f"repro.{module}" for alias in node.names}
+    out = []
+    for name, obj in vars(ref).items():
+        if name.startswith("_") or name == "annotations":
+            continue
+        if inspect.ismodule(obj):
+            if name in own:
+                out.append(name)
+        elif inspect.isfunction(obj) or inspect.isclass(obj):
+            if obj.__module__ == ref.__name__:
+                out.append(name)
+        elif type(obj).__module__ != "typing":
+            out.append(name)
+    return [(module, n) for n in sorted(out) if (module, n) not in DEFERRED]
+
+
+ZOO_NAMES = [item for m in ZOO_MODULES for item in _public_names(m)]
+
+
+def test_zoo_names_cover_the_deferred_list():
+    """Every deferred name exists in the reference (the list is not
+    stale), and the port's replacement for ``shard_batch`` exists."""
+    for module, name in DEFERRED:
+        assert hasattr(importlib.import_module(f"repro.{module}"), name)
+    from repro_torch.data import pipeline
+    assert callable(pipeline.to_device)
+
+
+@pytest.mark.parametrize("module,name", NAMES + ZOO_NAMES)
 def test_name_imports_from_both_packages(module, name):
     ref = getattr(importlib.import_module(f"repro.{module}"), name)
     port = getattr(importlib.import_module(f"repro_torch.{module}"), name)
