@@ -26,7 +26,7 @@ its seconds.
    per call) and cold (each call after 256 MiB of writes, median of
    30).  The
    fused superstep kernel for URW, PPR, DeepWalk, MetaPath and Node2Vec
-   (rejection and reservoir): one launch of k = 16 (k = 4 for the
+   (rejection and reservoir): one launch of k = 16 (k = 2 for the
    reservoir, whose plain launch is slow) through the kernel and through
    its plain version, on copies of one state, must leave every state
    tensor equal.  The states: the main path's batch one superstep in
@@ -69,7 +69,7 @@ its seconds.
    cuda, torch; MetaPath (0, 1, 2) on the typed WG stand-in (scale 20,
    3 edge types) and Node2Vec (p = 2, q = 0.5, K = 12) under torch, fused,
    fused, torch; weighted Node2Vec (CH = 64) under fused, fused, and
-   torch on the first 1,024 starts at 16 hops; 65,536 starts, 4,096
+   torch on the first 1,024 starts at 8 hops; 65,536 starts, 4,096
    slots, 80 hops, 16 supersteps per fused launch.  Every run zeroes the
    kernels' launch counts before it and reads them after: the impls must
    agree bit for bit in paths, lengths and the 11 stats other than
@@ -157,16 +157,17 @@ its seconds.
 8. The sharded backend (:func:`run_sharded`, ``compile(program,
    backend="sharded")``: N shards stacked on the card, the plain torch
    superstep) on the main path's graphs at W = 4,096: every program's
-   closed batch (65,536 starts, 80 hops) at 4 shards of 1,024 lanes, and
+   closed batch (the first 16,384 of the 65,536 starts, 80 hops) at 4
+   shards of 1,024 lanes, and
    URW also at the paper's 16 pipelines of 256, each equal in paths and
    lengths to the single backend's fused run of the same batch, with no
    drop, every hop an edge and no kernel launched by the sharded run;
    weighted Node2Vec cut in depth to phase 3's torch cut (1,024 starts,
-   16 hops; the cut is printed); a sharded URW stream (capacity 8,192, 3
+   8 hops; the cut is printed); a sharded URW stream (capacity 8,192, 3
    x capacity arrivals) and a sharded service point (rho 0.9, 256
    requests of 64 walks), each (epoch, qid) equal to its closed batch;
-   ``train_embeddings`` (DeepWalk at phase 4's width, 2 rounds of 8
-   steps) equal to the single backend's in ring, tables and moments; and
+   ``train_embeddings`` (DeepWalk at phase 4's width, 2 rounds of 16,384
+   walks and 8 steps) equal to the single backend's in ring, tables and moments; and
    ``torch.profiler`` over one sharded drain (the device's busy share).
    Each run prints walks/s and MSteps/s beside the single backend's
    (phase 3's torch and fused), supersteps, route waits and the bubble
@@ -212,7 +213,35 @@ its seconds.
     6 steps, then PNA resumed to 8.  The launch counts are zeroed before
     each run and read after it; the comparisons' launches do not count.
     A mismatch in any cell raises at the end of the phase.
-11. Print the kernels' JSON summary (five rows), the card line, and last
+11. The language-model serving slice (:func:`run_lm`,
+    ``repro_torch.models.transformer``, ``launch.serve``) at full width in
+    float32 (the reference's serving dtype), under
+    ``torch.use_deterministic_algorithms``.  First both kernels at the
+    LM path's shapes (the token embedding's tables; the MoE's dispatch
+    gather, combine gather and sum at decode and at a 128-token prefill),
+    bit-equal to their plain versions.  (a) granite_moe and
+    deepseek_7b FULL cut to 2 layers, the same weights (drawn on the CPU)
+    on the card and the CPU: prefill logits and caches and 4 decode
+    steps' logits within a relative norm error of 1e-4, greedy tokens
+    equal wherever the CPU's top-2 margin exceeds 1e-3.  (b) granite_moe
+    FULL (32 layers, drawn on the card): ``continuous_batching_loop`` with
+    16 requests of 128-token prompts, 8 slots, 32 new tokens, twice,
+    tokens and ``ServeStats`` bit-identical; prefill ms a request, decode
+    ms a step and tokens/s beside their bounds, bubble ratio, peak memory,
+    both kernels' launches; a ``torch.profiler`` trace of 3 decode steps.
+    (c) two requests of 4,096-token prompts served (the chunked prefill
+    at 1,024 blocks), then a decode step after a prefill of 4,096 tokens
+    against the forward of 4,097 (plain attention) at a capacity that
+    drops no token.  (d) one prefill of ``prefill_32k``'s 32,768 tokens at
+    1,024 and at 2,048 blocks, equal within tolerance, each timed.  (e)
+    deepseek_7b FULL (30 layers, 27.6 GB): (b)'s serve once and (c)'s
+    check at 128 tokens.  (f) ``python -m repro_torch.launch.serve --arch
+    deepseek_7b`` on the card.  (g) a line saying why phi35_moe FULL is
+    not run (167.5 GB at float32).  The launch counts are zeroed before
+    each serve run and 32k prefill and read after it; the comparisons'
+    launches do not count.  A mismatch in any step raises at the end of
+    the phase.
+12. Print the kernels' JSON summary (five rows), the card line, and last
     the result line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or when the
@@ -243,7 +272,8 @@ HOPS_PER_LAUNCH = 16
 METAPATH = (0, 1, 2)
 N2V = ("node2vec", "node2vec_w")  # the Node2Vec programs (p = 2, q = 0.5)
 N2V_TORCH_STARTS = 1_024         # node2vec_w's torch run: starts and slots,
-N2V_TORCH_HOPS = 16              # and hops (its plain scan is slow)
+N2V_TORCH_HOPS = 8               # and hops (its plain scan is slow; 16
+                                 # hops took 67.7 s on an H100)
 # The walk-step kernels' widths: the main path's W first, then ragged ones
 # (one lane; either side of a warp; not a multiple of a block; 3 x 4,096).
 KERNEL_WIDTHS = (4_096, 1, 31, 33, 1_000, 12_288)
@@ -253,10 +283,11 @@ GRAPH_CALLS = 10                 # calls captured per graph (600 timed)
 FUSED_TIMED_REPS = 30            # fused launches timed per version
 N2V_KERNEL_REPS = 10             # ... of the Node2Vec kinds (the plain
                                  # version's time is its one checked launch)
-# Phase 2's supersteps per launch: 16, but 4 for node2vec_w, whose plain
-# launch of 16 from the main-path state took 60 s on an H100 (its plain
-# superstep scans every chunk of the live lanes' largest degree).
-PHASE2_K = {"node2vec_w": 4}
+# Phase 2's supersteps per launch: 16, but 2 for node2vec_w, whose plain
+# launch from the main-path state took 60 s on an H100 at k = 16 and 17 s
+# at k = 4, twice a state (its plain superstep scans every chunk of the
+# live lanes' largest degree).
+PHASE2_K = {"node2vec_w": 2}
 PROFILE_SUPERSTEPS = 8           # per-hop impls: supersteps profiled
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 CUDA_CORE_OPS_PER_S = 67e12      # H100 SXM float32 outside tensor cores
@@ -273,7 +304,7 @@ RUN_ORDER = {"urw": ("torch", "cuda", "fused", "fused", "cuda", "torch"),
              "deepwalk": ("torch", "cuda", "fused", "fused", "cuda", "torch"),
              "metapath": ("torch", "fused", "fused", "torch"),
              "node2vec": ("torch", "fused", "fused", "torch"),
-             # plus a torch run of 1,024 starts at 16 hops (run_main_path)
+             # plus a torch run of 1,024 starts at 8 hops (run_main_path)
              "node2vec_w": ("fused", "fused")}
 
 KERNELS = {
@@ -1334,9 +1365,9 @@ def run_cached_main_path(graphs, starts_np) -> int:
 
 def run_n2vw_torch(g, starts, fused):
     """node2vec_w's torch run, cut to the first 1,024 starts at 1,024 slots
-    and 16 hops (its plain scan repeats the chunk loop's tensor ops for
+    and 8 hops (its plain scan repeats the chunk loop's tensor ops for
     every chunk of the live lanes' largest degree): paths and lengths
-    equal the full fused run's first 1,024 rows cut to 17 columns, since a
+    equal the full fused run's first 1,024 rows cut to 9 columns, since a
     walk is a function of (seed, query id, hop) alone."""
     import torch
 
@@ -1362,7 +1393,7 @@ def run_n2vw_torch(g, starts, fused):
     if not (torch.equal(res.paths, fused.paths[:N2V_TORCH_STARTS, :cols])
             and torch.equal(res.lengths, torch.clamp(
                 fused.lengths[:N2V_TORCH_STARTS], max=cols))):
-        raise AssertionError("node2vec_w: torch (1,024 starts, 16 hops) "
+        raise AssertionError("node2vec_w: torch (1,024 starts, 8 hops) "
                              "differs from the fused run's first rows")
     a = analyze_run(res.stats, wall)
     RATES["node2vec_w", "torch"] = N2V_TORCH_STARTS / wall   # phase 8's cut
@@ -3016,13 +3047,17 @@ SHARD_WIDE_PROGRAMS = ("urw",)
 SHARD_LOG = NUM_STARTS * MAX_HOPS
 # Weighted Node2Vec's chunk ping-pong takes up to 2 x 290 + 1 supersteps a
 # hop at the hubs, each a plain superstep over every shard's pool: its
-# sharded run is cut in depth to phase 3's torch cut (1,024 starts, 16
-# hops); its width stays 4 x 1,024.
+# sharded run is cut in depth to phase 3's torch cut (1,024 starts, 8
+# hops); its width stays 4 x 1,024.  The other programs' sharded batches
+# are cut in depth to their first SHARD_STARTS starts (the whole script
+# ran 1,250.7 s of its 1,200 s limit on an H100 with all 65,536).
 SHARD_CUT = {"node2vec_w": (N2V_TORCH_STARTS, N2V_TORCH_HOPS)}
 SHARD_STREAM_CAPACITY = 8_192    # URW, fed 3 x capacity arrivals
 SHARD_SERVE_CAPACITY = 8_192
 SHARD_SERVE_REQUESTS = 256       # 64-walk Poisson requests at rho 0.9
-SHARD_EMB = {**EMB, "rounds": 2, "steps_per_round": 8}
+SHARD_EMB = {**EMB, "rounds": 2, "walks_per_round": 16_384,
+             "steps_per_round": 8}
+SHARD_STARTS = 16_384            # the closed batches' depth cut
 SHARD_PROFILE_STARTS = NUM_SLOTS  # the profiled drain: one pool's worth
 RATES = {}   # (program, impl) -> walks/s of phase 3's last run of it
 
@@ -3092,10 +3127,14 @@ def sharded_closed(name, prog, g, starts, n_shards, card, add) -> None:
                 max_hops=prog.max_hops)
     a = analyze_run(res.stats, wall)
     n = int(starts.shape[0])
-    # Phase 3's runs of a cut program: its torch run has the same cut.
+    # Phase 3's runs: node2vec_w's torch run has its cut; the others ran
+    # all NUM_STARTS starts.
     impls = ("torch",) if name in SHARD_CUT else ("torch", "fused")
-    phase3 = " ".join(f"phase 3 {impl} {RATES[name, impl]:.1f}"
-                      for impl in impls if (name, impl) in RATES)
+    phase3 = " ".join(
+        f"phase 3 {impl} {RATES[name, impl]:.1f}" for impl in impls
+        if (name, impl) in RATES)
+    if phase3 and name not in SHARD_CUT:
+        phase3 += f" (at {NUM_STARTS} starts)"
     print(f"{label} starts={n} hops={prog.max_hops}: walks/s={n / wall:.1f} "
           f"MSteps/s={a.msteps_per_s:.6f} supersteps={a.supersteps} "
           f"steps={a.steps} route_waits={a.route_waits} drops={a.drops} "
@@ -3162,7 +3201,7 @@ def sharded_service(g, card, add) -> None:
 
 def sharded_embeddings(g, card, add) -> None:
     """``train_embeddings`` at phase 4's width (DeepWalk, dim 128, batch
-    4,096, 65,536 walks a round; 2 rounds of 8 steps) on the sharded
+    4,096, 16,384 walks a round; 2 rounds of 8 steps) on the sharded
     backend (its producer a sharded stream) and on the single backend
     (fused): rings, tables and moments equal; the sharded run launches
     3 embedding-bag and 3 segment-sum kernels a step and nothing else."""
@@ -3258,13 +3297,11 @@ def run_sharded(graphs, starts_np) -> dict:
             totals[k] += n
     for name, prog in programs().items():
         g = graphs[name]
-        starts = torch.from_numpy(starts_np).to(g.device)
-        if name in SHARD_CUT:
-            n, hops = SHARD_CUT[name]
-            prog = dataclasses.replace(prog, max_hops=hops)
-            starts = starts[:n]
-            print(f"sharded {name}: cut in depth to {n} starts and {hops} "
-                  f"hops (width {SHARD_N} x {NUM_SLOTS // SHARD_N} kept)")
+        n, hops = SHARD_CUT.get(name, (SHARD_STARTS, prog.max_hops))
+        prog = dataclasses.replace(prog, max_hops=hops)
+        starts = torch.from_numpy(starts_np[:n]).to(g.device)
+        print(f"sharded {name}: cut in depth to {n} starts and {hops} "
+              f"hops (width {SHARD_N} x {NUM_SLOTS // SHARD_N} kept)")
         t = time.perf_counter()
         sharded_closed(name, prog, g, starts, SHARD_N, card, add)
         if name in SHARD_WIDE_PROGRAMS:
@@ -3960,6 +3997,524 @@ def run_zoo(g) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------- phase 11
+#
+# The language-model serving slice (``repro_torch.models.transformer`` and
+# ``launch.serve``) at full width in float32, the reference's serving
+# dtype (its loop's cache is float32, and bfloat16 parameters over it make
+# its layer scan refuse the promoted carry).  The token embedding gathers
+# on the embedding-bag kernel; the MoE's dispatch gathers on it and its
+# combine sums on the segment-sum kernel.
+
+LM_DEPTH = 2                     # (a): layers kept for card vs CPU
+LM_CHECK_TOKENS = 16             # (a): prompt length of its 2 sequences
+LM_CHECK_STEPS = 4               # (a): decode steps compared
+LM_SERVE = {"requests": 16, "prompt": 128, "slots": 8, "max_new": 32}
+LM_LONG = 4_096                  # (c): the two long prompts
+LM_LONG_NEW = 4                  # (c): tokens served after them
+LM_SHORT = 128                   # (e): decode vs forward at this length
+LM_BLOCKS = (1_024, 2_048)       # (d): the config's blocks, then twice
+LM_PREFILL_32K = 32_768          # (d): prefill_32k's sequence length
+LM_PROFILED = 3                  # decode steps traced
+# Path against path (card vs CPU, decode vs forward, 1,024 vs 2,048
+# blocks): the relative norm error ||a - b|| / ||b|| of the logits (and
+# of the caches in (a)) within the CPU tests' rtol, 1e-4: the same
+# float32 function with its sums in other orders (cuBLAS, CPU BLAS, the
+# online softmax's blocks).  Greedy tokens must be equal wherever the
+# CPU's top-2 margin exceeds LM_MARGIN (logits are of order 1; the
+# largest elementwise error is printed beside).
+LM_NORM = 1e-4
+LM_MARGIN = 1e-3
+
+
+def lm_config(arch, **kw):
+    import torch
+
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch).FULL, dtype=torch.float32,
+                               **kw)
+
+
+def lm_no_drop(cfg):
+    """``cfg`` with a capacity at which no token is dropped (``E / K``, so
+    C >= T): a decode step (T = 2 tokens) and a forward over the whole
+    sequence then route every token alike, where at the config's 1.25
+    they drop different ones by design."""
+    if not cfg.moe:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def lm_compare(label, got, want, failures, tol=LM_NORM) -> str:
+    """The relative norm error of ``got`` (any device) against ``want``,
+    as text; a miss is appended to ``failures``."""
+    e = norm_error(got.float(), want.float())
+    m = float((got.float() - want.float().to(got.device)).abs().max())
+    if not e <= tol:
+        failures.append(f"{label}: norm error {e:.3g} > {tol:g}")
+    return f"{label} {e:.3g} (max |diff| {m:.3g})"
+
+
+def lm_widths() -> None:
+    """Both kernels at every shape the phase's counted runs give them,
+    bit-equal to their plain versions on CPU copies: the token embedding
+    (granite_moe's 49,155 x 1,536 table at 2 and 8 decode tokens, a
+    128-token prompt, a 4,096-token prompt, (c)'s two 4,096-token
+    sequences and (d)'s 32,768 tokens; deepseek_7b's 102,400 x 4,096 at
+    2, 8 and 128), and
+    granite_moe's MoE at the same token counts: the dispatch gather of
+    token rows, the combine's gather of expert rows (E·C of them, 327,680
+    at 32,768 tokens and at (c)'s no-drop capacity) and its sum of each
+    token's K rows, in expert order."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.kernels.segment_sum import segment_sum
+    from repro_torch.kernels.segment_sum.ref import segment_sum_ref
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cpu_gen = torch.Generator().manual_seed(13)
+    shapes = []
+    t0 = time.perf_counter()
+
+    def gather(table, n):
+        ids = torch.randint(0, table.shape[0], (n, 1), generator=cpu_gen,
+                            dtype=torch.int32)
+        got = embedding_bag(ids.cuda(), table).cpu()
+        if not torch.equal(got, embedding_bag_ref(ids, table.cpu())):
+            raise AssertionError(f"lm widths: embedding_bag over "
+                                 f"{tuple(table.shape)}, {n} rows, differs "
+                                 f"from its plain version")
+        shapes.append(f"bag {n} of {tuple(table.shape)}")
+        return got
+    short = (2, LM_SERVE["slots"], LM_SERVE["prompt"])
+    long = (LM_LONG, 2 * LM_LONG, LM_PREFILL_32K)
+    for arch, counts in (("granite_moe", short + long),
+                         ("deepseek_7b", short)):
+        cfg = lm_config(arch)
+        table = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                            device="cuda")
+        for n in counts:
+            gather(table, n)
+        del table
+    cfg = lm_config("granite_moe")
+    moe, d = cfg.moe, cfg.d_model
+    cells = [(T, moe.capacity_factor) for T in short + long]
+    cells.append((2 * LM_LONG, lm_no_drop(cfg).moe.capacity_factor))
+    for T, cf in cells:
+        C = max(1, int(np.ceil(cf * moe.top_k * T / moe.num_experts)))
+        gather(torch.randn((T, d), generator=gen, device="cuda"),
+               T * moe.top_k)
+        rows = gather(torch.randn((moe.num_experts * C, d), generator=gen,
+                                  device="cuda"), T * moe.top_k)
+        tok = torch.arange(T, dtype=torch.int32).repeat_interleave(
+            moe.top_k)[torch.randperm(T * moe.top_k, generator=cpu_gen)]
+        got = segment_sum(rows.cuda(), tok.cuda(), T).cpu()
+        if not torch.equal(got, segment_sum_ref(rows, tok, T)):
+            raise AssertionError(f"lm widths: segment_sum of {T} tokens' "
+                                 f"{moe.top_k} rows differs from its plain "
+                                 f"version")
+        shapes.append(f"sum {T * moe.top_k} rows into {T}")
+        del rows, got
+    print(f"lm widths: {'; '.join(shapes)}: bit-equal to the plain versions "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def lm_card_vs_cpu(arch, failures) -> None:
+    """(a) ``arch`` FULL at float32, depth cut to LM_DEPTH: the same
+    weights (drawn on the CPU) on both devices; prefill logits and caches,
+    then LM_CHECK_STEPS decode steps fed the CPU's greedy tokens."""
+    import torch
+
+    from repro_torch.core.rng import seeded_generator
+    from repro_torch.models import transformer as tfm
+    cfg = lm_config(arch, n_layers=LM_DEPTH)
+    t0 = time.perf_counter()
+    p_cpu = tfm.init_params(seeded_generator(0), cfg, device="cpu")
+    init_s = time.perf_counter() - t0
+    p_card = tree_map(lambda x: x.cuda(), p_cpu)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, LM_CHECK_TOKENS)), dtype=torch.int32)
+    cap = LM_CHECK_TOKENS + LM_CHECK_STEPS + 1
+    runs, fed = {}, []
+    for dev, p in (("cpu", p_cpu), ("cuda", p_card)):
+        logits, kv = tfm.prefill(p, toks.to(dev), cfg)
+        cache = tfm.make_kv_cache(cfg, 2, cap, torch.float32, device=dev)
+        cache[:, :, :, :LM_CHECK_TOKENS] = kv
+        out = [logits[:, -1].cpu()]
+        for s in range(LM_CHECK_STEPS):
+            if dev == "cpu":
+                fed.append(torch.argmax(out[-1], dim=-1).to(torch.int32))
+            logits, cache = tfm.decode_step(p, fed[s][:, None].to(dev), cache,
+                                            LM_CHECK_TOKENS + s, cfg)
+            out.append(logits[:, 0].cpu())
+        runs[dev] = (out, kv.cpu(), cache.cpu())
+    (oc, kc, cc), (oh, kh, ch) = runs["cuda"], runs["cpu"]
+    texts = [lm_compare(f"lm (a) {arch} prefill logits", oc[0], oh[0],
+                        failures),
+             lm_compare("prefill caches", kc, kh, failures),
+             lm_compare(f"{LM_CHECK_STEPS} decode steps' logits",
+                        torch.stack(oc[1:]), torch.stack(oh[1:]), failures),
+             lm_compare("final cache", cc, ch, failures)]
+    decided = flips = 0
+    for a, b in zip(oc, oh):
+        top = torch.topk(b, 2, dim=-1).values
+        sure = (top[:, 0] - top[:, 1]) > LM_MARGIN
+        decided += int(sure.sum())
+        flips += int((sure & (a.argmax(-1) != b.argmax(-1))).sum())
+    if flips:
+        failures.append(f"lm (a) {arch}: {flips} greedy tokens differ where "
+                        f"the CPU's top-2 margin exceeds {LM_MARGIN}")
+    print(f"{'; '.join(texts)}; greedy tokens equal at {decided - flips} of "
+          f"{decided} positions whose CPU top-2 margin exceeds {LM_MARGIN} "
+          f"(of {2 * (LM_CHECK_STEPS + 1)}); {cfg.n_layers} of "
+          f"{lm_config(arch).n_layers} layers, full width, weights drawn on "
+          f"the CPU in {init_s:.1f} s")
+
+
+def lm_weight_bytes(params) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(params))
+
+
+def lm_prefill_ops(cfg, S: int) -> int:
+    """Multiply-adds x 2 a prefill of S tokens needs: projections, the
+    causal half of the scores and values, the router and the top_k
+    experts of each token (or the dense FFN), and the last token's head."""
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    attn = 2 * S * d * (2 * hq + 2 * hkv) * dh + 4 * hq * dh * S * (S + 1) // 2
+    if cfg.moe:
+        ff = 2 * S * d * cfg.moe.num_experts \
+            + 6 * S * cfg.moe.top_k * d * cfg.moe.d_ff
+    else:
+        ff = 6 * S * d * cfg.d_ff
+    return cfg.n_layers * (attn + ff) + 2 * d * cfg.vocab
+
+
+def lm_timed(fn, times):
+    """``fn`` timed between two synchronisations into ``times``."""
+    import torch
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    return timed
+
+
+def lm_serve_run(params, cfg, reqs, slots, max_new, cache_cap) -> dict:
+    """One ``continuous_batching_loop`` on the card with the counts zeroed
+    just before it and read just after; ``tfm.prefill`` and
+    ``decode_step`` are timed (synchronised) around the loop's calls."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    pre, dec = [], []
+    real = (tfm.prefill, tfm.decode_step)
+    tfm.prefill, tfm.decode_step = lm_timed(real[0], pre), \
+        lm_timed(real[1], dec)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        results, stats = serve.continuous_batching_loop(
+            params, cfg, reqs, slots, max_new, cache_cap)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = zoo_counts()
+    finally:
+        tfm.prefill, tfm.decode_step = real
+    return {"results": results, "stats": stats, "wall": wall,
+            "prefill": pre, "decode": dec, "counts": counts,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def lm_serve_line(label, params, cfg, run, slots, cache_cap, prompt) -> str:
+    """The serve run's numbers, each time beside its bound (decode: the
+    weights, but for the unused embedding rows, and the cache read once
+    at 3.35 TB/s; prefill: the larger of the same weights and the prompt's
+    cache written, and its operations at float32's 67 TFLOP/s)."""
+    st = run["stats"]
+    per_token = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.d_head * 4
+    cache = per_token * slots * cache_cap
+    weights = lm_weight_bytes(params) - params["embed"].numel() * 4
+    bound = (weights + slots * cfg.d_model * 4 + cache) \
+        / HBM_BYTES_PER_S * 1e3
+    dec_ms = float(np.median(run["decode"])) * 1e3
+    pre_ms = float(np.median(run["prefill"])) * 1e3
+    pre_bytes = (weights + prompt * (cfg.d_model * 4 + per_token)) \
+        / HBM_BYTES_PER_S * 1e3
+    pre_ops = lm_prefill_ops(cfg, prompt) / CUDA_CORE_OPS_PER_S * 1e3
+    pre_bound, pre_by = max((pre_bytes, "bytes"), (pre_ops, "operations"))
+    tok_s = st.busy_steps / sum(run["decode"])
+    return (f"lm {label}: {len(run['results'])} requests of {prompt} tokens "
+            f"over {slots} slots in {run['wall']:.3f} s; prefill "
+            f"{pre_ms:.4f} ms a request (median of {len(run['prefill'])}; "
+            f"bound {pre_bound:.4f} ms by {pre_by}); decode "
+            f"{dec_ms:.4f} ms a step (median of {st.decode_steps}; bound "
+            f"{bound:.4f} ms by bytes: {weights / 1e9:.3f} GB of weights + "
+            f"{cache / 1e9:.3f} GB of cache), {tok_s:.1f} tokens/s "
+            f"(bound {slots / bound * 1e3:.1f} with every lane busy); bubble "
+            f"ratio {st.bubble_ratio:.4f}; peak memory "
+            f"{run['peak'] / 2**30:.3f} GiB; launches embedding_bag "
+            f"{run['counts']['embedding_bag']} segment_sum "
+            f"{run['counts']['segment_sum']}")
+
+
+def lm_requests(cfg, n, length, seed):
+    import torch
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.integers(0, cfg.vocab, length),
+                            dtype=torch.int32, device="cuda")
+            for _ in range(n)]
+
+
+def lm_profile(label, params, cfg, slots, cache_cap, pos, step_ms) -> None:
+    """``torch.profiler`` over LM_PROFILED decode steps (after one
+    untraced): device busy time and launches a step, the top kernels; the
+    busy share of ``step_ms``, the serve run's untraced median step (the
+    profiler slows the host several times over)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as tfm
+    cache = tfm.make_kv_cache(cfg, slots, cache_cap, torch.float32,
+                              device="cuda")
+    tok = torch.zeros((slots, 1), dtype=torch.int32, device="cuda")
+    tfm.decode_step(params, tok, cache, pos, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(LM_PROFILED):
+            logits, cache = tfm.decode_step(params, tok, cache, pos, cfg)
+            tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / LM_PROFILED
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3 / LM_PROFILED
+    top = "; ".join(f"{k[:48]} {us / 1e3 / LM_PROFILED:.3f} ms "
+                    f"x{n / LM_PROFILED:g}" for us, n, k in rows[:6])
+    print(f"lm {label} decode profile: device busy {busy:.4f} ms a step, "
+          f"{busy / step_ms:.4f} of the untraced {step_ms:.4f} ms step "
+          f"({wall:.4f} ms traced), "
+          f"{sum(r[1] for r in rows) / LM_PROFILED:.0f} device launches a "
+          f"step; top: {top}")
+
+
+def lm_serve_cell(label, params, cfg, failures, runs) -> dict:
+    """(b)/(e): LM_SERVE's requests served ``runs`` times (all bit-
+    identical), the first run's numbers printed, a profile; returns the
+    first run's launches."""
+    s = LM_SERVE
+    reqs = lm_requests(cfg, s["requests"], s["prompt"], 2)
+    cap = s["prompt"] + s["max_new"] + 2
+    out = [lm_serve_run(params, cfg, reqs, s["slots"], s["max_new"], cap)
+           for _ in range(runs)]
+    print(lm_serve_line(label, params, cfg, out[0], s["slots"], cap,
+                        s["prompt"]))
+    st = out[0]["stats"]
+    kernels = ("embedding_bag", "segment_sum") if cfg.moe \
+        else ("embedding_bag",)
+    if st.completed != s["requests"] or \
+            min(out[0]["counts"][k] for k in kernels) <= 0:
+        failures.append(f"lm {label}: {st.completed} requests completed, "
+                        f"launches {out[0]['counts']}")
+    for r in out[1:]:
+        same = r["results"] == out[0]["results"] and \
+            dataclasses.asdict(r["stats"]) == dataclasses.asdict(st)
+        print(f"lm {label}: run 2 {r['wall']:.3f} s, tokens and ServeStats "
+              f"{'bit-identical' if same else 'DIFFER'} ({st})")
+        if not same:
+            failures.append(f"lm {label}: two serve runs differ")
+    lm_profile(label, params, cfg, s["slots"], cap, s["prompt"],
+               float(np.median(out[0]["decode"])) * 1e3)
+    return out[0]["counts"]
+
+
+def lm_decode_vs_forward(label, params, cfg, seq, failures) -> None:
+    """(c)/(e): a decode step after a prefill of ``seq`` tokens (2
+    sequences) against the full forward of the ``seq + 1`` tokens (the
+    plain path: ``seq + 1`` is no multiple of the blocks), and the
+    prefill's logits against the forward's at position ``seq - 1``; at a
+    capacity that drops no token (``lm_no_drop``)."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    cfg = lm_no_drop(cfg)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, seq + 1)), dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    logits_p, kv = tfm.prefill(params, toks[:, :seq], cfg)
+    cache = tfm.make_kv_cache(cfg, 2, seq + 2, torch.float32, device="cuda")
+    cache[:, :, :, :seq] = kv
+    del kv
+    logits_d, _ = tfm.decode_step(params, toks[:, seq:], cache, seq, cfg)
+    del cache
+    x, _ = tfm.forward(params, toks, dataclasses.replace(
+        cfg, chunk_threshold=seq + 2))
+    full = (x[:, -2:] @ params["lm_head"]).float()
+    del x
+    torch.cuda.synchronize()
+    path = "chunked" if seq >= cfg.chunk_threshold else "full"
+    dec = lm_compare(f"lm {label} decode at {seq} vs forward of {seq + 1}",
+                     logits_d[:, 0], full[:, 1], failures)
+    pre = lm_compare(f"{path} prefill of {seq} vs the forward",
+                     logits_p[:, 0], full[:, 0], failures)
+    print(f"{dec}; {pre} ({time.perf_counter() - t0:.1f} s)")
+
+
+def lm_long(params, cfg, failures) -> dict:
+    """(c) two requests of LM_LONG-token prompts served (the chunked
+    prefill), then the decode-vs-forward check at LM_LONG."""
+    reqs = lm_requests(cfg, 2, LM_LONG, 4)
+    cap = LM_LONG + LM_LONG_NEW + 2
+    run = lm_serve_run(params, cfg, reqs, 2, LM_LONG_NEW, cap)
+    print(lm_serve_line(f"granite_moe long ({LM_LONG}, chunked prefill at "
+                        f"{cfg.q_block} blocks)", params, cfg, run, 2, cap,
+                        LM_LONG))
+    lm_decode_vs_forward("granite_moe", params, cfg, LM_LONG, failures)
+    return run["counts"]
+
+
+def lm_prefill_32k(params, cfg, failures) -> dict:
+    """(d) one prefill at ``prefill_32k``'s sequence length at batch 1,
+    at the config's blocks and at twice them; returns the launches of
+    both."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+    S = get_arch("granite_moe").SHAPES["prefill_32k"].dims["seq_len"]
+    if S != LM_PREFILL_32K:   # lm_widths checked the kernels at this length
+        raise AssertionError(f"prefill_32k is {S} tokens, not "
+                             f"{LM_PREFILL_32K}")
+    toks = lm_requests(cfg, 1, S, 5)[0][None, :]
+    launched = {"embedding_bag": 0, "segment_sum": 0}
+    logits, texts = {}, []
+    bound = lm_prefill_ops(cfg, S) / CUDA_CORE_OPS_PER_S * 1e3
+    for blk in LM_BLOCKS:
+        c = dataclasses.replace(cfg, q_block=blk, kv_block=blk)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        out, kv = tfm.prefill(params, toks, c)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = zoo_counts()
+        for k in launched:
+            launched[k] += counts[k]
+        logits[blk] = out
+        texts.append(f"{blk} blocks {ms:.1f} ms (peak memory "
+                     f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+                     f"launches {counts})")
+        del kv
+    err = lm_compare(f"{LM_BLOCKS[0]} vs {LM_BLOCKS[1]} blocks' logits",
+                     logits[LM_BLOCKS[0]][0], logits[LM_BLOCKS[1]][0],
+                     failures)
+    print(f"lm granite_moe prefill_32k (batch 1, {S} tokens): "
+          f"{'; '.join(texts)}; bound {bound:.1f} ms by operations; {err}")
+    return launched
+
+
+def lm_cli() -> None:
+    """(f) ``python -m repro_torch.launch.serve --arch deepseek_7b`` (the
+    reference's defaults: SMOKE, 16 requests) on the card."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "deepseek_7b"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT,
+                       timeout=300)
+    if r.returncode != 0 or "completed=16" not in r.stdout \
+            or "device=cuda" not in r.stdout:
+        raise AssertionError(f"lm launcher: exit {r.returncode}\n{r.stdout}\n"
+                             f"{r.stderr}")
+    print(f"lm launcher {' '.join(cmd[1:])}: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{r.stdout.strip().splitlines()[0]}")
+
+
+def lm_draw(arch):
+    """``arch`` FULL at float32 drawn on the card from seed 0: its config
+    and parameters; prints the draw's time and peak memory (the weights
+    and one layer's draws)."""
+    import torch
+
+    from repro_torch.core.rng import seeded_generator
+    from repro_torch.models import transformer as tfm
+    cfg = lm_config(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tfm.init_params(seeded_generator(0, "cuda"), cfg)
+    torch.cuda.synchronize()
+    print(f"lm {arch} FULL: {cfg.param_count() / 1e9:.3f} B parameters, "
+          f"{lm_weight_bytes(params) / 1e9:.2f} GB at float32, drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s, peak memory of the "
+          f"draw {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB")
+    return cfg, params
+
+
+def run_lm() -> dict:
+    """Phase 11: the LM serving slice at full width; returns the kernels'
+    launches summed over the serve runs and the 32k prefills (the
+    comparisons' launches are not counted)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    if torch.get_float32_matmul_precision() != "highest" \
+            or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("lm: float32 matmuls must run at 'highest' "
+                             "precision (no TF32)")
+    launched = {"embedding_bag": 0, "segment_sum": 0}
+    failures = []
+
+    def add(counts):
+        for k in launched:
+            launched[k] += counts[k]
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.no_grad():
+            lm_widths()
+            for arch in ("granite_moe", "deepseek_7b"):
+                lm_card_vs_cpu(arch, failures)
+            cfg, params = lm_draw("granite_moe")
+            add(lm_serve_cell("granite_moe serve", params, cfg, failures, 2))
+            add(lm_long(params, cfg, failures))
+            add(lm_prefill_32k(params, cfg, failures))
+            del params
+            torch.cuda.empty_cache()
+            cfg, params = lm_draw("deepseek_7b")
+            add(lm_serve_cell("deepseek_7b serve", params, cfg, failures, 1))
+            lm_decode_vs_forward("deepseek_7b", params, cfg, LM_SHORT,
+                                 failures)
+            del params
+            torch.cuda.empty_cache()
+            for arch in ("minitron_8b", "stablelm_12b"):
+                lm_draw(arch)
+                torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    lm_cli()
+    phi = get_arch("phi35_moe").FULL
+    print(f"lm phi35_moe FULL: not run: {phi.param_count() / 1e9:.1f} B "
+          f"parameters are {phi.param_count() * 4 / 1e9:.1f} GB at float32 "
+          f"({phi.param_count() * 2 / 1e9:.1f} GB even in bfloat16), more "
+          f"than the card's {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB")
+    if failures:
+        raise AssertionError("lm: " + "; ".join(failures))
+    print(f"lm launches over the phase's runs: {launched} ({card_line()})")
+    return launched
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: run it from the root of a checkout "
@@ -4042,6 +4597,8 @@ def main() -> int:
     for name, n in phase("9 verifier", run_verifier, graphs, starts).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in phase("10 zoo", run_zoo, g).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in phase("11 LM serving", run_lm).items():
         launches[name] = launches.get(name, 0) + n
     for name, row in rows.items():
         row["launches"] = launches[name]

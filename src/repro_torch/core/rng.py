@@ -281,8 +281,9 @@ def task_bits(base_key, query_id: torch.Tensor, hop: torch.Tensor, num: int,
     return key_bits(k0, k1, num)
 
 
-def seeded_generator(seed: int) -> torch.Generator:
-    """A CPU ``torch.Generator`` seeded with ``seed``: the walk path's one
-    entry to torch's own RNG, for draws that need not match the
-    reference's bits (embedding initialisation)."""
-    return torch.Generator().manual_seed(int(seed))
+def seeded_generator(seed: int, device="cpu") -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` (default the CPU) seeded with
+    ``seed``: the walk path's one entry to torch's own RNG, for draws that
+    need not match the reference's bits (parameter initialisation; a CUDA
+    generator draws a full-width model on the card)."""
+    return torch.Generator(device=device).manual_seed(int(seed))

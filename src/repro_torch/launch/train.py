@@ -10,7 +10,8 @@ it cannot be turned off and the launcher always trains the reduced
 ``chip_smoke.py`` through the same step functions.  The loop runs through
 ``runtime/train_loop.py`` — checkpointing, straggler watchdog, resume.
 ``--device`` (default ``cuda``) picks the device; a language-model
-``--arch`` raises (ROADMAP item 11b).
+``--arch`` raises: its training step is the LM training slice (ROADMAP
+item 11b).
 """
 from __future__ import annotations
 
@@ -81,6 +82,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     mod = get_arch(args.arch)
+    if mod.FAMILY == "lm":
+        raise ValueError(f"--arch {args.arch}: the language-model training "
+                         "step (make_lm_step) is not ported yet (ROADMAP "
+                         "item 11b, the LM training slice); serving is "
+                         "repro_torch.launch.serve")
     if mod.FAMILY not in ("gnn", "recsys"):
         raise ValueError(f"--arch {args.arch}: family {mod.FAMILY!r} has no "
                          "training step")

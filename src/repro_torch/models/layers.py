@@ -14,8 +14,11 @@ Row gathers (``table[ids]``) go through :func:`gather_rows`: the forward
 on the embedding-bag kernel, the backward on the segment-sum kernel, so
 a training step on the card is a deterministic function of its inputs.
 
-RoPE, attention and the SwiGLU FFN of the reference's module come with
-the language-model slice (ROADMAP item 11b).
+The language-model half (RoPE, GQA attention with its three paths, the
+SwiGLU FFN) follows JAX's dtype promotion explicitly: ``torch.einsum`` and
+``@`` refuse a bfloat16 operand beside a float32 one, where ``jnp``
+promotes both to float32, so :func:`einsum` and :func:`matmul` promote
+first.
 """
 from __future__ import annotations
 
@@ -96,11 +99,20 @@ def rmsnorm(params, x, eps=1e-6, cast_scale=False):
 
 # ------------------------------------------------------------------ trees
 
+def _leaf_from_reference(a, device):
+    a = np.array(a)                       # a copy, writable
+    if a.dtype.name == "bfloat16":        # ml_dtypes' type: numpy has none,
+        # so its bits cross as uint16 and are read back as bfloat16
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.tensor(a, device=device)
+
+
 def tree_from_reference(tree, device=None):
     """The reference's nested tree (dicts, lists, tuples) of arrays (numpy,
     or anything ``np.asarray`` takes) as the same tree of tensors on
-    ``device``, copied, dtypes kept."""
-    return tree_map(lambda a: torch.tensor(np.array(a), device=device), tree)
+    ``device``, copied, dtypes kept (bfloat16 bit for bit)."""
+    return tree_map(lambda a: _leaf_from_reference(a, device), tree)
 
 
 def stack_trees(trees):
@@ -153,3 +165,144 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     flat = ids.reshape(-1).to(torch.int32).contiguous()
     rows = _KernelGather.apply(table.contiguous(), flat)
     return rows.reshape(*ids.shape, table.shape[1])
+
+
+# ------------------------------------------------------- dtype promotion
+
+def _promoted(*xs):
+    dtype = xs[0].dtype
+    for x in xs[1:]:
+        dtype = torch.promote_types(dtype, x.dtype)
+    return [x.to(dtype) for x in xs]
+
+
+def einsum(equation: str, *operands) -> torch.Tensor:
+    """``jnp.einsum``: the operands promoted to one dtype first."""
+    return torch.einsum(equation, *_promoted(*operands))
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with ``jnp``'s promotion."""
+    a, b = _promoted(a, b)
+    return a @ b
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.softmax``'s expression: ``exp(x - max)`` over its sum."""
+    e = torch.exp(x - torch.amax(x, dim=dim, keepdim=True))
+    return e / torch.sum(e, dim=dim, keepdim=True)
+
+
+# ----------------------------------------------------------------- RoPE
+
+def rope_freqs(d_head: int, theta: float = 10000.0, device=None):
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S).  The head
+    dimension rotates as two halves (not interleaved pairs); the angles
+    are float32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)        # (Dh/2,)
+    ang = positions[..., None].to(torch.float32) * freqs    # (..., S, Dh/2)
+    cos = torch.cos(ang)[..., None, :]                      # (..., S, 1, Dh/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# -------------------------------------------------------- GQA attention
+
+def attention_init(generator, d_model, n_heads, n_kv_heads, d_head,
+                   dtype=torch.float32, device=None):
+    s = 1.0 / math.sqrt(d_model)
+
+    def draw(shape):
+        return normal(generator, shape, dtype, device).mul_(s)
+    return {"wq": draw((d_model, n_heads, d_head)),
+            "wk": draw((d_model, n_kv_heads, d_head)),
+            "wv": draw((d_model, n_kv_heads, d_head)),
+            "wo": draw((n_heads, d_head, d_model))}
+
+
+def _gqa_scores(q, k, n_rep):
+    """q: (B,S,Hq,D), k: (B,T,Hkv,D) -> scores (B,Hkv,n_rep,S,T)."""
+    B, S, Hq, D = q.shape
+    q = q.reshape(B, S, k.shape[2], n_rep, D)
+    return einsum("bsgrd,btgd->bgrst", q, k)
+
+
+def attention(params, x, positions, *, n_rep, causal=True, theta=10000.0,
+              kv_cache=None, cache_len=None, return_kv=False,
+              chunked=False, q_block=1024, kv_block=1024,
+              unroll_attn=False, cache_in_place=False):
+    """GQA attention. If kv_cache is given: decode mode — x is (B, S, d),
+    the cache holds (k, v) of shape (B, T, Hkv, D) and ``cache_len`` (an
+    int) is its valid length; the new token(s) are written at
+    ``cache_len`` into copies of the cache, which are returned, or, with
+    ``cache_in_place`` (the caller made the copy), into the cache itself.
+
+    Returns (out, new_cache).
+    """
+    B, S, d = x.shape
+    q = einsum("bsd,dhk->bshk", x, params["wq"])
+    k = einsum("bsd,dhk->bshk", x, params["wk"])
+    v = einsum("bsd,dhk->bshk", x, params["wv"])
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
+    D = q.shape[-1]
+
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        T = ck.shape[1]
+        cache_len = int(cache_len)
+        # jax.lax.dynamic_update_slice clamps the start so the update fits.
+        at = min(max(cache_len, 0), T - S)
+        if not cache_in_place:
+            ck, cv = ck.clone(), cv.clone()
+        ck[:, at:at + S] = k.to(ck.dtype)
+        cv[:, at:at + S] = v.to(cv.dtype)
+        kv_mask = torch.arange(T, device=x.device) <= cache_len + S - 1
+        scores = _gqa_scores(q, ck, n_rep) / math.sqrt(D)
+        scores = torch.where(kv_mask, scores, -1e30)
+        probs = softmax(scores.to(torch.float32))
+        out = einsum("bgrst,btgd->bsgrd", probs.to(x.dtype), cv)
+        out = out.reshape(B, S, -1, D)
+        return einsum("bshk,hkd->bsd", out, params["wo"]), (ck, cv)
+
+    if chunked:
+        from repro_torch.models.attention_chunked import chunked_attention
+        out = chunked_attention(q, k, v, causal=causal, q_block=q_block,
+                                kv_block=kv_block, unroll=unroll_attn)
+    else:
+        scores = _gqa_scores(q, k, n_rep) / math.sqrt(D)
+        if causal:
+            mask = torch.ones((S, S), dtype=torch.bool,
+                              device=x.device).tril()
+            scores = torch.where(mask, scores, -1e30)
+        probs = softmax(scores.to(torch.float32))
+        out = einsum("bgrst,btgd->bsgrd", probs.to(x.dtype), v)
+    out = out.reshape(B, S, -1, D)
+    out = einsum("bshk,hkd->bsd", out, params["wo"])
+    return out, ((k, v) if return_kv else None)
+
+
+# ----------------------------------------------------------- SwiGLU FFN
+
+def ffn_init(generator, d_model, d_ff, dtype=torch.float32, device=None):
+    s = 1.0 / math.sqrt(d_model)
+    return {
+        "w_gate": normal(generator, (d_model, d_ff), dtype, device).mul_(s),
+        "w_up": normal(generator, (d_model, d_ff), dtype, device).mul_(s),
+        "w_down": normal(generator, (d_ff, d_model), dtype, device)
+        .div_(math.sqrt(d_ff)),
+    }
+
+
+def ffn(params, x):
+    g = F.silu(matmul(x, params["w_gate"]))
+    u = matmul(x, params["w_up"])
+    return matmul(g * u, params["w_down"])

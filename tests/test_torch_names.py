@@ -92,10 +92,11 @@ def _kind(x) -> str:
             else "callable" if callable(x) else type(x).__name__)
 
 
-# The graph-learning zoo (models, configs, data, sampler, loop, launcher):
-# every public name the reference defines in these modules, found by
-# reading the reference, less the language-model slice's names (ROADMAP
-# item 11b) and ``shard_batch``, a JAX sharding, which the port's
+# The model zoo (models, configs, data, sampler, loop, launchers): every
+# public name the reference defines in these modules, found by reading the
+# reference, less the names of slices still to come (ROADMAP item 11b: the
+# LM training step, and the dry-run tooling's PartitionSpecs) and
+# ``shard_batch``, a JAX sharding, which the port's
 # ``data.pipeline.to_device`` replaces.
 ZOO_MODULES = (
     "models.layers", "models.gnn", "models.gnn.common", "models.gnn.schnet",
@@ -105,13 +106,17 @@ ZOO_MODULES = (
     "configs.meshgraphnet", "configs.mace", "configs.dcn_v2",
     "configs.ridgewalker", "data", "data.pipeline", "graph.datasets",
     "graph.sampling_service", "runtime.train_loop", "launch.train",
-    "optim.adamw",
+    "optim.adamw", "models.attention_chunked", "models.moe",
+    "models.transformer", "configs.phi35_moe", "configs.granite_moe",
+    "configs.deepseek_7b", "configs.minitron_8b", "configs.stablelm_12b",
+    "launch.serve",
 )
 DEFERRED = {
-    ("models.layers", n) for n in ("rope_freqs", "apply_rope",
-                                   "attention_init", "attention",
-                                   "ffn_init", "ffn")
-} | {("launch.train", "make_lm_step"), ("data.pipeline", "shard_batch")}
+    ("launch.train", "make_lm_step"),            # the LM training slice
+    ("models.transformer", "param_specs"),       # the dry-run tooling
+    ("models.moe", "moe_param_specs"),           # the dry-run tooling
+    ("data.pipeline", "shard_batch"),
+}
 
 
 def _public_names(module: str):

@@ -221,7 +221,8 @@ def _launch(*args, ckpt):
         capture_output=True, text=True, env=env, timeout=300, cwd=REPO)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", [a for a in ARCHS
+                                  if get_arch(a).FAMILY != "lm"])
 def test_launcher_trains_each_arch(arch, tmp_path):
     r = _launch("--arch", arch, "--steps", "4", ckpt=tmp_path)
     assert r.returncode == 0, r.stderr

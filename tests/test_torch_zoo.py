@@ -1,8 +1,8 @@
 """The graph-learning model zoo on the port, held against the reference on
 the CPU.
 
-Each arch of ``repro_torch.configs.ARCHS`` (SchNet, PNA, MeshGraphNet,
-MACE, DCN-v2) runs at its ``SMOKE`` config on the reference's smoke
+Each arch of the zoo (``ZOO_ARCHS``, the GNN and recsys archs of
+``repro_torch.configs.ARCHS``: SchNet, PNA, MeshGraphNet, MACE, DCN-v2) runs at its ``SMOKE`` config on the reference's smoke
 batches (``tests/test_arch_smoke.py``), from the reference's parameters
 (``jax.random.PRNGKey(0)``, carried across with
 ``layers.tree_from_reference``), through the JAX function and the port's.
@@ -60,6 +60,10 @@ FWD = dict(rtol=1e-4, atol=1e-5)
 LOSS = dict(rtol=1e-5)
 GRAD = dict(rtol=1e-3, atol=1e-6)
 GNN_ARCHS = ("schnet", "pna", "meshgraphnet", "mace")
+ZOO_ARCHS = tuple(a for a in ARCHS if get_arch(a).FAMILY != "lm")
+LM_NAMES = ("phi35_moe", "granite_moe", "deepseek_7b", "minitron_8b",
+            "stablelm_12b", "phi3.5-moe-42b-a6.6b", "granite-moe-3b-a800m",
+            "deepseek-7b", "minitron-8b", "stablelm-12b")
 
 
 def modules(arch):
@@ -180,8 +184,10 @@ def run_both(arch, cfg_ref, cfg_port, b, params=None):
 # ------------------------------------------------------------- the archs
 
 def test_archs_and_configs_equal_the_reference():
-    assert ARCHS == ("meshgraphnet", "schnet", "pna", "mace", "dcn_v2")
-    for arch in ARCHS:
+    from repro.configs import ARCHS as REF_ARCHS
+    assert ARCHS == REF_ARCHS
+    assert ZOO_ARCHS == ("meshgraphnet", "schnet", "pna", "mace", "dcn_v2")
+    for arch in ZOO_ARCHS:
         ref, port = ref_get_arch(arch), get_arch(arch)
         assert port.FAMILY == ref.FAMILY
         for name in ("FULL", "SMOKE"):
@@ -193,16 +199,32 @@ def test_archs_and_configs_equal_the_reference():
     assert get_arch("ridgewalker").FAMILY == "walk"
 
 
-@pytest.mark.parametrize("name", ["deepseek_7b", "phi3.5-moe-42b-a6.6b",
-                                  "granite_moe"])
-def test_language_models_raise(name):
-    with pytest.raises(ValueError, match="item 11b"):
-        get_arch(name)
+def _lm_config_fields(cfg):
+    """A language model's config as a dict, its dtype by name (jnp's and
+    torch's dtypes are different objects)."""
+    d = dataclasses.asdict(cfg)
+    d["dtype"] = str(np.dtype(cfg.dtype)) if not isinstance(
+        cfg.dtype, torch.dtype) else str(cfg.dtype).removeprefix("torch.")
+    return d
+
+
+@pytest.mark.parametrize("name", LM_NAMES)
+def test_language_models_resolve(name):
+    """Each language-model arch and alias resolves to the port's config
+    module, with FULL, SMOKE and SHAPES equal to the reference's."""
+    ref, port = ref_get_arch(name), get_arch(name)
+    assert port.__name__ == ref.__name__.replace("repro.", "repro_torch.", 1)
+    assert port.FAMILY == ref.FAMILY == "lm"
+    for cfg in ("FULL", "SMOKE"):
+        assert _lm_config_fields(getattr(port, cfg)) == \
+            _lm_config_fields(getattr(ref, cfg)), (name, cfg)
+    assert {k: (c.name, c.kind, c.dims) for k, c in port.SHAPES.items()} \
+        == {k: (c.name, c.kind, c.dims) for k, c in ref.SHAPES.items()}
     with pytest.raises(ValueError, match="unknown arch"):
         get_arch("resnet")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
 def test_smoke_arch_equals_reference(arch):
     cfg = get_arch(arch).SMOKE
     b = smoke_batch(arch, cfg)
@@ -430,7 +452,7 @@ def _dry_run_widths(cell):
 
 def _full_configs():
     out = []
-    for arch in ARCHS:
+    for arch in ZOO_ARCHS:
         cells = [None]
         if arch in ("pna", "meshgraphnet"):
             cells = list(get_arch(arch).SHAPES)
