@@ -13,7 +13,17 @@ its seconds.
    card's name and power limit, and the cooperative grid of each of the
    fused kernel's 40 instantiations at W = 4,096 (blocks, threads a block,
    blocks a multiprocessor; without a cache and with the largest block
-   staged in shared memory).
+   staged in shared memory).  The main path's graphs are made while the
+   fused kernel builds.  Every command-line check runs meanwhile in a
+   process of its own, and all have exited before phase 2 starts
+   (:func:`cli_chains`): ``python -m repro_torch.analysis --check`` and
+   ``python -m repro_torch.core.phase_program --check`` from the start;
+   once the other three kernels are built, ``python -m
+   repro_torch.launch.train`` on the card for PNA and DCN-v2 for 6 steps,
+   then PNA resumed to 8, ``python -m repro_torch.launch.serve --arch
+   deepseek_7b`` and ``python -m repro_torch.launch.train --arch
+   granite_moe --device cuda --steps 4``.  Each must exit 0 and print
+   what it must.
 2. Hold each kernel against its plain PyTorch version on the card, bit for
    bit.  First the launch floor: a 4-byte ``zero_()`` timed warm and cold
    as the kernels are, printed beside each kernel's time.  The one-hop
@@ -26,13 +36,14 @@ its seconds.
    per call) and cold (each call after 256 MiB of writes, median of
    30).  The
    fused superstep kernel for URW, PPR, DeepWalk, MetaPath and Node2Vec
-   (rejection and reservoir): one launch of k = 16 (k = 2 for the
+   (rejection and reservoir): one launch of k = 16 (k = 1 for the
    reservoir, whose plain launch is slow) through the kernel and through
    its plain version, on copies of one state, must leave every state
    tensor equal.  The states: the main path's batch one superstep in
    (W = 4096, every lane live and the queue full, so every superstep
    refills), the drain's tail at W = 4096, 1000 and 12288 (live, idle and
-   just-refilled lanes; plus PPR in static mode with an injection delay),
+   just-refilled lanes; weighted Node2Vec, whose grid is the same at every
+   W, at 4096 alone; plus PPR in static mode with an injection delay),
    and for Node2Vec a tail state with lanes placed on the max-degree hub
    (after a hop, and at hop 0) and on a vertex whose degree is not a
    multiple of the reservoir chunk, and for weighted Node2Vec a tail state
@@ -40,7 +51,7 @@ its seconds.
    grid's warps).  The launch is timed with CUDA events
    (median of 30, 10 for Node2Vec, the state restored outside the timed
    region, host enqueue hidden behind a device sleep); the plain version
-   and the bound from the main-path state.  At W = 4096 (main path, tail,
+   (median of 5) and the bound from the main-path state.  At W = 4096 (main path, tail,
    hub) each launch is repeated with the hot-vertex cache at 229,376 B,
    which lands in shared memory, and for URW and DeepWalk from the
    main-path state at 1 MiB, which is read from device memory: every
@@ -65,11 +76,11 @@ its seconds.
    leave every state tensor equal (:func:`check_fused_stream_state`).
 3. Drive the main path: ``compile(program).run(graph, starts)`` for URW,
    PPR and DeepWalk on the WG stand-in at its Table II size (scale 20,
-   weighted, alias tables) under ``step_impl`` torch, cuda, fused, fused,
-   cuda, torch; MetaPath (0, 1, 2) on the typed WG stand-in (scale 20,
-   3 edge types) and Node2Vec (p = 2, q = 0.5, K = 12) under torch, fused,
-   fused, torch; weighted Node2Vec (CH = 64) under fused, fused, and
-   torch on the first 1,024 starts at 8 hops; 65,536 starts, 4,096
+   weighted, alias tables) under ``step_impl`` torch, cuda, fused,
+   fused; MetaPath (0, 1, 2) on the typed WG stand-in (scale 20, 3 edge
+   types) and Node2Vec (p = 2, q = 0.5, K = 12) under torch, fused,
+   fused; weighted Node2Vec (CH = 64) under fused, fused, and torch on
+   the first 1,024 starts at 2 hops; 65,536 starts, 4,096
    slots, 80 hops, 16 supersteps per fused launch.  Every run zeroes the
    kernels' launch counts before it and reads them after: the impls must
    agree bit for bit in paths, lengths and the 11 stats other than
@@ -88,13 +99,13 @@ its seconds.
    64 KiB builds no cache and counts nothing.
 4. Walks → embeddings: ``Walker.train_embeddings`` for DeepWalk (fused)
    on the main path's graph at full width (EMB: 4 rounds of 65,536
-   80-hop walks, 4 × 48 SGNS steps of batch 4,096, dim 128, window 10,
+   80-hop walks, 4 × 24 SGNS steps of batch 4,096, dim 128, window 10,
    5 negatives), overlapped, serial and overlapped again, each run with
    the launch counts zeroed before it and read after (3 embedding-bag
    and 3 segment-sum launches a step): all three equal, no recorded host
    copy when overlapped (:func:`run_embeddings`); walks/s of the
    producer, SGNS steps/s and each part of a step's wall and device busy
-   time; a checkpointed run resumed after step 96 equal to the
+   time; a checkpointed run resumed after step 48 equal to the
    uninterrupted one (WG scale 16); a small run on the card against the
    same run on the CPU.
 5. The open system (:func:`run_streams`): ``compile(program).stream(
@@ -157,25 +168,24 @@ its seconds.
 8. The sharded backend (:func:`run_sharded`, ``compile(program,
    backend="sharded")``: N shards stacked on the card, the plain torch
    superstep) on the main path's graphs at W = 4,096: every program's
-   closed batch (the first 16,384 of the 65,536 starts, 80 hops) at 4
+   closed batch (the first 4,096 of the 65,536 starts, 80 hops) at 4
    shards of 1,024 lanes, and
    URW also at the paper's 16 pipelines of 256, each equal in paths and
    lengths to the single backend's fused run of the same batch, with no
    drop, every hop an edge and no kernel launched by the sharded run;
-   weighted Node2Vec cut in depth to phase 3's torch cut (1,024 starts,
-   8 hops; the cut is printed); a sharded URW stream (capacity 8,192, 3
+   weighted Node2Vec cut in depth to 1,024 starts and 1 hop (the cut is
+   printed); a sharded URW stream (capacity 8,192, 3
    x capacity arrivals) and a sharded service point (rho 0.9, 256
    requests of 64 walks), each (epoch, qid) equal to its closed batch;
-   ``train_embeddings`` (DeepWalk at phase 4's width, 2 rounds of 16,384
+   ``train_embeddings`` (DeepWalk at phase 4's width, 2 rounds of 8,192
    walks and 8 steps) equal to the single backend's in ring, tables and moments; and
    ``torch.profiler`` over one sharded drain (the device's busy share).
    Each run prints walks/s and MSteps/s beside the single backend's
    (phase 3's torch and fused), supersteps, route waits and the bubble
    ratio of each shard.
 9. The static verifier (:func:`run_verifier`): ``repro_torch.analysis.
-   run_all()`` and ``python -m repro_torch.analysis --check`` and
-   ``python -m repro_torch.core.phase_program --check`` on this checkout
-   (any finding or docs drift raises); then, with the timers' clock
+   run_all()`` on this checkout (any finding raises; its two ``--check``
+   CLIs ran in phase 1); then, with the timers' clock
    (``repro_torch.core.clock.now``) replaced by one that returns random
    values, URW and PPR fused closed batches at the main path's width
    (65,536 starts, W = 4,096, 80 hops, k = 16), each equal to phase 3's
@@ -208,9 +218,8 @@ its seconds.
     the longest segment and both kernels' launches; then a step's wall
     with and without deterministic algorithms and a ``torch.profiler``
     trace of 3 steps (device busy time, device launches, top kernels).
-    The serving cells run 8 calls each, bit-identical, timed.  Last
-    ``python -m repro_torch.launch.train`` on the card: PNA and DCN-v2 for
-    6 steps, then PNA resumed to 8.  The launch counts are zeroed before
+    The serving cells run 8 calls each, bit-identical, timed (the
+    launcher's runs are in phase 1).  The launch counts are zeroed before
     each run and read after it; the comparisons' launches do not count.
     A mismatch in any cell raises at the end of the phase.
 11. The language-model serving slice (:func:`run_lm`,
@@ -225,7 +234,7 @@ its seconds.
     steps' logits within a relative norm error of 1e-4, greedy tokens
     equal wherever the CPU's top-2 margin exceeds 1e-3.  (b) granite_moe
     FULL (32 layers, drawn on the card): ``continuous_batching_loop`` with
-    16 requests of 128-token prompts, 8 slots, 32 new tokens, twice,
+    16 requests of 128-token prompts, 8 slots, 16 new tokens, twice,
     tokens and ``ServeStats`` bit-identical; prefill ms a request, decode
     ms a step and tokens/s beside their bounds, bubble ratio, peak memory,
     both kernels' launches; a ``torch.profiler`` trace of 3 decode steps.
@@ -235,13 +244,37 @@ its seconds.
     drops no token.  (d) one prefill of ``prefill_32k``'s 32,768 tokens at
     1,024 and at 2,048 blocks, equal within tolerance, each timed.  (e)
     deepseek_7b FULL (30 layers, 27.6 GB): (b)'s serve once and (c)'s
-    check at 128 tokens.  (f) ``python -m repro_torch.launch.serve --arch
-    deepseek_7b`` on the card.  (g) a line saying why phi35_moe FULL is
+    check at 128 tokens.  (f) a line saying why phi35_moe FULL is
     not run (167.5 GB at float32).  The launch counts are zeroed before
     each serve run and 32k prefill and read after it; the comparisons'
     launches do not count.  A mismatch in any step raises at the end of
     the phase.
-12. Print the kernels' JSON summary (five rows), the card line, and last
+12. The language-model training slice (:func:`run_lm_train`,
+    ``launch.train.make_lm_step``: the gradient of
+    ``transformer.train_loss`` with each layer rematerialised, then AdamW)
+    at full width in float32 under ``torch.use_deterministic_algorithms``.
+    granite_moe FULL cut to 2 layers and one 512-token sequence, the same
+    weights (drawn on the CPU) on the card and the CPU: the loss within
+    1e-5 and every gradient leaf within a relative norm error of 1e-3,
+    every token routed to the same experts, and remat on and off
+    bit-identical on the card.  granite_moe FULL (32 layers, 3.37 B
+    parameters) on ``train_4k``'s 4,096-token Zipf sequences at the
+    first batch of (3, 2, 1) that fits (the cell's 256 cut to one card and
+    to the script's time limit):
+    two runs of 4 steps from the seed, losses and final parameters
+    bit-identical; ms a step beside the operations bound, tokens/s, peak
+    memory, the kernels' launches, and a ``torch.profiler`` trace of one
+    more step (device busy share, top kernels).  Both kernels at every
+    shape those steps give them, bit-equal to their plain versions.
+    deepseek_7b at full width with its depth cut to 12 of 30 layers (30
+    do not fit), one run of 4 steps at batch 1.  ``pipeline_apply`` at 4
+    stages and 8 microbatches against the stages in turn (atol 1e-5);
+    ``crosspod_psum_compressed`` over 2 pods on the card equal to the
+    CPU's, bit for bit (the launcher's run is in phase 1).  The launch
+    counts are zeroed
+    before each FULL run and read after it; the comparisons' launches do
+    not count.
+13. Print the kernels' JSON summary (five rows), the card line, and last
     the result line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or when the
@@ -249,6 +282,7 @@ script is run outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -272,8 +306,9 @@ HOPS_PER_LAUNCH = 16
 METAPATH = (0, 1, 2)
 N2V = ("node2vec", "node2vec_w")  # the Node2Vec programs (p = 2, q = 0.5)
 N2V_TORCH_STARTS = 1_024         # node2vec_w's torch run: starts and slots,
-N2V_TORCH_HOPS = 8               # and hops (its plain scan is slow; 16
-                                 # hops took 67.7 s on an H100)
+N2V_TORCH_HOPS = 2               # and hops (its plain scan is slow: 16
+                                 # hops took 67.7 s on an H100, 8 took
+                                 # 29.2 s; cut for the time limit)
 # The walk-step kernels' widths: the main path's W first, then ragged ones
 # (one lane; either side of a warp; not a multiple of a block; 3 x 4,096).
 KERNEL_WIDTHS = (4_096, 1, 31, 33, 1_000, 12_288)
@@ -283,12 +318,14 @@ GRAPH_CALLS = 10                 # calls captured per graph (600 timed)
 FUSED_TIMED_REPS = 30            # fused launches timed per version
 N2V_KERNEL_REPS = 10             # ... of the Node2Vec kinds (the plain
                                  # version's time is its one checked launch)
-# Phase 2's supersteps per launch: 16, but 2 for node2vec_w, whose plain
-# launch from the main-path state took 60 s on an H100 at k = 16 and 17 s
-# at k = 4, twice a state (its plain superstep scans every chunk of the
-# live lanes' largest degree).
-PHASE2_K = {"node2vec_w": 2}
-PROFILE_SUPERSTEPS = 8           # per-hop impls: supersteps profiled
+FUSED_PLAIN_REPS = 5             # plain launches timed (host-driven, ~0.2 s
+                                 # each)
+# Phase 2's supersteps per launch: 16, but 1 for node2vec_w, whose plain
+# launch from the main-path state took 60 s on an H100 at k = 16, 17 s
+# at k = 4 and 7 s at k = 2, twice a state (its plain superstep scans
+# every chunk of the live lanes' largest degree).
+PHASE2_K = {"node2vec_w": 1}
+PROFILE_SUPERSTEPS = 2           # per-hop impls: supersteps profiled
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 CUDA_CORE_OPS_PER_S = 67e12      # H100 SXM float32 outside tensor cores
 # int32 rate of the whole card: 132 SMs x 64 int32 lanes per SM per clock
@@ -299,12 +336,13 @@ LANE_OPS = 40                    # other int32 ops per live lane-superstep
 BISECT_OPS = 4                   # int32 ops per bisection halving
 SECTOR = 32                      # bytes the memory system moves per gather
 L2_FLUSH_BYTES = 256 << 20       # written ahead of a cold-L2 launch
-RUN_ORDER = {"urw": ("torch", "cuda", "fused", "fused", "cuda", "torch"),
-             "ppr": ("torch", "cuda", "fused", "fused", "cuda", "torch"),
-             "deepwalk": ("torch", "cuda", "fused", "fused", "cuda", "torch"),
-             "metapath": ("torch", "fused", "fused", "torch"),
-             "node2vec": ("torch", "fused", "fused", "torch"),
-             # plus a torch run of 1,024 starts at 8 hops (run_main_path)
+# Each per-hop impl runs once, the fused twice (the time limit).
+RUN_ORDER = {"urw": ("torch", "cuda", "fused", "fused"),
+             "ppr": ("torch", "cuda", "fused", "fused"),
+             "deepwalk": ("torch", "cuda", "fused", "fused"),
+             "metapath": ("torch", "fused", "fused"),
+             "node2vec": ("torch", "fused", "fused"),
+             # plus a torch run of 1,024 starts at 2 hops (run_main_path)
              "node2vec_w": ("fused", "fused")}
 
 KERNELS = {
@@ -345,6 +383,14 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip()
+
+
+@contextlib.contextmanager
+def timed(label):
+    """Print the seconds the block took, as ``  {label} time ... s``."""
+    t = time.perf_counter()
+    yield
+    print(f"  {label} time {time.perf_counter() - t:.1f} s")
 
 
 def ptxas_report(log: str):
@@ -990,8 +1036,11 @@ def check_fused(graphs, starts_np) -> dict:
     from repro_torch.core.walk_engine import EngineConfig
     from repro_torch.kernels.fused_superstep import LAUNCHES, ops, ref
     cases = [(name, NUM_SLOTS, "zero_bubble", 0, "main") for name in graphs]
+    # The reservoir kind's grid is 132 x 1,024 at every W (its lanes'
+    # chunks are the grid's items), so its tail runs at W = 4,096 alone.
     cases += [(name, W, "zero_bubble", 0, "tail") for name in graphs
-              for W in FUSED_WIDTHS]
+              for W in FUSED_WIDTHS
+              if W == NUM_SLOTS or name != "node2vec_w"]
     cases.append(("ppr", 1_000, "static", 2, "tail"))
     cases += [(name, NUM_SLOTS, "zero_bubble", 0, "hub") for name in N2V]
     cases.append(("node2vec_w", NUM_SLOTS, "zero_bubble", 0, "all hub"))
@@ -1080,7 +1129,8 @@ def check_fused(graphs, starts_np) -> dict:
                       f"{ms / len(seq) * 1e3:.3f} us per superstep")
             if where == "main":
                 plain_ms = (plain_s * 1e3 if n2v else
-                            time_fused(plain, state, device_only=False))
+                            time_fused(plain, state, device_only=False,
+                                       reps=FUSED_PLAIN_REPS))
                 gather_work = n2v_work(g, prog.spec, key, seq) if n2v else None
                 bound_ms, bound_by, n_ops, nbytes = fused_bound(
                     prog, cfg, state, got, gather_work)
@@ -1365,10 +1415,11 @@ def run_cached_main_path(graphs, starts_np) -> int:
 
 def run_n2vw_torch(g, starts, fused):
     """node2vec_w's torch run, cut to the first 1,024 starts at 1,024 slots
-    and 8 hops (its plain scan repeats the chunk loop's tensor ops for
-    every chunk of the live lanes' largest degree): paths and lengths
-    equal the full fused run's first 1,024 rows cut to 9 columns, since a
-    walk is a function of (seed, query id, hop) alone."""
+    and N2V_TORCH_HOPS hops (its plain scan repeats the chunk loop's
+    tensor ops for every chunk of the live lanes' largest degree): paths
+    and lengths equal the full fused run's first 1,024 rows cut to
+    N2V_TORCH_HOPS + 1 columns, since a walk is a function of (seed, query
+    id, hop) alone."""
     import torch
 
     from repro_torch.core.scheduler import analyze_run
@@ -1393,8 +1444,9 @@ def run_n2vw_torch(g, starts, fused):
     if not (torch.equal(res.paths, fused.paths[:N2V_TORCH_STARTS, :cols])
             and torch.equal(res.lengths, torch.clamp(
                 fused.lengths[:N2V_TORCH_STARTS], max=cols))):
-        raise AssertionError("node2vec_w: torch (1,024 starts, 8 hops) "
-                             "differs from the fused run's first rows")
+        raise AssertionError(f"node2vec_w: torch ({N2V_TORCH_STARTS} starts, "
+                             f"{N2V_TORCH_HOPS} hops) differs from the fused "
+                             "run's first rows")
     a = analyze_run(res.stats, wall)
     RATES["node2vec_w", "torch"] = N2V_TORCH_STARTS / wall   # phase 8's cut
     print(f"main node2vec_w step_impl=torch starts={N2V_TORCH_STARTS} "
@@ -1407,24 +1459,32 @@ def run_n2vw_torch(g, starts, fused):
           f"{cols} columns")
 
 
+def device_trace():
+    """A ``torch.profiler`` context that records the device's activities
+    only (kernels, copies): recording the host's ops as well slows the
+    traced run and multiplies the events to read."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
 def device_rows(prof):
     """(device µs, count, name) of each device activity (kernels, copies;
-    not the ops that launched them) in a ``torch.profiler`` trace, largest
-    first."""
+    not the ops that launched them) in a :func:`device_trace`, summed by
+    name, largest first.  Read from the trace's raw events, not through
+    ``key_averages()``, which builds a Python object an event and took
+    longer than a traced LM training step to read it (phase 12)."""
     from torch.autograd import DeviceType
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if e.device_type == DeviceType.CUDA and us > 0:
-            rows.append((us, e.count, e.key))
-    return sorted(rows, reverse=True)
+    agg = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            us, n = agg.get(e.name(), (0.0, 0))
+            agg[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return sorted(((us, n, k) for k, (us, n) in agg.items()), reverse=True)
 
 
 def profile_supersteps(graphs, starts_np) -> None:
     """Where the time goes: ``torch.profiler`` over a one-batch run of each
-    program under each step impl (the per-hop impls' first 8 supersteps
+    program under each step impl (the per-hop impls' first 2 supersteps
     only: with their ~1,000 device launches per superstep, whole batches
     made this phase take about 7 minutes on an H100) — device busy time
     (the sum of the device activities' times) against the run's wall time,
@@ -1432,10 +1492,10 @@ def profile_supersteps(graphs, starts_np) -> None:
     own overhead inflates the wall time, so the busy share printed is a
     lower bound."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.walker import ExecutionConfig, compile
     for name, prog in programs().items():
+        t_prog = time.perf_counter()
         g = graphs[name]
         starts = torch.from_numpy(starts_np[:NUM_SLOTS]).to(g.device)
         for impl in dict.fromkeys(RUN_ORDER[name]):
@@ -1446,8 +1506,7 @@ def profile_supersteps(graphs, starts_np) -> None:
                 hops_per_launch=HOPS_PER_LAUNCH, **cap))
             w.run(g, starts[:NUM_SLOTS // 4], seed=0)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with device_trace() as prof:
                 res = w.run(g, starts, seed=0)
                 torch.cuda.synchronize()
             rows = device_rows(prof)
@@ -1468,6 +1527,10 @@ def profile_supersteps(graphs, starts_np) -> None:
                   f"{sum(r[1] for r in rows) / supersteps:.2f} "
                   f"wall_ms_per_superstep={wall_ms / supersteps:.4f} "
                   f"top: {top}")
+        print(f"  profile {name} time {time.perf_counter() - t_prog:.1f} s")
+
+
+SMALL_HOPS = 8                   # the small batch's hops (2 launches of 4)
 
 
 def check_small_against_cpu() -> None:
@@ -1492,10 +1555,11 @@ def check_small_against_cpu() -> None:
                 "fused static C=2": dict(step_impl="fused", mode="static",
                                          injection_delay=2),
                 "fused no paths": dict(step_impl="fused", record_paths=False)}
-    for prog in (WalkProgram.urw(16), WalkProgram.ppr(0.15, 16),
-                 WalkProgram.deepwalk(16), WalkProgram.metapath(METAPATH, 16),
-                 WalkProgram.node2vec(2.0, 0.5, 16),
-                 WalkProgram.node2vec(2.0, 0.5, 16, weighted=True)):
+    h = SMALL_HOPS
+    for prog in (WalkProgram.urw(h), WalkProgram.ppr(0.15, h),
+                 WalkProgram.deepwalk(h), WalkProgram.metapath(METAPATH, h),
+                 WalkProgram.node2vec(2.0, 0.5, h),
+                 WalkProgram.node2vec(2.0, 0.5, h, weighted=True)):
         for label, knobs in variants.items():
             def run(dev, knobs=knobs, prog=prog):
                 return compile(prog, execution=ExecutionConfig(
@@ -2087,10 +2151,12 @@ def run_service(graphs) -> dict:
 # Phase 4's run: node2vec's published settings (d = 128, walk length 80,
 # window 10) with word2vec's 5 negatives, and the reference benchmark's
 # batch (benchmarks/e2e_embeddings.py).
-EMB = dict(seed=0, rounds=4, walks_per_round=65_536, steps_per_round=48,
+# 24 SGNS steps a round: a cut in depth for the time limit (the batch,
+# dim, window and negatives are the width).
+EMB = dict(seed=0, rounds=4, walks_per_round=65_536, steps_per_round=24,
            batch_size=4_096, dim=128, window=10, num_negatives=5)
 EMB_RESUME_SCALE = 16            # the resume check's WG scale
-EMB_TIMED_STEPS = 48             # SGNS steps timed for steps/s
+EMB_TIMED_STEPS = 24             # SGNS steps timed for steps/s
 EMB_SPLIT_STEPS = 8              # calls timed per part of a step
 EMB_LEARN_STEPS = 8              # steps taken on one batch at full width
 EMB_SMALL = dict(seed=3, rounds=2, walks_per_round=16, steps_per_round=8,
@@ -2504,8 +2570,10 @@ def run_embeddings(g) -> dict:
           f"{EMB['rounds'] - 2} and {EMB['rounds'] - 1} as Walker.run "
           "gives them; tables finite")
     del outs
-    measure_embeddings(g, w, first)
-    check_embeddings_step(g, first)
+    with timed("embeddings measure"):
+        measure_embeddings(g, w, first)
+    with timed("embeddings step vs CPU"):
+        check_embeddings_step(g, first)
     return totals
 
 
@@ -2516,7 +2584,6 @@ def part_times(fn, reps=EMB_SPLIT_STEPS):
     ``torch.profiler`` trace of ``reps`` more (the sum of the device
     activities' times, so host gaps are not counted)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2524,8 +2591,7 @@ def part_times(fn, reps=EMB_SPLIT_STEPS):
         fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / reps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -2686,7 +2752,7 @@ def check_embeddings_step(g, out) -> None:
 
 
 def check_embeddings_resume() -> None:
-    """Phase 4: a checkpointed run stopped after step 96 (the later
+    """Phase 4: a checkpointed run stopped after step 48 (the later
     checkpoints deleted) and resumed equals the uninterrupted run, tables,
     moments and ring; at WG scale EMB_RESUME_SCALE, EMB's other sizes."""
     import shutil
@@ -3047,17 +3113,19 @@ SHARD_WIDE_PROGRAMS = ("urw",)
 SHARD_LOG = NUM_STARTS * MAX_HOPS
 # Weighted Node2Vec's chunk ping-pong takes up to 2 x 290 + 1 supersteps a
 # hop at the hubs, each a plain superstep over every shard's pool: its
-# sharded run is cut in depth to phase 3's torch cut (1,024 starts, 8
-# hops); its width stays 4 x 1,024.  The other programs' sharded batches
-# are cut in depth to their first SHARD_STARTS starts (the whole script
-# ran 1,250.7 s of its 1,200 s limit on an H100 with all 65,536).
-SHARD_CUT = {"node2vec_w": (N2V_TORCH_STARTS, N2V_TORCH_HOPS)}
+# sharded run is cut in depth to phase 3's torch cut's 1,024 starts and
+# to one hop (at 2 hops a walk that reached the hub scans its 290 chunks:
+# 582 supersteps, 27 s on an H100 host); its width stays 4 x 1,024.  The
+# other programs' sharded batches are cut in depth to their first
+# SHARD_STARTS starts (the whole script ran 1,250.7 s of its 1,200 s limit
+# on an H100 with all 65,536).
+SHARD_CUT = {"node2vec_w": (N2V_TORCH_STARTS, 1)}
 SHARD_STREAM_CAPACITY = 8_192    # URW, fed 3 x capacity arrivals
 SHARD_SERVE_CAPACITY = 8_192
 SHARD_SERVE_REQUESTS = 256       # 64-walk Poisson requests at rho 0.9
-SHARD_EMB = {**EMB, "rounds": 2, "walks_per_round": 16_384,
+SHARD_EMB = {**EMB, "rounds": 2, "walks_per_round": 8_192,
              "steps_per_round": 8}
-SHARD_STARTS = 16_384            # the closed batches' depth cut
+SHARD_STARTS = 4_096             # the closed batches' depth cut (a pool)
 SHARD_PROFILE_STARTS = NUM_SLOTS  # the profiled drain: one pool's worth
 RATES = {}   # (program, impl) -> walks/s of phase 3's last run of it
 
@@ -3201,7 +3269,7 @@ def sharded_service(g, card, add) -> None:
 
 def sharded_embeddings(g, card, add) -> None:
     """``train_embeddings`` at phase 4's width (DeepWalk, dim 128, batch
-    4,096, 16,384 walks a round; 2 rounds of 8 steps) on the sharded
+    4,096, 8,192 walks a round; 2 rounds of 8 steps) on the sharded
     backend (its producer a sharded stream) and on the single backend
     (fused): rings, tables and moments equal; the sharded run launches
     3 embedding-bag and 3 segment-sum kernels a step and nothing else."""
@@ -3251,15 +3319,13 @@ def sharded_profile(g) -> None:
     worth of starts) from ``torch.profiler``: busy time over wall, device
     launches a superstep, the top kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     w = sharded_walker(programs()["urw"])
     starts = torch.from_numpy(np.random.default_rng(1).integers(
         0, g.num_vertices, SHARD_PROFILE_STARTS).astype(np.int32)).to(
         g.device)
     w.run(g, starts[:NUM_SLOTS // 4], seed=0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         res = w.run(g, starts, seed=0)
         torch.cuda.synchronize()
@@ -3307,10 +3373,14 @@ def run_sharded(graphs, starts_np) -> dict:
         if name in SHARD_WIDE_PROGRAMS:
             sharded_closed(name, prog, g, starts, SHARD_WIDE, card, add)
         print(f"  sharded {name} time {time.perf_counter() - t:.1f} s")
-    sharded_stream(graphs["urw"], card, add)
-    sharded_service(graphs["urw"], card, add)
-    sharded_embeddings(graphs["deepwalk"], card, add)
-    sharded_profile(graphs["urw"])
+    with timed("sharded stream"):
+        sharded_stream(graphs["urw"], card, add)
+    with timed("sharded service"):
+        sharded_service(graphs["urw"], card, add)
+    with timed("sharded embeddings"):
+        sharded_embeddings(graphs["deepwalk"], card, add)
+    with timed("sharded profile"):
+        sharded_profile(graphs["urw"])
     return totals
 
 
@@ -3355,18 +3425,8 @@ def run_verifier(graphs, starts_np) -> dict:
     if findings:
         raise AssertionError("verifier findings:\n"
                              + render_findings(findings))
-    env = dict(os.environ, PYTHONPATH=SRC)
-    for module in ("repro_torch.analysis", "repro_torch.core.phase_program"):
-        r = subprocess.run([sys.executable, "-m", module, "--check"],
-                           cwd=ROOT, env=env, capture_output=True,
-                           text=True, timeout=300)
-        if r.returncode != 0:
-            raise AssertionError(f"python -m {module} --check exited "
-                                 f"{r.returncode}:\n{r.stdout}{r.stderr}")
-        print(f"verifier python -m {module} --check: "
-              f"{' / '.join(r.stdout.strip().splitlines())}")
-    print(f"verifier: run_all() holds, both CLIs exit 0 "
-          f"({time.perf_counter() - t:.1f} s)")
+    print(f"verifier: run_all() holds ({time.perf_counter() - t:.1f} s; "
+          f"both --check CLIs ran during the build)")
 
     def launched(stats):
         n = fused_ops.LAUNCHES["fused_superstep"]
@@ -3672,7 +3732,6 @@ def zoo_profile(label, arch, step, state, batch_fn, reps=4, traced=3):
     step and the top kernels.  The profiler's own overhead is not in the
     walls."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     walls = {}
     try:
         for det in (False, True):
@@ -3685,8 +3744,7 @@ def zoo_profile(label, arch, step, state, batch_fn, reps=4, traced=3):
                 torch.cuda.synchronize()
                 ts.append(time.perf_counter() - t0)
             walls[det] = float(np.median(ts)) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             for i in range(traced):
                 state, _ = step(state, batch_fn(i))
             torch.cuda.synchronize()
@@ -3919,33 +3977,6 @@ def zoo_dcn(add, failures) -> None:
     torch.cuda.empty_cache()
 
 
-def zoo_launchers() -> None:
-    """``python -m repro_torch.launch.train`` on the card: PNA and DCN-v2
-    for ZOO_LAUNCHER_STEPS steps, then PNA resumed to 2 more steps."""
-    import tempfile
-    env = dict(os.environ, PYTHONPATH=SRC)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
-        runs = [("pna", ZOO_LAUNCHER_STEPS, False),
-                ("dcn_v2", ZOO_LAUNCHER_STEPS, False),
-                ("pna", ZOO_LAUNCHER_STEPS + 2, True)]
-        for arch, steps, resume in runs:
-            t0 = time.perf_counter()
-            cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-                   arch, "--steps", str(steps), "--ckpt-dir",
-                   os.path.join(d, arch)] + (["--resume"] if resume else [])
-            r = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                               cwd=ROOT, timeout=300)
-            want = [f"done at step {steps}"] + (
-                [f"resumed at step {ZOO_LAUNCHER_STEPS}"] if resume else [])
-            if r.returncode != 0 or not all(w in r.stdout for w in want):
-                raise AssertionError(f"zoo launcher {' '.join(cmd[2:])}: exit "
-                                     f"{r.returncode}\n{r.stdout}\n{r.stderr}")
-            print(f"zoo launcher --arch {arch} --steps {steps}"
-                  f"{' --resume' if resume else ''}: exit 0 in "
-                  f"{time.perf_counter() - t0:.1f} s; "
-                  f"{r.stdout.strip().splitlines()[-1]}")
-
-
 def run_zoo(g) -> dict:
     """Phase 10: every cell of the zoo on the card; returns the kernels'
     launches summed over the cells' runs (the comparisons' launches are
@@ -3970,26 +4001,30 @@ def run_zoo(g) -> dict:
     src, dst = cora_edges(cora_g)
     pna_cfg = dataclasses.replace(get_arch("pna").FULL,
                                   node_in=cora_x.shape[1])
-    add(zoo_cell("full_graph_sm", "pna", pna_cfg, {
-        "node_feats": torch.from_numpy(cora_x),
-        "edge_index": torch.stack([src, dst]),
-        "labels": torch.from_numpy(cora_y)}, (), failures))
+    with timed("zoo full_graph_sm pna"):
+        add(zoo_cell("full_graph_sm", "pna", pna_cfg, {
+            "node_feats": torch.from_numpy(cora_x),
+            "edge_index": torch.stack([src, dst]),
+            "labels": torch.from_numpy(cora_y)}, (), failures))
     cell = get_arch("meshgraphnet").SHAPES["full_graph_sm"].dims
     mgn_cfg = dataclasses.replace(get_arch("meshgraphnet").FULL,
                                   node_in=cell["d_feat"], edge_in=4)
     mgn = pipeline.to_device(pipeline.gnn_batch(
         cell["n_nodes"], cell["n_edges"], cell["d_feat"], d_edge=4), "cpu")
-    add(zoo_cell("full_graph_sm", "meshgraphnet", mgn_cfg, mgn, (),
-                 failures))
+    with timed("zoo full_graph_sm meshgraphnet"):
+        add(zoo_cell("full_graph_sm", "meshgraphnet", mgn_cfg, mgn, (),
+                     failures))
     mol = get_arch("schnet").SHAPES["molecule"].dims
     mol_b = pipeline.to_device(pipeline.molecule_batch(
         mol["n_nodes"], mol["n_edges"], mol["batch"]), "cpu")
     for arch in ("schnet", "mace"):
-        add(zoo_cell("molecule", arch, get_arch(arch).FULL, mol_b,
-                     ("species", "mol_id"), failures))
-    zoo_minibatch(g, add, failures)
-    zoo_dcn(add, failures)
-    zoo_launchers()
+        with timed(f"zoo molecule {arch}"):
+            add(zoo_cell("molecule", arch, get_arch(arch).FULL, mol_b,
+                         ("species", "mol_id"), failures))
+    with timed("zoo minibatch_lg"):
+        zoo_minibatch(g, add, failures)
+    with timed("zoo dcn_v2"):
+        zoo_dcn(add, failures)
     if failures:
         raise AssertionError("zoo: " + "; ".join(failures))
     print(f"zoo launches over the phase's runs: {launched} "
@@ -4009,7 +4044,9 @@ def run_zoo(g) -> dict:
 LM_DEPTH = 2                     # (a): layers kept for card vs CPU
 LM_CHECK_TOKENS = 16             # (a): prompt length of its 2 sequences
 LM_CHECK_STEPS = 4               # (a): decode steps compared
-LM_SERVE = {"requests": 16, "prompt": 128, "slots": 8, "max_new": 32}
+# 16 new tokens a request, a cut in depth for the time limit (16
+# requests over 8 slots still refill a slot).
+LM_SERVE = {"requests": 16, "prompt": 128, "slots": 8, "max_new": 16}
 LM_LONG = 4_096                  # (c): the two long prompts
 LM_LONG_NEW = 4                  # (c): tokens served after them
 LM_SHORT = 128                   # (e): decode vs forward at this length
@@ -4280,7 +4317,6 @@ def lm_profile(label, params, cfg, slots, cache_cap, pos, step_ms) -> None:
     busy share of ``step_ms``, the serve run's untraced median step (the
     profiler slows the host several times over)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as tfm
     cache = tfm.make_kv_cache(cfg, slots, cache_cap, torch.float32,
@@ -4289,8 +4325,7 @@ def lm_profile(label, params, cfg, slots, cache_cap, pos, step_ms) -> None:
     tfm.decode_step(params, tok, cache, pos, cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         for _ in range(LM_PROFILED):
             logits, cache = tfm.decode_step(params, tok, cache, pos, cfg)
             tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)[:, None]
@@ -4423,24 +4458,6 @@ def lm_prefill_32k(params, cfg, failures) -> dict:
     return launched
 
 
-def lm_cli() -> None:
-    """(f) ``python -m repro_torch.launch.serve --arch deepseek_7b`` (the
-    reference's defaults: SMOKE, 16 requests) on the card."""
-    env = dict(os.environ, PYTHONPATH=SRC)
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-           "deepseek_7b"]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT,
-                       timeout=300)
-    if r.returncode != 0 or "completed=16" not in r.stdout \
-            or "device=cuda" not in r.stdout:
-        raise AssertionError(f"lm launcher: exit {r.returncode}\n{r.stdout}\n"
-                             f"{r.stderr}")
-    print(f"lm launcher {' '.join(cmd[1:])}: exit 0 in "
-          f"{time.perf_counter() - t0:.1f} s; "
-          f"{r.stdout.strip().splitlines()[0]}")
-
-
 def lm_draw(arch):
     """``arch`` FULL at float32 drawn on the card from seed 0: its config
     and parameters; prints the draw's time and peak memory (the weights
@@ -4483,19 +4500,27 @@ def run_lm() -> dict:
     torch.use_deterministic_algorithms(True)
     try:
         with torch.no_grad():
-            lm_widths()
-            for arch in ("granite_moe", "deepseek_7b"):
-                lm_card_vs_cpu(arch, failures)
+            with timed("lm widths"):
+                lm_widths()
+            with timed("lm (a)"):
+                for arch in ("granite_moe", "deepseek_7b"):
+                    lm_card_vs_cpu(arch, failures)
             cfg, params = lm_draw("granite_moe")
-            add(lm_serve_cell("granite_moe serve", params, cfg, failures, 2))
-            add(lm_long(params, cfg, failures))
-            add(lm_prefill_32k(params, cfg, failures))
+            with timed("lm (b)"):
+                add(lm_serve_cell("granite_moe serve", params, cfg, failures,
+                                  2))
+            with timed("lm (c)"):
+                add(lm_long(params, cfg, failures))
+            with timed("lm (d)"):
+                add(lm_prefill_32k(params, cfg, failures))
             del params
             torch.cuda.empty_cache()
             cfg, params = lm_draw("deepseek_7b")
-            add(lm_serve_cell("deepseek_7b serve", params, cfg, failures, 1))
-            lm_decode_vs_forward("deepseek_7b", params, cfg, LM_SHORT,
-                                 failures)
+            with timed("lm (e)"):
+                add(lm_serve_cell("deepseek_7b serve", params, cfg, failures,
+                                  1))
+                lm_decode_vs_forward("deepseek_7b", params, cfg, LM_SHORT,
+                                     failures)
             del params
             torch.cuda.empty_cache()
             for arch in ("minitron_8b", "stablelm_12b"):
@@ -4503,7 +4528,6 @@ def run_lm() -> dict:
                 torch.cuda.empty_cache()
     finally:
         torch.use_deterministic_algorithms(False)
-    lm_cli()
     phi = get_arch("phi35_moe").FULL
     print(f"lm phi35_moe FULL: not run: {phi.param_count() / 1e9:.1f} B "
           f"parameters are {phi.param_count() * 4 / 1e9:.1f} GB at float32 "
@@ -4513,6 +4537,546 @@ def run_lm() -> dict:
         raise AssertionError("lm: " + "; ".join(failures))
     print(f"lm launches over the phase's runs: {launched} ({card_line()})")
     return launched
+
+
+# ---------------------------------------------------------------- phase 12
+#
+# The language-model training slice (``launch.train.make_lm_step``: the
+# gradient of ``transformer.train_loss``, each layer rematerialised under
+# ``torch.utils.checkpoint``, then AdamW in place) at full width in
+# float32, the dtype the reference's launcher forces.  The token embedding
+# and the MoE's dispatch gather on the embedding-bag kernel and their
+# gradients sum on the segment-sum kernel; the MoE's combine the other way
+# round.
+
+LMT_SEQ = 4_096                  # train_4k's sequence length
+# Batches tried in turn, the first that fits taken.  4 fits too (AdamW
+# keeps at most two temporaries of a leaf), but its ~9 s steps would take
+# the script past its time limit on a slow host; 5 and more are untried.
+LMT_BATCHES = (3, 2, 1)
+LMT_STEPS = 4                    # steps a run; two runs, bit-identical
+LMT_CHECK_LAYERS = 2             # card vs CPU and remat on/off: depth cut
+LMT_CHECK_SEQ = 512              # ... and sequence length (one sequence)
+LMT_DEEPSEEK_LAYERS = 12         # deepseek_7b's depth cut (30 do not fit)
+# Card vs CPU: the loss within the CPU tests' rtol (1e-5) and every
+# gradient leaf within a relative norm error of their gradient rtol
+# (1e-3): the same float32 function, its sums in other orders.
+LMT_LOSS_RTOL = 1e-5
+LMT_GRAD_NORM = 1e-3
+LMT_PIPE = (4, 8, 4, 16)         # stages, microbatches, rows, width
+LMT_PODS = 2                     # the compressed reduction's pods
+
+
+def lmt_batch(cfg, B, seq, step, device="cuda"):
+    """``data.pipeline.lm_batch``'s Zipf tokens and labels on ``device``."""
+    from repro_torch.data import pipeline as datapipe
+    dcfg = datapipe.TokenPipelineConfig(cfg.vocab, seq, B)
+    return datapipe.to_device(datapipe.lm_batch(dcfg, step), device)
+
+
+def lmt_layer_ops(cfg, B, S) -> int:
+    """Multiply-adds x 2 of one layer's forward as the code computes it:
+    the projections, the chunked attention's causal tiles (the Q block's
+    KV blocks up to its last position) or the full S x S scores, the
+    router and all E·C rows of the experts' buffers (padding included)."""
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    T = B * S
+    proj = 2 * T * d * (2 * hq + 2 * hkv) * dh
+    if S >= cfg.chunk_threshold:
+        qb = min(cfg.q_block, S)
+        nq = S // qb
+        pairs = B * qb * min(cfg.kv_block, S) * sum(
+            -(-((i + 1) * qb) // min(cfg.kv_block, S)) for i in range(nq))
+    else:
+        pairs = B * S * S
+    attn = 4 * hq * dh * pairs
+    if cfg.moe:
+        m = cfg.moe
+        C = max(1, int(np.ceil(m.capacity_factor * m.top_k * T
+                               / m.padded_experts)))
+        ff = 2 * T * d * m.num_experts \
+            + 6 * m.padded_experts * C * d * m.d_ff
+    else:
+        ff = 6 * T * d * cfg.d_ff
+    return proj + attn + ff
+
+
+def lmt_step_ops(cfg, B, S) -> int:
+    """A training step's operations: each layer's forward three times and
+    its backward at twice a forward with remat (forward, the recompute, the
+    backward; two without), the head and loss's forward and backward."""
+    per = 4 if cfg.remat else 3
+    head = 3 * 2 * B * S * cfg.d_model * cfg.vocab
+    return cfg.n_layers * per * lmt_layer_ops(cfg, B, S) + head
+
+
+def lmt_step_bytes(params) -> int:
+    """AdamW's bytes a step: parameters, gradients and both moments read,
+    parameters and moments written (float32)."""
+    return 7 * lm_weight_bytes(params)
+
+
+def lmt_routes(fn):
+    """``fn()`` with ``moe._route`` spied: returns its result and, for each
+    call, the experts chosen (on the CPU) and the smallest gap between a
+    token's K-th and (K+1)-th router probability."""
+    import torch
+
+    from repro_torch.models import moe
+    real, seen = moe._route, []
+
+    def spy(params, x, cfg):
+        probs, gates, experts, C = real(params, x, cfg)
+        top = torch.topk(probs.detach(), cfg.top_k + 1, dim=-1).values
+        seen.append((experts.cpu(), float((top[:, -2] - top[:, -1]).min())))
+        return probs, gates, experts, C
+    moe._route = spy
+    try:
+        out = fn()
+    finally:
+        moe._route = real
+    return out, seen
+
+
+def lmt_card_vs_cpu(failures) -> None:
+    """granite_moe FULL cut to LMT_CHECK_LAYERS layers and one sequence of
+    LMT_CHECK_SEQ tokens: the same weights (drawn on the CPU) on both
+    devices, the loss and every gradient leaf; the routing compared; then
+    remat off on the card, bit-identical to remat on."""
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import flatten_with_paths
+    from repro_torch.core.rng import seeded_generator
+    from repro_torch.models import transformer as tfm
+    cfg = lm_config("granite_moe", n_layers=LMT_CHECK_LAYERS)
+    t0 = time.perf_counter()
+    p_cpu = tfm.init_params(seeded_generator(0), cfg, device="cpu")
+    p_card = tree_map(lambda x: x.cuda(), p_cpu)
+    batch = lmt_batch(cfg, 1, LMT_CHECK_SEQ, 0, "cpu")
+
+    def grads(p, c, dev):
+        b = tuple(x.to(dev) for x in batch)
+        return lmt_routes(lambda: zoo_loss_grads(
+            lambda q, bb: tfm.train_loss(q, *bb, c), p, b))
+    (lh, gh), rh = grads(p_cpu, cfg, "cpu")
+    (lc, gc_), rc = grads(p_card, cfg, "cuda")
+    (lo, go), _ = grads(p_card, dataclasses.replace(cfg, remat=False), "cuda")
+    paths = [p for p, _ in flatten_with_paths(p_cpu)]
+    norms = [norm_error(a, b) for a, b in zip(gc_, gh)]
+    worst = int(np.nanargmax(norms))
+    r_loss = abs(float(lc) - float(lh)) / abs(float(lh))
+    moved = sum(int((a != b).any(-1).sum()) for (a, _), (b, _) in zip(rc, rh))
+    margin = min(m for _, m in rh)
+    remat_same = torch.equal(lc, lo) and all(torch.equal(a, b)
+                                             for a, b in zip(gc_, go))
+    print(f"lmt card vs CPU: granite_moe FULL width, {cfg.n_layers} of "
+          f"{lm_config('granite_moe').n_layers} layers, 1 x {LMT_CHECK_SEQ} "
+          f"tokens: loss {float(lc):.8g} card, {float(lh):.8g} CPU (relative "
+          f"error {r_loss:.3g}, tolerance {LMT_LOSS_RTOL:g}); gradient leaves' "
+          f"norm errors up to {norms[worst]:.3g} ({paths[worst]}; tolerance "
+          f"{LMT_GRAD_NORM:g}); {len(rc)} routings, tokens routed "
+          f"differently {moved} (smallest CPU gap between the K-th and "
+          f"K+1-th probability {margin:.3g}); remat on vs off on the card: "
+          f"{'bit-identical' if remat_same else 'DIFFER'} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    bad = [f"{p} {e:.3g}" for p, e in zip(paths, norms)
+           if not e <= LMT_GRAD_NORM]
+    if not r_loss <= LMT_LOSS_RTOL or bad:
+        failures.append(f"lmt card vs CPU: loss {r_loss:.3g}, leaves {bad}")
+    if moved:
+        failures.append(f"lmt card vs CPU: {moved} tokens routed to other "
+                        f"experts (smallest CPU gap {margin:.3g})")
+    if not remat_same:
+        failures.append("lmt: remat on and off give other gradients")
+
+
+def lmt_run(cfg, B, label):
+    """``cfg`` drawn on the card from seed 0, then LMT_STEPS steps of
+    ``make_lm_step`` on ``lm_batch``'s steps 0.. with the launch counts
+    zeroed just before and read just after; returns the run's record
+    (the state is kept for the caller)."""
+    import torch
+
+    from repro_torch.core.rng import seeded_generator
+    from repro_torch.launch.train import make_lm_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tfm.init_params(seeded_generator(0, "cuda"), cfg)
+    state = (params, adamw.init_state(params))
+    del params
+    step = make_lm_step(cfg, adamw.AdamWConfig(total_steps=LMT_STEPS,
+                                               warmup_steps=1))
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    losses, dts = [], []
+    for s in range(LMT_STEPS):
+        t0 = time.perf_counter()
+        state, aux = step(state, lmt_batch(cfg, B, LMT_SEQ, s))
+        losses.append(float(aux["loss"]))
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+    return {"state": state, "step": step, "losses": losses, "dts": dts,
+            "counts": zoo_counts(), "draw_s": draw_s, "label": label,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def lmt_fit(cfg):
+    """The first of LMT_BATCHES whose run of LMT_STEPS steps fits on the
+    card (a run that runs out of memory is dropped whole); returns (B, the
+    run)."""
+    import gc
+
+    import torch
+    for B in LMT_BATCHES:
+        run = None
+        try:
+            run = lmt_run(cfg, B, "run 1")
+        except torch.cuda.OutOfMemoryError:
+            pass
+        if run is not None:
+            return B, run
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"lmt {cfg.name}: batch {B} x {LMT_SEQ} runs out of the card's "
+              f"memory")
+    raise AssertionError(f"lmt {cfg.name}: not even batch 1 fits")
+
+
+def lmt_host_copy(tree) -> list:
+    """Every leaf of ``tree`` copied into pinned host memory (the card
+    cannot hold a second copy of the weights beside a run's state)."""
+    import torch
+    out = []
+    for x in tree_leaves(tree):
+        out.append(torch.empty(x.shape, dtype=x.dtype, pin_memory=True))
+        out[-1].copy_(x, non_blocking=True)
+    torch.cuda.synchronize()
+    return out
+
+
+def lmt_profile(run, batch, B, step_ms) -> float:
+    """One more step on ``batch``, traced: device busy ms over the untraced
+    median step; prints the top kernels and returns the busy share."""
+    import torch
+    with device_trace() as prof:
+        run["state"], _ = run["step"](run["state"], batch)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    top = "; ".join(f"{k[:48]} {us / 1e3:.3f} ms x{n:g}"
+                    for us, n, k in rows[:6])
+    print(f"lmt profile (batch {B}): device busy {busy:.4f} ms of the "
+          f"untraced {step_ms:.4f} ms step, share {busy / step_ms:.4f}; "
+          f"{sum(r[1] for r in rows)} device launches a step; top: {top}")
+    return busy / step_ms
+
+
+def lmt_line(cfg, B, run, params) -> str:
+    ms = float(np.median(run["dts"][1:])) * 1e3
+    ops = lmt_step_ops(cfg, B, LMT_SEQ)
+    by = max((ops / CUDA_CORE_OPS_PER_S * 1e3, "operations"),
+             (lmt_step_bytes(params) / HBM_BYTES_PER_S * 1e3, "bytes"))
+    return (f"{cfg.n_layers} layers, batch {B} x {LMT_SEQ} tokens: "
+            f"{ms:.1f} ms a step (median of steps 2-{LMT_STEPS}; step 1 "
+            f"{run['dts'][0] * 1e3:.1f} ms), bound {by[0]:.1f} ms by "
+            f"{by[1]} ({ops / 1e12:.2f} TFLOP at 67 TFLOP/s float32), "
+            f"{B * LMT_SEQ / ms * 1e3:.0f} tokens/s; losses "
+            f"{', '.join(f'{x:.6f}' for x in run['losses'])}; peak memory "
+            f"{run['peak'] / 2**30:.3f} GiB; launches embedding_bag "
+            f"{run['counts']['embedding_bag']} segment_sum "
+            f"{run['counts']['segment_sum']}; drawn in {run['draw_s']:.1f} s")
+
+
+def lmt_granite(failures, add) -> int:
+    """granite_moe FULL (32 layers) trained at the largest batch of
+    LMT_BATCHES that fits: two runs of LMT_STEPS steps from the seed,
+    losses and final parameters bit-identical; a traced step; returns the
+    batch."""
+    import torch
+    from repro_torch.configs import get_arch
+    cfg = lm_config("granite_moe")
+    shape = get_arch("granite_moe").SHAPES["train_4k"].dims
+    if shape["seq_len"] != LMT_SEQ:
+        raise AssertionError(f"train_4k is {shape['seq_len']} tokens, not "
+                             f"{LMT_SEQ}")
+    B, run = lmt_fit(cfg)
+    add(run["counts"])
+    params = run["state"][0]
+    print(f"lmt granite_moe FULL ({cfg.param_count() / 1e9:.3f} B "
+          f"parameters; weights, gradients and two AdamW moments "
+          f"{16 * cfg.param_count() / 1e9:.1f} GB at float32): train_4k's "
+          f"global batch {shape['global_batch']} cut to {B} (the first of "
+          f"{LMT_BATCHES} that fits one card; larger batches would take the "
+          f"script past its time limit); run 1: "
+          f"{lmt_line(cfg, B, run, params)}")
+    first = lmt_host_copy(params)
+    losses = run["losses"]
+    del run, params
+    torch.cuda.empty_cache()
+    run = lmt_run(cfg, B, "run 2")
+    add(run["counts"])
+    same = run["losses"] == losses and all(
+        torch.equal(a, b.to(a.device, non_blocking=True))
+        for a, b in zip(tree_leaves(run["state"][0]), first))
+    print(f"lmt granite_moe run 2: {lmt_line(cfg, B, run, run['state'][0])}; "
+          f"losses and final parameters "
+          f"{'bit-identical' if same else 'DIFFER'} to run 1's")
+    if not same:
+        failures.append("lmt granite_moe: two runs from the seed differ")
+    if not all(np.isfinite(losses)):
+        failures.append(f"lmt granite_moe: losses {losses}")
+    del first
+    with timed("lmt profile"):
+        lmt_profile(run, lmt_batch(cfg, B, LMT_SEQ, LMT_STEPS), B,
+                    float(np.median(run["dts"][1:])) * 1e3)
+    del run
+    torch.cuda.empty_cache()
+    return B
+
+
+def lmt_deepseek(failures, add) -> None:
+    """deepseek_7b at full width with its depth cut to LMT_DEEPSEEK_LAYERS
+    (30 layers' weights, gradients and moments are 110 GB): one run of
+    LMT_STEPS steps at batch 1."""
+    import torch
+    full = lm_config("deepseek_7b")
+    cfg = lm_config("deepseek_7b", n_layers=LMT_DEEPSEEK_LAYERS)
+    run = lmt_run(cfg, 1, "run 1")
+    add(run["counts"])
+    print(f"lmt deepseek_7b FULL width, depth cut: the 30 layers' weights, "
+          f"gradients and moments are {16 * full.param_count() / 1e9:.1f} GB "
+          f"at float32, above the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB; "
+          f"{LMT_DEEPSEEK_LAYERS} layers are "
+          f"{16 * cfg.param_count() / 1e9:.1f} GB: "
+          f"{lmt_line(cfg, 1, run, run['state'][0])}")
+    if not all(np.isfinite(run["losses"])):
+        failures.append(f"lmt deepseek_7b: losses {run['losses']}")
+    del run
+    torch.cuda.empty_cache()
+
+
+def lmt_widths(B) -> None:
+    """Both kernels at every shape a counted granite_moe step gives them
+    (T = B x LMT_SEQ tokens, a 49,155 x 1,536 table, K = 8 of 40 experts,
+    E·C expert rows), bit-equal to their plain versions on CPU copies: the
+    token embedding (a gather of the batch's Zipf tokens) and its gradient
+    (their sum into the table's rows; token 0 alone takes about a quarter
+    of them); the dispatch gather of T·K token rows and its gradient, the
+    combine's sum of T·K rows into T (the same shapes); the combine's
+    gather of E·C expert rows and its gradient, a sum of T·K rows into
+    E·C."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.kernels.segment_sum import segment_sum
+    from repro_torch.kernels.segment_sum.ref import segment_sum_ref
+    cfg = lm_config("granite_moe")
+    m, d = cfg.moe, cfg.d_model
+    T = B * LMT_SEQ
+    C = max(1, int(np.ceil(m.capacity_factor * m.top_k * T / m.num_experts)))
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    cpu_gen = torch.Generator().manual_seed(14)
+    toks = lmt_batch(cfg, B, LMT_SEQ, 0, "cpu")[0].reshape(-1)
+    tok = torch.arange(T, dtype=torch.int32).repeat_interleave(m.top_k)[
+        torch.randperm(T * m.top_k, generator=cpu_gen)]
+    slot = torch.randint(0, m.num_experts * C, (T * m.top_k,),
+                         generator=cpu_gen, dtype=torch.int32)
+    texts = []
+    t0 = time.perf_counter()
+    for what, ids, rows in (("token embedding", toks, cfg.vocab),
+                            ("dispatch / combine", tok, T),
+                            ("combine gather", slot, m.num_experts * C)):
+        table = torch.randn((rows, d), generator=gen, device="cuda")
+        got = embedding_bag(ids[:, None].cuda(), table).cpu()
+        if not torch.equal(got, embedding_bag_ref(ids[:, None],
+                                                  table.cpu())):
+            raise AssertionError(f"lmt widths: embedding_bag ({what}) "
+                                 "differs from its plain version")
+        del table
+        grad = torch.randn((ids.numel(), d), generator=gen, device="cuda")
+        got = segment_sum(grad, ids.cuda(), rows).cpu()
+        if not torch.equal(got, segment_sum_ref(grad.cpu(), ids, rows)):
+            raise AssertionError(f"lmt widths: segment_sum ({what}) differs "
+                                 "from its plain version")
+        del grad, got
+        texts.append(f"{what}: {ids.numel()} rows of {rows} x {d} "
+                     f"(longest segment {longest_segment(ids)})")
+    print(f"lmt widths (batch {B}): {'; '.join(texts)}: both kernels "
+          f"bit-equal to their plain versions "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def lmt_substrate(failures) -> None:
+    """``pipeline_apply`` at LMT_PIPE against the stages applied in turn
+    (the reference test's atol 1e-5), and ``crosspod_psum_compressed`` over
+    a LMT_PODS-pod mesh on the card against the same call on the CPU, bit
+    for bit, over 3 steps of error feedback."""
+    import torch
+
+    from repro_torch.distributed import pipeline
+    from repro_torch.optim import grad_compression as gcomp
+    from repro_torch.runtime import elastic
+    P, M, mb, D = LMT_PIPE
+    g = torch.Generator().manual_seed(15)
+    ws = (torch.randn((P, D, D), generator=g) * 0.3).cuda()
+    xs = torch.randn((M, mb, D), generator=g).cuda()
+
+    def stage(w, x):
+        return torch.tanh(x @ w)
+    mesh = elastic.build_mesh((P,), ("pipe",))
+    out = pipeline.pipeline_apply(stage, ws, xs, mesh)
+    seq = xs
+    for i in range(P):
+        seq = stage(ws[i], seq)
+    err = float((out - seq).abs().max())
+    if not (out.shape == seq.shape and err <= 1e-5):
+        failures.append(f"lmt pipeline: max |diff| {err:.3g} > 1e-5")
+    pods = elastic.build_mesh((LMT_PODS,), ("pod",))
+    grads = {"w_gate": torch.randn((LMT_PODS, 40, 1536, 512), generator=g),
+             "router": torch.randn((LMT_PODS, 1536, 40), generator=g) * 1e-3,
+             "scale": torch.randn((LMT_PODS, 1536), generator=g)}
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        gr = tree_map(lambda x: x.to(dev), grads)
+        errs = gcomp.init_error_state(gr)
+        for _ in range(3):
+            red, errs = gcomp.crosspod_psum_compressed(gr, errs, pods.axis_name)
+        outs[dev] = [x.cpu() for x in tree_leaves(red) + tree_leaves(errs)]
+        del gr, errs, red
+    same = all(torch.equal(a, b) for a, b in zip(outs["cuda"], outs["cpu"]))
+    if not same:
+        failures.append("lmt crosspod_psum_compressed: card != CPU")
+    n = sum(x.numel() for x in tree_leaves(grads)) // LMT_PODS
+    print(f"lmt pipeline_apply P={P} M={M} ({mb} x {D}): max |diff| to the "
+          f"stages in turn {err:.3g} (atol 1e-5), bubble "
+          f"{pipeline.gpipe_bubble_fraction(P, M):.4f}; "
+          f"crosspod_psum_compressed over {LMT_PODS} pods ({n} elements a "
+          f"pod, {n} B of int8 payload against {4 * n} at float32), 3 steps: "
+          f"card {'==' if same else '!='} CPU bit for bit")
+
+
+def run_lm_train() -> dict:
+    """Phase 12: the LM training slice at full width; returns the kernels'
+    launches summed over the counted FULL runs (the comparisons' launches
+    are not counted)."""
+    import torch
+    if torch.get_float32_matmul_precision() != "highest" \
+            or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("lmt: float32 matmuls must run at 'highest' "
+                             "precision (no TF32)")
+    launched = {"embedding_bag": 0, "segment_sum": 0}
+    failures = []
+
+    def add(counts):
+        for k in launched:
+            launched[k] += counts[k]
+    torch.use_deterministic_algorithms(True)
+    try:
+        with timed("lmt card vs CPU"):
+            lmt_card_vs_cpu(failures)
+        with timed("lmt granite_moe"):
+            B = lmt_granite(failures, add)
+        with torch.no_grad(), timed("lmt widths"):
+            lmt_widths(B)
+        with timed("lmt deepseek_7b"):
+            lmt_deepseek(failures, add)
+        with torch.no_grad(), timed("lmt substrate"):
+            lmt_substrate(failures)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if failures:
+        raise AssertionError("lmt: " + "; ".join(failures))
+    print(f"lmt launches over the phase's FULL runs: {launched} "
+          f"({card_line()})")
+    return launched
+
+
+# ------------------------------------------------------------ the launchers
+#
+# The command-line checks run in processes of their own while phase 1
+# builds the fused kernel and the graphs.  They measure nothing and spend
+# most of their seconds starting Python and reaching the card, so run
+# together there they cost the script little (one after another they
+# took about 70 s of it on an H100 host).  Every one has exited before
+# phase 2 starts, so none runs beside a measurement.
+
+CLI_TIMEOUT = 300                # seconds a command may take
+
+
+def cli_chains(tmp) -> tuple[list, list]:
+    """The checks as chains whose commands run in turn (PNA's resume after
+    its first run), split into those that need no kernel (the verifier's
+    two ``--check`` CLIs) and those that launch the embedding-bag and
+    segment-sum kernels.  A command: (label, arguments after ``python``,
+    strings its standard output must hold, which of its lines to print)."""
+    def train(arch, steps, resume=False):
+        return (f"zoo launcher --arch {arch} --steps {steps}"
+                f"{' --resume' if resume else ''}",
+                ["-m", "repro_torch.launch.train", "--arch", arch, "--steps",
+                 str(steps), "--ckpt-dir", os.path.join(tmp, arch)]
+                + (["--resume"] if resume else []),
+                [f"done at step {steps}"]
+                + ([f"resumed at step {ZOO_LAUNCHER_STEPS}"] if resume else []),
+                "last")
+
+    def check(module):
+        return [(f"verifier python -m {module} --check",
+                 ["-m", module, "--check"], [], "all")]
+    no_kernel = [check("repro_torch.analysis"),
+                 check("repro_torch.core.phase_program")]
+    kernels = [
+        [train("pna", ZOO_LAUNCHER_STEPS),
+         train("pna", ZOO_LAUNCHER_STEPS + 2, resume=True)],
+        [train("dcn_v2", ZOO_LAUNCHER_STEPS)],
+        [("lm launcher -m repro_torch.launch.serve --arch deepseek_7b "
+          "(SMOKE, 16 requests)",
+          ["-m", "repro_torch.launch.serve", "--arch", "deepseek_7b"],
+          ["completed=16", "device=cuda"], "first")],
+        [("lmt launcher -m repro_torch.launch.train --arch granite_moe "
+          "--device cuda --steps 4",
+          ["-m", "repro_torch.launch.train", "--arch", "granite_moe",
+           "--device", "cuda", "--steps", "4", "--ckpt-dir",
+           os.path.join(tmp, "granite_moe")], ["done at step 4"], "last")]]
+    return no_kernel, kernels
+
+
+def run_chain(chain) -> list:
+    """Each command of ``chain`` in turn, until one fails: (label, the
+    completed process, seconds, wanted strings, lines to print)."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    done = []
+    for label, argv, want, show in chain:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, *argv], capture_output=True,
+                           text=True, env=env, cwd=ROOT, timeout=CLI_TIMEOUT)
+        done.append((label, r, time.perf_counter() - t0, want, show))
+        if r.returncode != 0:
+            break
+    return done
+
+
+def finish_clis(futures) -> None:
+    """Wait for every chain; print each command's line; raise if one
+    exited non-zero or printed less than it must."""
+    failures = []
+    for f in futures:
+        for label, r, secs, want, show in f.result():
+            if r.returncode != 0 or not all(w in r.stdout for w in want):
+                failures.append(f"{label}: exit {r.returncode}, wanted "
+                                f"{want}\n{r.stdout}\n{r.stderr}")
+                continue
+            lines = r.stdout.strip().splitlines() or [""]
+            text = {"all": " / ".join(lines), "first": lines[0],
+                    "last": lines[-1]}[show]
+            print(f"{label}: exit 0 in {secs:.1f} s; {text}")
+    if failures:
+        raise AssertionError("launchers:\n" + "\n".join(failures))
 
 
 def main() -> int:
@@ -4531,25 +5095,49 @@ def main() -> int:
     from repro_torch.graph import make_dataset
     from repro_torch.kernels import build
 
-    # Phase 1: build.
+    # Phase 1: build, the graphs and the command-line checks.  The fused
+    # kernel's nvcc (the longest) runs beside the other three's; the
+    # checks that launch kernels start once those three are built, and
+    # the graphs are made while the fused kernel builds.
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
     t_run = t0 = time.perf_counter()
-    secs = build.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s {secs}")
-    for lib in build.SOURCES:
-        print(f"ptxas {lib}:")
-        for line in ptxas_report(build.build_log(lib)):
-            print(line)
-    print(card_line())
-    print_grids()
-
-    t0 = time.perf_counter()
-    g = make_dataset("WG", weighted=True, with_alias=True,
-                     scale_override=WG_SCALE)
-    gt = make_dataset("WG", num_edge_types=3, scale_override=WG_SCALE)
-    print(f"graph WG scale {WG_SCALE}: |V|={g.num_vertices} "
-          f"|E|={g.num_edges} max_deg={g.max_degree}; typed (3 edge types): "
-          f"|E|={gt.num_edges} max_deg={gt.max_degree}; built in "
-          f"{time.perf_counter() - t0:.1f} s")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    no_kernel, kernels = cli_chains(tmp)
+    with ThreadPoolExecutor(max_workers=len(no_kernel) + len(kernels)
+                            + 1) as pool:
+        clis = [pool.submit(run_chain, c) for c in no_kernel]
+        fused = pool.submit(build.build, ["fused_superstep"])
+        secs = build.build([n for n in build.SOURCES
+                            if n != "fused_superstep"])
+        clis += [pool.submit(run_chain, c) for c in kernels]
+        t1 = time.perf_counter()
+        g = make_dataset("WG", weighted=True, with_alias=True,
+                         scale_override=WG_SCALE)
+        gt = make_dataset("WG", num_edge_types=3, scale_override=WG_SCALE)
+        graph_s = time.perf_counter() - t1
+        secs.update(fused.result())
+        print(f"build: {time.perf_counter() - t0:.2f} s {secs}")
+        for lib in build.SOURCES:
+            print(f"ptxas {lib}:")
+            for line in ptxas_report(build.build_log(lib)):
+                print(line)
+        print(card_line())
+        print_grids()
+        print(f"graph WG scale {WG_SCALE}: |V|={g.num_vertices} "
+              f"|E|={g.num_edges} max_deg={g.max_degree}; typed (3 edge "
+              f"types): |E|={gt.num_edges} max_deg={gt.max_degree}; built "
+              f"in {graph_s:.1f} s (beside the fused kernel's build)")
+        t1 = time.perf_counter()
+        try:
+            finish_clis(clis)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(f"phase 1 launchers: waited {time.perf_counter() - t1:.1f} s "
+              f"for them after the build; phase 1: "
+              f"{time.perf_counter() - t0:.1f} s")
     deg = (g.row_ptr[1:] - g.row_ptr[:-1]).double()
     hubs, dangling = deg > 5_000, float((deg == 0).double().mean())
     print(f"WG degrees: dangling share {dangling:.4f}, "
@@ -4599,6 +5187,8 @@ def main() -> int:
     for name, n in phase("10 zoo", run_zoo, g).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in phase("11 LM serving", run_lm).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in phase("12 LM training", run_lm_train).items():
         launches[name] = launches.get(name, 0) + n
     for name, row in rows.items():
         row["launches"] = launches[name]

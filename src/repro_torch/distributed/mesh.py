@@ -26,10 +26,38 @@ class Mesh(NamedTuple):
     axis_name: str = "ch"
 
 
+class GridMesh(NamedTuple):
+    """A mesh of several named axes, ``shape[i]`` positions along
+    ``axis_names[i]``, stacked on ``device`` in row-major order as
+    :class:`Mesh` stacks its shards (``runtime.elastic.build_mesh``'s
+    multi-axis meshes)."""
+
+    shape: tuple
+    axis_names: tuple
+    device: torch.device
+
+
+def axis_size(m, axis: str) -> int:
+    """The positions along ``axis`` of a :class:`Mesh` or
+    :class:`GridMesh` (a ``jax.sharding.Mesh``'s ``shape[axis]``)."""
+    if isinstance(m, Mesh):
+        names, shape = (m.axis_name,), (m.num_shards,)
+    else:
+        names, shape = m.axis_names, m.shape
+    if axis not in names:
+        raise ValueError(f"the mesh has no axis {axis!r}: {names}")
+    return shape[names.index(axis)]
+
+
 def psum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the shard axis, broadcast back: ``(N, ...) -> (N, ...)``,
     every shard holding the total."""
     return x.sum(0, keepdim=True).expand_as(x)
+
+
+def pmax(x: torch.Tensor) -> torch.Tensor:
+    """Max over the shard axis, broadcast back: ``(N, ...) -> (N, ...)``."""
+    return x.amax(0, keepdim=True).expand_as(x)
 
 
 def all_gather(x: torch.Tensor) -> torch.Tensor:

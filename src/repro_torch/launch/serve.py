@@ -14,7 +14,9 @@ at a time into its lane, greedy ``argmax``, and one position a decode
 step for every lane (the largest of the active lanes'; see the NOTE in
 the loop).  ``--device`` (default ``cuda``) picks the device; the
 launcher serves the reduced (``SMOKE``) config at float32, as the
-reference's does.
+reference's does, from weights drawn on the CPU from seed 0 and placed on
+the device: every device serves the same weights, as every backend does
+under the reference's ``jax.random`` draw.
 """
 from __future__ import annotations
 
@@ -126,7 +128,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = dataclasses.replace(mod.SMOKE, dtype=torch.float32)
     with torch.no_grad():
-        params = tfm.init_params(seeded_generator(0, device), cfg)
+        params = tfm.init_params(seeded_generator(0), cfg, device=device)
     rng = np.random.default_rng(0)
     reqs = [torch.as_tensor(rng.integers(0, cfg.vocab, args.prompt_len),
                             dtype=torch.int32, device=device)

@@ -1,21 +1,25 @@
-"""End-to-end training launcher for the GNN and recsys families.
+"""End-to-end training launcher for the language-model, GNN and recsys
+families.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch pna --steps 30
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
-      --arch dcn_v2 --steps 4 [--resume]
+      --arch granite_moe --steps 4 [--resume]
 
 ``--smoke`` is the reference's flag: ``store_true`` with default True, so
 it cannot be turned off and the launcher always trains the reduced
 (``SMOKE``) config.  The full configs are trained on the card by
 ``chip_smoke.py`` through the same step functions.  The loop runs through
 ``runtime/train_loop.py`` — checkpointing, straggler watchdog, resume.
-``--device`` (default ``cuda``) picks the device; a language-model
-``--arch`` raises: its training step is the LM training slice (ROADMAP
-item 11b).
+``--device`` (default ``cuda``) picks the device.  A language model
+trains in float32, as the reference forces, on ``data.pipeline``'s
+synthetic Zipf tokens (``--batch`` sequences of ``--seq`` tokens a step),
+from weights drawn on the CPU from seed 0 and placed on the device: the
+same bits on every device.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import os
 import tempfile
@@ -53,6 +57,18 @@ def make_grad_step(loss_fn, opt_cfg: adamw.AdamWConfig):
     return step
 
 
+def make_lm_step(cfg, opt_cfg):
+    """The language model's step: the gradient of
+    ``transformer.train_loss`` on a ``(tokens, labels)`` batch, then
+    AdamW (the reference's ``make_lm_step``)."""
+    from repro_torch.models import transformer as tfm
+
+    def loss_fn(params, batch):
+        tokens, labels = batch
+        return tfm.train_loss(params, tokens, labels, cfg)
+    return make_grad_step(loss_fn, opt_cfg)
+
+
 def gnn_module(arch: str):
     return importlib.import_module(f"repro_torch.models.gnn.{arch}")
 
@@ -82,12 +98,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     mod = get_arch(args.arch)
-    if mod.FAMILY == "lm":
-        raise ValueError(f"--arch {args.arch}: the language-model training "
-                         "step (make_lm_step) is not ported yet (ROADMAP "
-                         "item 11b, the LM training slice); serving is "
-                         "repro_torch.launch.serve")
-    if mod.FAMILY not in ("gnn", "recsys"):
+    if mod.FAMILY not in ("lm", "gnn", "recsys"):
         raise ValueError(f"--arch {args.arch}: family {mod.FAMILY!r} has no "
                          "training step")
     device = resolve_device(args.device)
@@ -96,7 +107,16 @@ def main(argv=None):
                                 warmup_steps=max(1, args.steps // 10))
     generator = seeded_generator(0)
 
-    if mod.FAMILY == "gnn":
+    if mod.FAMILY == "lm":
+        from repro_torch.models import transformer as tfm
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        params = tfm.init_params(generator, cfg, device=device)
+        dcfg = datapipe.TokenPipelineConfig(cfg.vocab, args.seq, args.batch)
+
+        def batch_fn(step):
+            return datapipe.to_device(datapipe.lm_batch(dcfg, step), device)
+        step_fn = make_lm_step(cfg, opt_cfg)
+    elif mod.FAMILY == "gnn":
         arch = args.arch.replace("-", "_")
         if arch in ("schnet", "mace"):
             b = datapipe.molecule_batch(16, 48, args.batch)

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.checkpoint.checkpointer import tree_map
+from repro_torch.checkpoint.checkpointer import leaves, tree_map, unflatten
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.segment_sum import segment_sum
 
@@ -124,6 +124,15 @@ def stack_trees(trees):
 def tree_index(tree, i: int):
     """Layer ``i`` of a stacked tree (a view of every leaf)."""
     return tree_map(lambda a: a[i], tree)
+
+
+def tree_unstack(tree) -> list:
+    """Every layer of a stacked tree, as :func:`tree_index` gives them,
+    through one ``unbind`` a leaf: its backward stacks the layers'
+    gradients once, where each ``a[i]``'s would write its layer into a
+    zero tensor of the whole leaf and add that to the others."""
+    rows = [a.unbind(0) for a in leaves(tree)]
+    return [unflatten(tree, iter(r)) for r in zip(*rows)]
 
 
 # ------------------------------------------------------------ row gathers

@@ -4,7 +4,7 @@ paths, the reference's ``repro.models.transformer``.
 Covers the five LM architectures (phi3.5-moe, granite-moe, deepseek-7b,
 minitron-8b, stablelm-12b).  Layers are stacked on a leading axis, as
 the reference's ``jax.vmap(init)`` lays them out, and run one after
-another (``layers.tree_index``) where the reference scans them.
+another (``layers.tree_unstack``) where the reference scans them.
 
 Entry points:
   * ``train_loss(params, tokens, labels, cfg)``      — training objective
@@ -12,8 +12,13 @@ Entry points:
   * ``decode_step(params, token, cache, len, cfg)``  — one serving step
 
 Differences from the reference, each without effect on a value:
-  * ``remat`` and ``scan_layers`` are accepted; without autograd neither
-    changes a result.  As ``jax.lax.scan`` does, the layer loop raises
+  * ``remat`` wraps each layer of ``forward`` and of ``prefill`` in
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``) when
+    autograd records: the backward recomputes the layer's activations
+    instead of keeping them, which trades memory for a second forward
+    and changes no value (the gradients are the same bits).  Without
+    autograd (serving) it does nothing.  ``scan_layers`` changes no
+    value either.  As ``jax.lax.scan`` does, the layer loop raises
     ``TypeError`` when a layer changes the dtype of its carry (bfloat16
     parameters over a float32 cache promote the residual stream), unless
     ``scan_layers=False``, whose unrolled loop the reference lets promote.
@@ -31,6 +36,7 @@ import math
 from typing import Any, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.checkpointer import leaves, tree_map
 from repro_torch.models import layers as L
@@ -122,8 +128,19 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
     ``device`` (default: the generator's; ``meta`` shapes the tree without
     memory).  A full config drawn on the card needs a CUDA generator.
     Each stacked leaf is allocated once and layer ``i`` drawn into its
-    row ``i``, so the peak is the weights and one layer's draws."""
+    row ``i``, so the peak is the weights and one layer's draws.  On
+    another device than the generator's, the tree is drawn and scaled on
+    the generator's device and then moved: a CUDA tensor divided by a
+    Python number is multiplied by its reciprocal, which rounds otherwise
+    than the CPU's division, so every device gets the same bits."""
     device = torch.device(device if device is not None else generator.device)
+    if device.type != "meta" and device != generator.device:
+        return tree_map(lambda x: x.to(device),
+                        _draw(generator, cfg, generator.device))
+    return _draw(generator, cfg, device)
+
+
+def _draw(generator: torch.Generator, cfg: TransformerConfig, device):
     s = 1.0 / math.sqrt(cfg.d_model)
     embed = L.normal(generator, (cfg.vocab, cfg.d_model), cfg.dtype,
                      device).mul_(s)
@@ -190,15 +207,27 @@ def _block(cfg: TransformerConfig, x, positions, lp, kv_cache=None,
     return (x + y.to(x.dtype)).to(x.dtype), kv, aux
 
 
+def _remat(cfg: TransformerConfig, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``cfg.remat``
+    is set and autograd records."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def forward(params, tokens, cfg: TransformerConfig):
     """Training/prefill trunk: tokens (B, S) -> hidden (B, S, d), aux."""
     S = tokens.shape[1]
     x = _embed(params["embed"], tokens)
     positions = torch.arange(S, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(_num_layers(params)):
-        x_new, _, a = _block(cfg, x, positions,
-                             L.tree_index(params["layers"], i))
+
+    def body(x, lp):
+        x_new, _, a = _block(cfg, x, positions, lp)
+        return x_new, a
+
+    for lp in L.tree_unstack(params["layers"]):
+        x_new, a = _remat(cfg, body, x, lp)
         x, aux = _carry(cfg, x, x_new), aux + a
     return L.rmsnorm(params["final_norm"], x), aux
 
@@ -223,13 +252,16 @@ def prefill(params, tokens, cfg: TransformerConfig):
     S = tokens.shape[1]
     x = _embed(params["embed"], tokens)
     positions = torch.arange(S, device=x.device)[None, :]
+
+    def body(x, lp):
+        x_new, kv, _ = _block(cfg, x, positions, lp, return_kv=True)
+        return x_new, torch.stack(kv)           # (2, B, S, Hkv, Dh)
+
     caches = []
-    for i in range(_num_layers(params)):
-        x_new, kv, _ = _block(cfg, x, positions,
-                              L.tree_index(params["layers"], i),
-                              return_kv=True)
+    for lp in L.tree_unstack(params["layers"]):
+        x_new, kv = _remat(cfg, body, x, lp)
         x = _carry(cfg, x, x_new)
-        caches.append(torch.stack(kv))          # (2, B, S, Hkv, Dh)
+        caches.append(kv)
     x = L.rmsnorm(params["final_norm"], x)
     logits = L.matmul(x[:, -1:], params["lm_head"]).to(torch.float32)
     return logits, torch.stack(caches)

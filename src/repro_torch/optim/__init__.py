@@ -1,2 +1,3 @@
-"""Optimizers (AdamW with a warmup-cosine schedule)."""
-from repro_torch.optim import adamw
+"""Optimizers (AdamW with a warmup-cosine schedule) and the cross-pod
+int8 gradient compression."""
+from repro_torch.optim import adamw, grad_compression

@@ -87,11 +87,18 @@ def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig):
     b2c = 1 - cfg.b2 ** step.float()
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.mu),
                           leaves(state.nu), strict=True):
+        # The update's expression, op for op, with at most two temporaries
+        # of the leaf's size alive at once (in place where the expression
+        # made a new tensor): a full model's largest leaves are 4 GB.
         g = g.float() * scale
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
-            + cfg.weight_decay * p.float()
-        p.sub_((lr * delta).to(p.dtype))
+        m.mul_(cfg.b1).add_(torch.mul(g, 1 - cfg.b1))
+        sq = torch.square(g)
+        del g
+        v.mul_(cfg.b2).add_(sq.mul_(1 - cfg.b2))
+        del sq
+        delta = torch.div(m, b1c).div_(
+            torch.div(v, b2c).sqrt_().add_(cfg.eps))
+        delta.add_(cfg.weight_decay * p.float())
+        p.sub_(delta.mul_(lr).to(p.dtype))
     stats = {"grad_norm": gnorm, "lr": lr}
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu), stats

@@ -1,3 +1,3 @@
-"""Training runtime: the generic loop and the producer/consumer pipelined
-loop."""
-from repro_torch.runtime import train_loop
+"""Training runtime: the generic loop, the producer/consumer pipelined
+loop and elastic remesh."""
+from repro_torch.runtime import elastic, train_loop

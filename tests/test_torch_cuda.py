@@ -761,3 +761,25 @@ def test_service_on_the_card_equals_cpu_torch_service(serve_graphs, name,
         kernel = "walk_step_alias" if name == "deepwalk" else \
             "walk_step_uniform"
         assert counted[kernel] == stats.supersteps
+
+
+def test_serve_main_serves_the_same_weights_on_the_card(card, monkeypatch):
+    """``launch.serve.main --device cuda`` serves the weights that
+    ``--device cpu`` serves, bit for bit (both drawn on a CPU generator)."""
+    from repro_torch.checkpoint.checkpointer import leaves
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    real = tfm.init_params
+    drawn = []
+
+    def spy(*args, **kw):
+        drawn.append(real(*args, **kw))
+        return drawn[-1]
+    monkeypatch.setattr(tfm, "init_params", spy)
+    for dev in ("cpu", "cuda"):
+        serve.main(["--device", dev, "--arch", "granite_moe", "--requests",
+                    "2", "--slots", "2", "--max-new", "2"])
+    cpu, card = drawn
+    assert leaves(card)[0].device.type == "cuda"
+    assert all(torch.equal(a, b.cpu())
+               for a, b in zip(leaves(cpu), leaves(card)))

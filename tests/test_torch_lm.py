@@ -533,3 +533,34 @@ def test_serve_main_on_the_cpu(capsys):
     assert "completed=3" in out and "device=cpu" in out
     with pytest.raises(ValueError, match="LM archs"):
         serve.main(["--device", "cpu", "--arch", "pna"])
+
+
+def test_serve_main_draws_the_same_weights_on_every_device(monkeypatch):
+    """``launch.serve.main`` draws its weights on a CPU generator and
+    places them on ``--device``, so ``--device cpu`` and a CUDA device
+    serve the same weights (the reference's ``jax.random`` draw is the
+    same on every backend).  Checked here by stopping the launcher at its
+    draw, ``resolve_device`` replaced so that ``cuda`` needs no card."""
+    class Drawn(Exception):
+        pass
+    real = tfm.init_params
+    seen = []
+
+    def spy(generator, cfg, device=None):
+        seen.append((generator.device, torch.device(device), real(
+            generator, cfg, device="cpu")))
+        raise Drawn
+    monkeypatch.setattr(tfm, "init_params", spy)
+    monkeypatch.setattr(serve, "resolve_device", torch.device)
+    for dev in ("cpu", "cuda"):
+        with pytest.raises(Drawn):
+            serve.main(["--device", dev, "--arch", "granite_moe"])
+    cfg = dataclasses.replace(get_arch("granite_moe").SMOKE,
+                              dtype=torch.float32)
+    want = flatten_with_paths(real(seeded_generator(0), cfg))
+    assert [(g.type, d.type) for g, d, _ in seen] == [("cpu", "cpu"),
+                                                       ("cpu", "cuda")]
+    for _, _, tree in seen:
+        got = flatten_with_paths(tree)
+        assert [p for p, _ in got] == [p for p, _ in want]
+        assert all(torch.equal(a, b) for (_, a), (_, b) in zip(got, want))

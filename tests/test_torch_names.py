@@ -32,6 +32,8 @@ NAMES = [
     ("kernels", "SegmentSumOp"), ("kernels", "walk_step_uniform"),
     ("kernels", "walk_step_alias"),
     ("optim", "adamw"), ("runtime", "train_loop"),
+    ("optim", "grad_compression"), ("runtime", "elastic"),
+    ("distributed", "pipeline"),
     ("checkpoint", "checkpointer"),
     ("graph", "erdos_renyi_edges"),
     ("graph.generators", "erdos_renyi_edges"),
@@ -94,8 +96,8 @@ def _kind(x) -> str:
 
 # The model zoo (models, configs, data, sampler, loop, launchers): every
 # public name the reference defines in these modules, found by reading the
-# reference, less the names of slices still to come (ROADMAP item 11b: the
-# LM training step, and the dry-run tooling's PartitionSpecs) and
+# reference, less the names of slices still to come (ROADMAP item 11c: the
+# dry-run tooling's PartitionSpecs) and
 # ``shard_batch``, a JAX sharding, which the port's
 # ``data.pipeline.to_device`` replaces.
 ZOO_MODULES = (
@@ -109,10 +111,10 @@ ZOO_MODULES = (
     "optim.adamw", "models.attention_chunked", "models.moe",
     "models.transformer", "configs.phi35_moe", "configs.granite_moe",
     "configs.deepseek_7b", "configs.minitron_8b", "configs.stablelm_12b",
-    "launch.serve",
+    "launch.serve", "optim.grad_compression", "runtime.elastic",
+    "distributed.pipeline",
 )
 DEFERRED = {
-    ("launch.train", "make_lm_step"),            # the LM training slice
     ("models.transformer", "param_specs"),       # the dry-run tooling
     ("models.moe", "moe_param_specs"),           # the dry-run tooling
     ("data.pipeline", "shard_batch"),

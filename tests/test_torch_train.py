@@ -234,7 +234,13 @@ def test_launcher_trains_each_arch(arch, tmp_path):
         assert "done at step 6" in r.stdout
 
 
-def test_launcher_refuses_language_models(tmp_path):
-    with pytest.raises(ValueError, match="item 11b"):
-        train.main(["--arch", "deepseek_7b", "--device", "cpu",
+def test_launcher_refuses_language_models(tmp_path, capsys):
+    """The launcher trains the language-model family now (its step is
+    ``make_lm_step``) and refuses only an arch whose family has no
+    training step (the walk workloads)."""
+    train.main(["--arch", "deepseek_7b", "--device", "cpu", "--steps", "2",
+                "--batch", "2", "--seq", "8", "--ckpt-dir", str(tmp_path)])
+    assert "done at step 2" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="no training step"):
+        train.main(["--arch", "ridgewalker", "--device", "cpu",
                     "--ckpt-dir", str(tmp_path)])
