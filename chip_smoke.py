@@ -16,8 +16,12 @@ its seconds.
    staged in shared memory).  The main path's graphs are made while the
    fused kernel builds.  Every command-line check runs meanwhile in a
    process of its own, and all have exited before phase 2 starts
-   (:func:`cli_chains`): ``python -m repro_torch.analysis --check`` and
-   ``python -m repro_torch.core.phase_program --check`` from the start;
+   (:func:`cli_chains`): ``python -m repro_torch.analysis --check``,
+   ``python -m repro_torch.core.phase_program --check`` and the dry-run's
+   sweep (``python -m repro_torch.launch.dryrun --all --mesh both``, all
+   80 cells on ``meta`` tensors, no card; every record's roofline must be
+   finite and positive, :func:`check_dryrun`) then one ``python -m
+   repro_torch.launch.perf`` line, from the start;
    once the other three kernels are built, ``python -m
    repro_torch.launch.train`` on the card for PNA and DCN-v2 for 6 steps,
    then PNA resumed to 8, ``python -m repro_torch.launch.serve --arch
@@ -274,7 +278,15 @@ its seconds.
     counts are zeroed
     before each FULL run and read after it; the comparisons' launches do
     not count.
-13. Print the kernels' JSON summary (five rows), the card line, and last
+13. The dry-run against the card (:func:`run_dryrun_vs_card`): phase
+    1's granite_moe ``train_4k`` FLOPs of matrix products, scaled from
+    the global batch 256 to phase 12's batch, against ``lmt_step_ops``
+    (within 2 %), and the dry-run of phase 12's step itself (float32, a
+    one-device mesh) against it exactly; its parameter and AdamW bytes
+    against ``torch.cuda.memory_allocated()``'s growth over phase 12's
+    setup (within 512 bytes a leaf); its roofline beside the measured
+    step, with the card's name and power limit.  Nothing is launched.
+14. Print the kernels' JSON summary (five rows), the card line, and last
     the result line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or when the
@@ -3898,10 +3910,11 @@ def zoo_minibatch(g, add, failures) -> None:
 
 
 def zoo_dcn(add, failures) -> None:
-    """DCN-v2 FULL: card vs CPU at batch 512, ``train_batch`` (65,536)
-    trained twice, ``serve_p99`` / ``serve_bulk`` predicts and
-    ``retrieval_cand`` (one query against 1,000,000 x 64 candidates), each
-    run twice and equal."""
+    """DCN-v2 FULL: its weights drawn for the card equal the CPU's bit for
+    bit (both drawn and scaled on the CPU generator), card vs CPU at
+    batch 512, ``train_batch`` (65,536) trained twice, ``serve_p99`` /
+    ``serve_bulk`` predicts and ``retrieval_cand`` (one query against
+    1,000,000 x 64 candidates), each run twice and equal."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -3926,7 +3939,18 @@ def zoo_dcn(add, failures) -> None:
     with torch.no_grad():
         want = dcn.retrieval_scores(params_cpu, q["dense"], q["sparse"],
                                     cands.cpu(), cfg)
-    params = tree_map(lambda x: x.cuda(), params_cpu)
+    t0 = time.perf_counter()
+    params = dcn.init_params(seeded_generator(0), cfg, device="cuda")
+    card_init_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b.cuda()) for a, b in
+               zip(tree_leaves(params), tree_leaves(params_cpu)))
+    verdict = "equals" if same else "DIFFERS FROM"
+    print(f"zoo dcn_v2 init_params(device='cuda') {verdict} the CPU's bit "
+          f"for bit ({len(tree_leaves(params))} leaves, drawn in "
+          f"{card_init_s:.1f} s)")
+    if not same:
+        failures.append("zoo dcn_v2: the card's initial weights differ "
+                        "from the CPU's")
     del params_cpu
     with torch.no_grad():
         got = dcn.retrieval_scores(params, q["dense"].cuda(),
@@ -4565,6 +4589,7 @@ LMT_LOSS_RTOL = 1e-5
 LMT_GRAD_NORM = 1e-3
 LMT_PIPE = (4, 8, 4, 16)         # stages, microbatches, rows, width
 LMT_PODS = 2                     # the compressed reduction's pods
+LMT_MEASURED = {}   # granite_moe FULL's run 1, for phase 13
 
 
 def lmt_batch(cfg, B, seq, step, device="cuda"):
@@ -4702,6 +4727,7 @@ def lmt_run(cfg, B, label):
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import adamw
     torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = tfm.init_params(seeded_generator(0, "cuda"), cfg)
     state = (params, adamw.init_state(params))
@@ -4710,6 +4736,7 @@ def lmt_run(cfg, B, label):
                                                warmup_steps=1))
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
+    setup_bytes = torch.cuda.memory_allocated() - before
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
     losses, dts = [], []
@@ -4721,7 +4748,8 @@ def lmt_run(cfg, B, label):
         dts.append(time.perf_counter() - t0)
     return {"state": state, "step": step, "losses": losses, "dts": dts,
             "counts": zoo_counts(), "draw_s": draw_s, "label": label,
-            "peak": torch.cuda.max_memory_allocated()}
+            "peak": torch.cuda.max_memory_allocated(),
+            "setup_bytes": setup_bytes}
 
 
 def lmt_fit(cfg):
@@ -4805,6 +4833,9 @@ def lmt_granite(failures, add) -> int:
                              f"{LMT_SEQ}")
     B, run = lmt_fit(cfg)
     add(run["counts"])
+    LMT_MEASURED.update(cfg=cfg, batch=B, setup_bytes=run["setup_bytes"],
+                        leaves=len(tree_leaves(run["state"])),
+                        ms=float(np.median(run["dts"][1:])) * 1e3)
     params = run["state"][0]
     print(f"lmt granite_moe FULL ({cfg.param_count() / 1e9:.3f} B "
           f"parameters; weights, gradients and two AdamW moments "
@@ -4997,6 +5028,138 @@ def run_lm_train() -> dict:
     return launched
 
 
+# ---------------------------------------------------------------- phase 13
+#
+# The dry-run (``launch.dryrun``: the port's steps on ``meta`` tensors,
+# counted, over the H100's data-sheet peaks) held against phase 12's
+# measured granite_moe step.
+
+DRY_CELLS = 80                   # 40 (arch x shape) cells x 2 meshes
+DRY_CELL = ("granite_moe", "train_4k")
+DRY_PERF = ("phi35_moe", "decode_32k", "moe.capacity_factor=1.0")
+# The sweep's worker processes: one took 98.6 s on an H100 host beside
+# the build, past the fused kernel's 67.6 s nvcc; four took 81.9 s
+# beside an 89.8 s build on a slower host.
+DRY_JOBS = 4
+# The dry-run's FLOPs at the cell's global batch of 256, scaled to phase
+# 12's batch, against lmt_step_ops: the experts' capacity is a ceil of
+# the tokens, so the scaling is exact only where both batches' capacities
+# are whole (they are here: C = T/4); 2 % covers a ceil elsewhere.
+DRY_FLOP_RTOL = 0.02
+DRY_ALLOC_SLACK = 512            # the caching allocator's rounding a leaf
+
+
+def check_dryrun(out_dir) -> dict:
+    """Phase 1: every record of the dry-run's sweep is "ok" with a finite,
+    positive roofline (compute, memory and bound; collectives finite and
+    at least 0); returns the single mesh's record of DRY_CELL."""
+    import glob
+    import math
+    paths = sorted(glob.glob(os.path.join(out_dir, "*", "*.json")))
+    if len(paths) != DRY_CELLS:
+        raise AssertionError(f"dryrun: {len(paths)} records, not "
+                             f"{DRY_CELLS}")
+    bad = []
+    for path in paths:
+        with open(path) as f:
+            rec = json.load(f)
+        r = rec.get("roofline", {})
+        terms = [r.get(k) for k in ("compute_s", "memory_s", "bound_s",
+                                    "collective_s")]
+        if rec["status"] != "ok" or not all(
+                isinstance(x, float) and math.isfinite(x) for x in terms) \
+                or min(terms[:3]) <= 0 or terms[3] < 0:
+            bad.append(f"{os.path.basename(path)}: {rec.get('error', r)}")
+    if bad:
+        raise AssertionError("dryrun records: " + "; ".join(bad))
+    with open(os.path.join(out_dir, "single",
+                           f"{DRY_CELL[0]}__{DRY_CELL[1]}.json")) as f:
+        rec = json.load(f)
+    r = rec["roofline"]
+    print(f"dryrun: {len(paths)} records ok, rooflines finite and positive; "
+          f"{DRY_CELL[0]} {DRY_CELL[1]} on {rec['chips']} devices: "
+          f"{rec['cost_analysis']['flops']:.6e} FLOP and "
+          f"{rec['cost_analysis']['bytes_accessed']:.6e} bytes a device, "
+          f"bound {r['bound_s'] * 1e3:.3f} ms by {r['dominant']}")
+    return rec
+
+
+def run_dryrun_vs_card(dry_rec) -> None:
+    """Phase 13: the dry-run against phase 12's granite_moe FULL step
+    (float32, batch B x 4,096): (a) the sweep's FLOPs for the cell's
+    global batch of 256, scaled to B, against ``lmt_step_ops`` within
+    DRY_FLOP_RTOL, and the dry-run of the step itself (a one-device mesh,
+    batch B) against it exactly; (b) the dry-run's parameter and AdamW
+    bytes on the one-device mesh against the card's
+    ``torch.cuda.memory_allocated()`` growth over phase 12's setup,
+    within the allocator's rounding; (c) the dry-run's roofline of that
+    step beside the measured ms, with the card's name and power limit.
+    Counts on ``meta``: nothing is launched."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed.mesh import GridMesh
+    from repro_torch.launch import dryrun, specs
+    m = LMT_MEASURED
+    cfg, B = m["cfg"], m["batch"]
+    cell = get_arch(DRY_CELL[0]).SHAPES[DRY_CELL[1]]
+    gb, seq = cell.dims["global_batch"], cell.dims["seq_len"]
+    failures = []
+    want = lmt_step_ops(cfg, B, seq)
+
+    def matmul_flops(r):       # lmt_step_ops counts the matrix products
+        return r["cost_analysis"]["flops"] - r["kernels"]["flops"]
+    scaled = matmul_flops(dry_rec) * dry_rec["chips"] * B / gb
+    err = abs(scaled - want) / want
+    print(f"dry {DRY_CELL[0]} {DRY_CELL[1]}: FLOPs of matrix products at "
+          f"global batch {gb} scaled to {B}: {scaled:.6e}, lmt_step_ops "
+          f"{want:.6e}, relative "
+          f"error {err:.3e} (tolerance {DRY_FLOP_RTOL})")
+    if not err <= DRY_FLOP_RTOL:
+        failures.append(f"scaled FLOPs off by {err:.3e}")
+    one = GridMesh((1, 1), ("data", "model"), torch.device("meta"))
+    step = ShapeCell(DRY_CELL[1], "train", dict(seq_len=seq, global_batch=B))
+    over = {"dtype": cfg.dtype}
+    rec = dryrun.count_cell(DRY_CELL[0], step, one, False, over)
+    flops = matmul_flops(rec)
+    print(f"dry {DRY_CELL[0]} at batch {B} on one device: {flops:.6e} FLOP "
+          f"of matrix products (and {rec['kernels']['flops']:.6e} of the "
+          f"gather and sum kernels, calls {rec['kernels']['calls']}), "
+          f"lmt_step_ops {want:.6e} "
+          f"({'equal' if flops == want else 'DIFFER'})")
+    if flops != want:
+        failures.append(f"batch {B}: {flops} FLOP, lmt_step_ops {want}")
+    _, args, _, _ = specs.build_cell(DRY_CELL[0], step, one, False,
+                                     overrides=over)
+    state_bytes = sum(dryrun.argument_bytes(args[i], args.specs[i], one)
+                      for i in (0, 1))
+    slack = DRY_ALLOC_SLACK * m["leaves"]
+    gap = m["setup_bytes"] - state_bytes
+    print(f"dry {DRY_CELL[0]} parameters and AdamW state: {state_bytes} "
+          f"bytes by the dry-run, {m['setup_bytes']} allocated on the card "
+          f"over phase 12's setup (gap {gap} bytes, allowed 0 to {slack}: "
+          f"{DRY_ALLOC_SLACK} a leaf)")
+    if not 0 <= gap <= slack:
+        failures.append(f"state bytes: dry-run {state_bytes}, card "
+                        f"{m['setup_bytes']}")
+    r = rec["roofline"]
+    fp32_ms = rec["cost_analysis"]["flops"] / CUDA_CORE_OPS_PER_S * 1e3
+    print(f"dry {DRY_CELL[0]} batch {B} x {seq} roofline on one card: compute "
+          f"{r['compute_s'] * 1e3:.3f} ms (at the bfloat16 tensor-core peak), "
+          f"memory {r['memory_s'] * 1e3:.3f} ms (bytes before fusion), "
+          f"collectives {r['collective_s'] * 1e3:.3f} ms, bound "
+          f"{r['bound_s'] * 1e3:.3f} ms by {r['dominant']}; the step runs in "
+          f"float32 outside the tensor cores: {fp32_ms:.3f} ms at 67 "
+          f"TFLOP/s; measured {m['ms']:.3f} ms a step (phase 12, median), "
+          f"{fp32_ms / m['ms']:.4f} of the float32 bound; "
+          f"card {card_line()}")
+    if not 0 < r["bound_s"] < float("inf"):
+        failures.append(f"roofline {r}")
+    if failures:
+        raise AssertionError("dry run vs the card: " + "; ".join(failures))
+
+
 # ------------------------------------------------------------ the launchers
 #
 # The command-line checks run in processes of their own while phase 1
@@ -5011,9 +5174,10 @@ CLI_TIMEOUT = 300                # seconds a command may take
 
 def cli_chains(tmp) -> tuple[list, list]:
     """The checks as chains whose commands run in turn (PNA's resume after
-    its first run), split into those that need no kernel (the verifier's
-    two ``--check`` CLIs) and those that launch the embedding-bag and
-    segment-sum kernels.  A command: (label, arguments after ``python``,
+    its first run, the perf line after its own baseline), split into
+    those that need no kernel (the verifier's two ``--check`` CLIs, the
+    dry-run on ``meta`` tensors) and those that launch the embedding-bag
+    and segment-sum kernels.  A command: (label, arguments after ``python``,
     strings its standard output must hold, which of its lines to print)."""
     def train(arch, steps, resume=False):
         return (f"zoo launcher --arch {arch} --steps {steps}"
@@ -5028,8 +5192,27 @@ def cli_chains(tmp) -> tuple[list, list]:
     def check(module):
         return [(f"verifier python -m {module} --check",
                  ["-m", module, "--check"], [], "all")]
+    # The perf line's baseline is its cell counted apart, so that its chain
+    # runs beside the sweep and not after it.
+    base = os.path.join(tmp, "perf_baseline")
+    sweep = [(f"dryrun -m repro_torch.launch.dryrun --all --mesh both "
+              f"--jobs {DRY_JOBS}",
+              ["-m", "repro_torch.launch.dryrun", "--all", "--mesh", "both",
+               "--jobs", str(DRY_JOBS), "--out", os.path.join(tmp, "dryrun")],
+              ["80/80 cells OK"], "last")]
+    perf = [(f"dryrun -m repro_torch.launch.dryrun --arch {DRY_PERF[0]} "
+             f"--shape {DRY_PERF[1]} --mesh single",
+             ["-m", "repro_torch.launch.dryrun", "--arch", DRY_PERF[0],
+              "--shape", DRY_PERF[1], "--mesh", "single", "--out", base],
+             ["1/1 cells OK"], "last"),
+            (f"dryrun -m repro_torch.launch.perf --arch {DRY_PERF[0]} --shape "
+             f"{DRY_PERF[1]} --set {DRY_PERF[2]}",
+             ["-m", "repro_torch.launch.perf", "--arch", DRY_PERF[0],
+              "--shape", DRY_PERF[1], "--tag", "smoke", "--set", DRY_PERF[2],
+              "--baseline-dir", base, "--out", os.path.join(tmp, "perf")],
+             ["vs baseline bound="], "last")]
     no_kernel = [check("repro_torch.analysis"),
-                 check("repro_torch.core.phase_program")]
+                 check("repro_torch.core.phase_program"), sweep, perf]
     kernels = [
         [train("pna", ZOO_LAUNCHER_STEPS),
          train("pna", ZOO_LAUNCHER_STEPS + 2, resume=True)],
@@ -5133,6 +5316,7 @@ def main() -> int:
         t1 = time.perf_counter()
         try:
             finish_clis(clis)
+            dry_rec = check_dryrun(os.path.join(tmp, "dryrun"))
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         print(f"phase 1 launchers: waited {time.perf_counter() - t1:.1f} s "
@@ -5190,6 +5374,7 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     for name, n in phase("12 LM training", run_lm_train).items():
         launches[name] = launches.get(name, 0) + n
+    phase("13 dry run vs the card", run_dryrun_vs_card, dry_rec)
     for name, row in rows.items():
         row["launches"] = launches[name]
         if row["launches"] <= 0:

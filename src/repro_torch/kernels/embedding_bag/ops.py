@@ -4,7 +4,9 @@
 dtype, shape, contiguity) and raises on anything the kernel does not take.
 For tensors on the CPU it runs the plain version in ``ref.py``; for CUDA
 tensors it launches the kernel on PyTorch's current stream or raises —
-there is no fallback.  ``LAUNCHES`` counts kernel launches (nothing else
+there is no fallback.  ``meta`` tensors (the dry-run) get the output's
+shape and the kernel's cost (``kernels/meta_cost.py``), and nothing runs;
+any other device raises.  ``LAUNCHES`` counts kernel launches (nothing else
 adds to it), so a run can show that it went through the kernel.
 """
 from __future__ import annotations
@@ -13,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta_cost
 from repro_torch.kernels.embedding_bag import ref
 
 #: Kernel launches since the last :func:`reset_launches`.
@@ -40,9 +42,9 @@ def _check(indices, table, weights) -> torch.device:
         raise ValueError(f"embedding_bag inputs span devices "
                          f"{sorted(map(str, devices))}")
     (device,) = devices
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"embedding_bag inputs must be on cpu or cuda, got "
-                         f"{device}")
+    if device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"embedding_bag inputs must be on cpu, cuda or "
+                         f"meta, got {device}")
     want = {"indices": torch.int32, "table": torch.float32,
             "weights": torch.float32}
     for name, t in args.items():
@@ -51,7 +53,7 @@ def _check(indices, table, weights) -> torch.device:
         if t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 2-D tensor, got "
                              f"shape {tuple(t.shape)}")
-        if t.numel() >= 2**31:
+        if device.type != "meta" and t.numel() >= 2**31:
             raise ValueError(f"{name} has {t.numel()} entries; the kernel "
                              "indexes bags and rows with int32")
     if indices.shape[1] < 1:
@@ -71,12 +73,30 @@ def vectorized(table: torch.Tensor, out: torch.Tensor) -> bool:
         and out.data_ptr() % 16 == 0
 
 
+def _meta(indices, table, weights) -> torch.Tensor:
+    """The shape rule on ``meta``: an empty (B, D) output, and the
+    kernel's cost recorded: 2·B·H·D FLOPs (a multiply and an add a slot
+    and column); bytes: the B·H gathered rows of D, the ids, the weights
+    when given, and the (B, D) output, 4 bytes an entry.  The int32 limit
+    on entries is not checked here: the dry-run's tensors have a mesh's
+    global shapes, and a launch sees one device's shard of them."""
+    bags, hots = indices.shape
+    dim = table.shape[1]
+    slots = bags * hots
+    meta_cost.record("embedding_bag", 2 * slots * dim,
+                     4 * (slots * dim + slots * (2 if weights is not None
+                                                 else 1) + bags * dim))
+    return torch.empty((bags, dim), dtype=table.dtype, device="meta")
+
+
 def embedding_bag(indices: torch.Tensor, table: torch.Tensor,
                   weights: torch.Tensor | None = None) -> torch.Tensor:
     """EmbeddingBag: (B, H) int32 indices (pad -1), (R, D) float32 table,
     optional (B, H) float32 weights (default 1) -> (B, D) weighted bag
     sums, accumulated in h order (``ref.py``)."""
     device = _check(indices, table, weights)
+    if device.type == "meta":
+        return _meta(indices, table, weights)
     if device.type == "cpu":
         return ref.embedding_bag_ref(indices, table, weights)
     bags, hots = indices.shape

@@ -20,6 +20,9 @@ taken; bfloat16 raises ``TypeError`` (ROADMAP queue 3).
 Each wrapper checks its inputs and raises on anything the kernel does
 not take.  For tensors on the CPU it runs the plain version; for CUDA
 tensors it launches the kernels or raises — there is no fallback.
+``meta`` tensors (the dry-run) get the output's shape and the kernel's
+cost (``kernels/meta_cost.py``), and nothing runs; any other device
+raises.
 ``LAUNCHES`` counts wrapper calls that launched the kernels, one a call
 (its three launches together; nothing else adds to it).
 """
@@ -29,7 +32,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta_cost
 from repro_torch.kernels.segment_sum import ref
 
 #: Kernel launches since the last :func:`reset_launches`.
@@ -64,9 +67,9 @@ def _check_data(data, segment_ids) -> torch.device:
     if data.device != segment_ids.device:
         raise ValueError(f"segment_sum inputs span devices {data.device} and "
                          f"{segment_ids.device}")
-    if data.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"segment_sum inputs must be on cpu or cuda, got "
-                         f"{data.device}")
+    if data.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"segment_sum inputs must be on cpu, cuda or meta, "
+                         f"got {data.device}")
     if data.dtype != torch.float32:
         raise TypeError(f"data must be torch.float32, got {data.dtype} (the "
                         "kernel sums in float32 only)")
@@ -76,7 +79,7 @@ def _check_data(data, segment_ids) -> torch.device:
     if data.shape[0] != segment_ids.shape[0]:
         raise ValueError(f"data has {data.shape[0]} rows, segment_ids "
                          f"{segment_ids.shape[0]}")
-    if data.numel() >= 2**31:
+    if data.device.type != "meta" and data.numel() >= 2**31:
         raise ValueError(f"data has {data.numel()} entries; the kernel "
                          "indexes rows with int32")
     return data.device
@@ -106,12 +109,26 @@ def _launch(data, segment_ids, num_segments) -> torch.Tensor:
     return out
 
 
+def _meta(data, num_segments) -> torch.Tensor:
+    """The shape rule on ``meta``: an empty (S, D) output, and the
+    kernel's cost recorded: E·D FLOPs (an add a row and column); bytes:
+    the (E, D) data, the E ids and the (S, D) output, 4 bytes an entry.
+    The int32 limit on entries is not checked here: the dry-run's tensors
+    have a mesh's global shapes, and a launch sees one device's shard."""
+    rows, dim = data.shape
+    meta_cost.record("segment_sum", rows * dim,
+                     4 * (rows * dim + rows + num_segments * dim))
+    return torch.empty((num_segments, dim), dtype=data.dtype, device="meta")
+
+
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """(S, D) segment sums of ``data`` (E, D) by ``segment_ids`` (E,), in
     any order of the ids."""
     _check_ids(segment_ids, num_segments)
     device = _check_data(data, segment_ids)
+    if device.type == "meta":
+        return _meta(data, num_segments)
     if device.type == "cpu":
         return ref.segment_sum_ref(data, segment_ids, num_segments)
     return _launch(data, segment_ids, num_segments)
@@ -130,6 +147,8 @@ class SegmentSumOp:
 
     def __call__(self, data: torch.Tensor) -> torch.Tensor:
         device = _check_data(data, self.seg)
+        if device.type == "meta":
+            return _meta(data, self.num_segments)
         if device.type == "cpu":
             return ref.segment_sum_ref(data, self.seg, self.num_segments)
         return _launch(data, self.seg, self.num_segments)

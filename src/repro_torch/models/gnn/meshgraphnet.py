@@ -72,8 +72,7 @@ def apply(params, node_feats, edge_feats, edge_index,
     src, dst = edge_index[0], edge_index[1]
     h = mlp_ln(params["node_enc"], node_feats)
     e = mlp_ln(params["edge_enc"], edge_feats)
-    for i in range(cfg.n_layers):
-        lp = L.tree_index(params["layers"], i)
+    for lp in L.tree_unstack(params["layers"]):
         if cfg.remat:
             h, e = checkpoint(_body, h, e, lp, src, dst, N,
                               use_reentrant=False)

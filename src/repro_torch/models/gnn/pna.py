@@ -4,7 +4,11 @@ amplification, attenuation), n_layers=4, d_hidden=75.
 
 The layers keep the reference's stacked layout (a leading layer axis on
 every leaf of ``"layers"``); ``scan_layers`` True and False both loop
-over it and give the same numbers.
+over it and give the same numbers.  The loop takes its layers through
+``layers.tree_unstack`` (one ``unbind`` a leaf), as MeshGraphNet and
+SchNet do: indexing layer ``i`` would make each layer's backward write a
+zero tensor of the whole stacked leaf, bytes that grow with the square
+of the depth.
 """
 from __future__ import annotations
 
@@ -58,8 +62,7 @@ def apply(params, node_feats, edge_index, cfg: PNAConfig):
     has = (deg > 0)[:, None]
     zero = torch.zeros((), dtype=h.dtype, device=h.device)
 
-    for i in range(cfg.n_layers):
-        lp = L.tree_index(params["layers"], i)
+    for lp in L.tree_unstack(params["layers"]):
         msg = mlp_ln(lp["msg"], torch.cat([L.gather_rows(h, src),
                                            L.gather_rows(h, dst)], -1))
         mean = scatter_mean(msg, dst, N)

@@ -76,8 +76,7 @@ def apply(params, species, positions, edge_index, cfg: SchNetConfig,
     env = 0.5 * (torch.cos(math.pi * torch.clamp(dist / cfg.cutoff, 0, 1))
                  + 1.0)
 
-    for i in range(cfg.n_interactions):
-        lp = L.tree_index(params["inters"], i)
+    for lp in L.tree_unstack(params["inters"]):
         w = L.mlp(lp["filter"], rbf, act=shifted_softplus,
                   final_act=True) * env[:, None]
         x = L.dense(lp["in_proj"], h)

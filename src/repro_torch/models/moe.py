@@ -17,9 +17,9 @@ position order: on the card the output is the same bits every run, where
 float32, so bfloat16 rows are upcast for them and the sum cast back (the
 reference sums bfloat16 contributions in bfloat16).
 
-``expert_sharding`` is kept for the reference's signature; on one card
-every expert is local.  ``moe_param_specs`` (the dry-run's
-``PartitionSpec``s) comes with the dry-run tooling.
+``expert_sharding`` places nothing on one card, where every expert is
+local; :func:`moe_param_specs` reads it for the dry-run's placements
+(``launch.specs``).
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.mesh import PartitionSpec as P
 from repro_torch.models import layers as L
 from repro_torch.models.gnn.common import scatter_sum
 
@@ -76,11 +77,18 @@ def _gather(table, ids):
     return L.gather_rows(table.to(torch.float32), ids)
 
 
+def capacity(cfg: MoEConfig, tokens: int) -> int:
+    """Rows of each expert's buffer for ``tokens`` routed tokens:
+    ``max(1, ceil(capacity_factor · top_k · T / E))``."""
+    return max(1, int(math.ceil(cfg.capacity_factor * cfg.top_k * tokens
+                                / cfg.padded_experts)))
+
+
 def _route(params, x, cfg: MoEConfig):
     """(probs (T, E), gate values and experts (T, K), the capacity C)."""
     T = x.shape[0]
     E, K = cfg.padded_experts, cfg.top_k
-    C = max(1, int(math.ceil(cfg.capacity_factor * K * T / E)))
+    C = capacity(cfg, T)
     logits = x.to(torch.float32) @ params["router"]         # (T, E_real)
     if E != cfg.num_experts:  # padded dummies are never routed to
         pad = torch.full((T, E - cfg.num_experts), -1e30, device=x.device)
@@ -150,3 +158,17 @@ def moe_apply_batched(params, x, cfg: MoEConfig):
         return torch.stack(ys), torch.mean(torch.stack(auxs))
     y, aux = moe_apply(params, x.reshape(B * S, d), cfg)
     return y.reshape(B, S, d), aux
+
+
+def moe_param_specs(cfg: MoEConfig, model_axis: str = "model"):
+    """The experts' :class:`PartitionSpec`s for one layer's leaves (the
+    reference's): the expert axis over ``model_axis`` under ``"expert"``
+    sharding, else the hidden ``d_ff`` axis (``w_down``'s rows); the
+    router replicated."""
+    if cfg.expert_sharding == "expert":
+        w = P(model_axis, None, None)
+        wd = P(model_axis, None, None)
+    else:
+        w = P(None, None, model_axis)
+        wd = P(None, model_axis, None)
+    return {"router": P(None, None), "w_gate": w, "w_up": w, "w_down": wd}

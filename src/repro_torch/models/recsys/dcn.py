@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.checkpoint.checkpointer import tree_map
 from repro_torch.models import layers as L
 from repro_torch.models.recsys.embedding import (EmbeddingConfig, init_tables,
                                                  lookup)
@@ -42,6 +43,21 @@ class DCNConfig:
 
 
 def init_params(generator, cfg: DCNConfig, dtype=torch.float32, device=None):
+    """Parameters drawn from ``generator`` on its device and put on
+    ``device`` (default: the generator's; ``meta`` shapes the tree and
+    draws nothing).  On another device than the generator's, every leaf
+    is drawn and scaled on the generator's device and the tree then
+    moved: a CUDA tensor divided by a Python number is multiplied by its
+    reciprocal, which rounds otherwise than the CPU's division, so every
+    device gets the same bits."""
+    device = torch.device(device if device is not None else generator.device)
+    if device.type != "meta" and device != generator.device:
+        return tree_map(lambda x: x.to(device),
+                        _draw(generator, cfg, dtype, generator.device))
+    return _draw(generator, cfg, dtype, device)
+
+
+def _draw(generator, cfg: DCNConfig, dtype, device):
     emb_cfg = EmbeddingConfig(cfg.vocabs(), cfg.embed_dim)
     d0 = cfg.d0
     tables = init_tables(generator, emb_cfg, dtype, device)

@@ -24,7 +24,8 @@ Differences from the reference, each without effect on a value:
     ``scan_layers=False``, whose unrolled loop the reference lets promote.
   * The sharding fields (``tp_axis``, ``dp_axes``, ``kv_sharding``,
     ``decode_cache_shard``, ``vocab_parallel_ce``'s purpose) place
-    nothing on one card; ``param_specs`` comes with the dry-run tooling.
+    nothing on one card; :func:`param_specs` reads them for the dry-run
+    (``launch.specs``), which lays ``meta`` tensors out over a mesh.
   * The token embedding of a float32 table is a row gather on the
     embedding-bag kernel; a bfloat16 table is indexed (a gather copies
     bits either way).
@@ -39,8 +40,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.checkpointer import leaves, tree_map
+from repro_torch.distributed.mesh import PartitionSpec as P
 from repro_torch.models import layers as L
-from repro_torch.models.moe import MoEConfig, moe_apply_batched, moe_init
+from repro_torch.models.moe import (MoEConfig, moe_apply_batched, moe_init,
+                                    moe_param_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +160,48 @@ def _draw(generator: torch.Generator, cfg: TransformerConfig, device):
         "final_norm": L.rmsnorm_init(cfg.d_model, torch.float32, device),
         "lm_head": L.normal(generator, (cfg.d_model, cfg.vocab), cfg.dtype,
                             device).mul_(s),
+    }
+
+
+def param_specs(cfg: TransformerConfig):
+    """Each leaf's :class:`PartitionSpec` over a ``(data, model)`` mesh,
+    the reference's rules line for line: heads (or ``d_head`` where 16
+    does not divide them) and the FFN's hidden dimension over
+    ``cfg.tp_axis``, the vocabulary (or ``d_model``) of the embedding and
+    the head over it, the rest replicated.  The port's tree is the
+    reference's: the same keys, the layers stacked on a leading axis as
+    ``jax.vmap(init)`` stacks them, so every spec addresses the same leaf
+    (the stacked leaves' leading ``None``)."""
+    tp = cfg.tp_axis
+    heads_div = cfg.n_heads % 16 == 0  # conservative: divisible by max TP
+    hq = P(None, None, tp, None) if heads_div else P(None, None, None, tp)
+    if cfg.kv_sharding == "heads":
+        hkv = P(None, None, tp, None)
+    elif cfg.kv_sharding == "replicate":
+        hkv = P(None, None, None, None)
+    else:  # baseline: shard d_head
+        hkv = P(None, None, None, tp)
+    attn = {"wq": hq, "wk": hkv, "wv": hkv,
+            "wo": P(None, tp, None, None) if heads_div
+            else P(None, None, tp, None)}
+    norm = {"scale": P(None, None)}
+    layer = {"ln1": norm, "ln2": norm, "attn": attn}
+    if cfg.moe:
+        ms = moe_param_specs(cfg.moe, tp)
+        layer["moe"] = {k: P(*((None,) + tuple(s)))
+                        for k, s in ms.items()}
+    else:
+        layer["ffn"] = {"w_gate": P(None, None, tp),
+                        "w_up": P(None, None, tp),
+                        "w_down": P(None, tp, None)}
+    vocab_div = cfg.vocab % 16 == 0
+    embed = P(tp, None) if vocab_div else P(None, tp)
+    lm_head = P(None, tp) if vocab_div else P(tp, None)
+    return {
+        "embed": embed,
+        "layers": layer,
+        "final_norm": {"scale": P(None)},
+        "lm_head": lm_head,
     }
 
 

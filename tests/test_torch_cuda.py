@@ -783,3 +783,46 @@ def test_serve_main_serves_the_same_weights_on_the_card(card, monkeypatch):
     assert leaves(card)[0].device.type == "cuda"
     assert all(torch.equal(a, b.cpu())
                for a, b in zip(leaves(cpu), leaves(card)))
+
+
+def test_train_main_starts_dcn_from_the_same_weights_on_the_card(
+        card, monkeypatch, tmp_path):
+    """``launch.train.main --arch dcn_v2 --device cuda`` starts from the
+    weights that ``--device cpu`` starts from, bit for bit: both are drawn
+    and scaled on a CPU generator (a CUDA tensor divided by a Python
+    number rounds otherwise than the CPU's division)."""
+    from repro_torch.checkpoint.checkpointer import leaves, tree_map
+    from repro_torch.launch import train
+    from repro_torch.models.recsys import dcn
+    real = dcn.init_params
+    drawn = []
+
+    def spy(*args, **kw):
+        tree = real(*args, **kw)
+        drawn.append(tree_map(torch.clone, tree))   # training updates it
+        return tree
+    monkeypatch.setattr(dcn, "init_params", spy)
+    for dev in ("cpu", "cuda"):
+        train.main(["--device", dev, "--arch", "dcn_v2", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path / dev)])
+    cpu, on_card = drawn
+    assert leaves(on_card)[0].device.type == "cuda"
+    assert all(torch.equal(a, b.cpu())
+               for a, b in zip(leaves(cpu), leaves(on_card)))
+
+
+def test_kernels_on_the_card_record_no_meta_cost(card):
+    """A CUDA call launches its kernel and never reaches the ``meta``
+    shape rule: an open ``KernelCost`` records nothing."""
+    from repro_torch.kernels.embedding_bag import LAUNCHES as EB_LAUNCHES
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.meta_cost import KernelCost
+    from repro_torch.kernels.segment_sum import segment_sum
+    ids = torch.randint(0, 50, (64, 3), dtype=torch.int32, device=card)
+    table = torch.randn(50, 8, device=card)
+    before = EB_LAUNCHES["embedding_bag"]
+    with KernelCost() as cost:
+        rows = embedding_bag(ids, table)
+        segment_sum(rows, ids[:, 0].contiguous(), 50)
+    assert EB_LAUNCHES["embedding_bag"] == before + 1
+    assert (cost.flops, cost.bytes, cost.calls) == (0, 0, {})

@@ -10,6 +10,8 @@ both packages, so it is compared exactly too.
 import ast
 import importlib
 import inspect
+import os
+import sys
 import warnings
 
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from conftest import SRC
 from repro.core import rng as ref_rng
 from repro_torch.core import rng as port_rng
 from repro_torch.core.samplers import SamplerSpec
@@ -94,12 +97,10 @@ def _kind(x) -> str:
             else "callable" if callable(x) else type(x).__name__)
 
 
-# The model zoo (models, configs, data, sampler, loop, launchers): every
-# public name the reference defines in these modules, found by reading the
-# reference, less the names of slices still to come (ROADMAP item 11c: the
-# dry-run tooling's PartitionSpecs) and
-# ``shard_batch``, a JAX sharding, which the port's
-# ``data.pipeline.to_device`` replaces.
+# The model zoo (models, configs, data, sampler, loop, launchers, the
+# dry-run tooling): every public name the reference defines in these
+# modules, found by reading the reference, less ``shard_batch``, a JAX
+# sharding, which the port's ``data.pipeline.to_device`` replaces.
 ZOO_MODULES = (
     "models.layers", "models.gnn", "models.gnn.common", "models.gnn.schnet",
     "models.gnn.pna", "models.gnn.meshgraphnet", "models.gnn.mace",
@@ -112,13 +113,15 @@ ZOO_MODULES = (
     "models.transformer", "configs.phi35_moe", "configs.granite_moe",
     "configs.deepseek_7b", "configs.minitron_8b", "configs.stablelm_12b",
     "launch.serve", "optim.grad_compression", "runtime.elastic",
-    "distributed.pipeline",
+    "distributed.pipeline", "launch.specs", "launch.mesh",
 )
 DEFERRED = {
-    ("models.transformer", "param_specs"),       # the dry-run tooling
-    ("models.moe", "moe_param_specs"),           # the dry-run tooling
     ("data.pipeline", "shard_batch"),
 }
+# Modules of the reference that set ``XLA_FLAGS`` when imported (512 host
+# devices for the dry-run's mesh): their names are read from the source,
+# so that no test process imports them.
+SOURCE_MODULES = ("launch.dryrun", "launch.perf")
 
 
 def _public_names(module: str):
@@ -148,6 +151,27 @@ def _public_names(module: str):
 ZOO_NAMES = [item for m in ZOO_MODULES for item in _public_names(m)]
 
 
+def _source_names(module: str):
+    """``(module, name, kind)`` for each public function, class and
+    constant that ``repro.<module>``'s source defines at its top level,
+    read with ``ast`` (the module is not imported)."""
+    path = os.path.join(SRC, "repro", *module.split(".")) + ".py"
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            kind = "class" if isinstance(node, ast.ClassDef) else "callable"
+            out.append((module, node.name, kind))
+        elif isinstance(node, ast.Assign):
+            out += [(module, t.id, "constant") for t in node.targets
+                    if isinstance(t, ast.Name)]
+    return [item for item in out if not item[1].startswith("_")]
+
+
+SOURCE_NAMES = [item for m in SOURCE_MODULES for item in _source_names(m)]
+
+
 def test_zoo_names_cover_the_deferred_list():
     """Every deferred name exists in the reference (the list is not
     stale), and the port's replacement for ``shard_batch`` exists."""
@@ -165,6 +189,22 @@ def test_name_imports_from_both_packages(module, name):
     # Importing the kernels' wrappers builds nothing (no nvcc here).
     from repro_torch.kernels import build
     assert build._loaded == {}
+
+
+@pytest.mark.parametrize("module,name,kind", SOURCE_NAMES)
+def test_source_read_name_imports_from_the_port(module, name, kind):
+    port = getattr(importlib.import_module(f"repro_torch.{module}"), name)
+    if kind == "constant":
+        assert not callable(port)
+    else:
+        assert _kind(port) == kind
+    assert "repro.launch.dryrun" not in sys.modules
+
+
+def test_source_read_names_cover_the_tools():
+    assert {n for _, n, _ in SOURCE_NAMES} == {
+        "collective_bytes", "roofline_terms", "run_cell", "main",
+        "parse_val"}
 
 
 @pytest.mark.parametrize("seed", [0, 7])
