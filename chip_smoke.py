@@ -170,8 +170,9 @@ its seconds.
    the device field alone.  The launch counts are zeroed before the phase
    and read after it.
 8. The sharded backend (:func:`run_sharded`, ``compile(program,
-   backend="sharded")``: N shards stacked on the card, the plain torch
-   superstep) on the main path's graphs at W = 4,096: every program's
+   backend="sharded")``: N shards in groups, one group by default on one
+   card, the plain torch superstep) on the main path's graphs at W =
+   4,096: every program's
    closed batch (the first 4,096 of the 65,536 starts, 80 hops) at 4
    shards of 1,024 lanes, and
    URW also at the paper's 16 pipelines of 256, each equal in paths and
@@ -182,11 +183,24 @@ its seconds.
    x capacity arrivals) and a sharded service point (rho 0.9, 256
    requests of 64 walks), each (epoch, qid) equal to its closed batch;
    ``train_embeddings`` (DeepWalk at phase 4's width, 2 rounds of 8,192
-   walks and 8 steps) equal to the single backend's in ring, tables and moments; and
+   walks and 8 steps) equal to the single backend's in ring, tables and
+   moments; and
    ``torch.profiler`` over one sharded drain (the device's busy share).
    Each run prints walks/s and MSteps/s beside the single backend's
    (phase 3's torch and fused), supersteps, route waits and the bubble
-   ratio of each shard.
+   ratio of each shard.  Then the shards in groups (a mesh naming cuda:0
+   2 and 4 times, and one group a card where the machine has the cards,
+   else a line saying why not): URW (4,096 starts cut to 16 hops) in 1,
+   2 and 4 groups, each timed and traced (ms, device launches and busy
+   share a superstep), and weighted Node2Vec at its cut in 2 and 4
+   groups, each equal in paths, lengths and every stat to one group and
+   to the single backend; the URW stream in 2 groups (its first capacity
+   of arrivals) equal to the one-group stream; ``train_embeddings`` in
+   2 groups (ring, tables and moments whole on its first device) equal
+   to one group's.  ``python3 chip_smoke.py --across-cards``, on a machine with
+   2 or more cards, runs these grouped runs with one group a card
+   instead (:func:`run_across_cards`); with no argument the script needs
+   one card.
 9. The static verifier (:func:`run_verifier`): ``repro_torch.analysis.
    run_all()`` on this checkout (any finding raises; its two ``--check``
    CLIs ran in phase 1); then, with the timers' clock
@@ -1681,9 +1695,10 @@ def soak(stream, starts, until=None) -> dict:
     epochs = np.concatenate([p[1] for p in outs]).astype(np.int64)
     qids = np.concatenate([p[2] for p in outs]).astype(np.int64)
     order = np.lexsort((qids, epochs))
-    idx = torch.from_numpy(order).to(stream.graph.device)
-    paths = torch.cat([p[3][0] for p in outs])[idx]
-    lengths = torch.cat([p[3][1] for p in outs])[idx]
+    paths = torch.cat([p[3][0] for p in outs])
+    lengths = torch.cat([p[3][1] for p in outs])
+    idx = torch.from_numpy(order).to(paths.device)
+    paths, lengths = paths[idx], lengths[idx]
     epochs, qids = epochs[order], qids[order]
     return {"epochs": epochs, "qids": qids,
             "starts": np.array([start_of[e, q] for e, q in
@@ -1691,6 +1706,15 @@ def soak(stream, starts, until=None) -> dict:
                                np.int32),
             "paths": paths, "lengths": lengths, "wall": wall,
             "split": split, "chunks": chunks, "mixed": mixed}
+
+
+def harvest_rows(h, sel) -> dict:
+    """The rows ``sel`` (a bool mask) of a :func:`soak` harvest."""
+    import torch
+    pick = torch.from_numpy(np.flatnonzero(sel)).to(h["paths"].device)
+    return {"epochs": h["epochs"][sel], "qids": h["qids"][sel],
+            "starts": h["starts"][sel], "paths": h["paths"][pick],
+            "lengths": h["lengths"][pick]}
 
 
 def same_harvest(a, b) -> bool:
@@ -3139,13 +3163,36 @@ SHARD_EMB = {**EMB, "rounds": 2, "walks_per_round": 8_192,
              "steps_per_round": 8}
 SHARD_STARTS = 4_096             # the closed batches' depth cut (a pool)
 SHARD_PROFILE_STARTS = NUM_SLOTS  # the profiled drain: one pool's worth
+# The shards in groups (a mesh naming cuda:0 G times): URW and weighted
+# Node2Vec at 4 x 1,024 lanes in 2 and 4 groups, each equal to one group
+# and to the single backend.  A group is issued its own phases, so a
+# superstep's launches grow about G-fold on a host-bound superstep: the
+# URW runs are cut in depth to SHARD_GROUP_HOPS hops (G = 4 at 80 hops
+# would take ~10 s a run), weighted Node2Vec keeps SHARD_CUT.
+SHARD_GROUPS = (2, 4)
+SHARD_GROUP_PROGRAMS = ("urw", "node2vec_w")
+SHARD_GROUP_HOPS = 16
 RATES = {}   # (program, impl) -> walks/s of phase 3's last run of it
 
 
-def sharded_walker(prog, n_shards=SHARD_N):
+def sharded_walker(prog, n_shards=SHARD_N, mesh=None):
     from repro_torch.walker import ExecutionConfig, compile
-    return compile(prog, backend="sharded", execution=ExecutionConfig(
-        num_slots=NUM_SLOTS, num_devices=n_shards, log_capacity=SHARD_LOG))
+    return compile(prog, backend="sharded", mesh=mesh,
+                   execution=ExecutionConfig(
+                       num_slots=NUM_SLOTS, num_devices=n_shards,
+                       log_capacity=SHARD_LOG))
+
+
+def group_mesh(devices):
+    """The main path's 4 shards in ``len(devices)`` groups, group g on
+    ``devices[g]``."""
+    from repro_torch.distributed import Mesh
+    return Mesh(SHARD_N, devices)
+
+
+def on_card0(groups):
+    import torch
+    return [torch.device("cuda", 0)] * groups
 
 
 def fused_walker(prog):
@@ -3158,12 +3205,13 @@ def fused_walker(prog):
 SHARD_WARMUP = 8                 # starts of each timed run's warm-up
 
 
-def timed_run(w, g, starts) -> tuple:
-    """A warm-up on a few starts, then ``w.run`` timed with the launch
-    counts zeroed just before it and read just after: (result, wall
-    seconds, launches)."""
+def timed_run(w, g, starts, warm=True) -> tuple:
+    """A warm-up on a few starts (unless ``warm`` is False), then
+    ``w.run`` timed with the launch counts zeroed just before it and read
+    just after: (result, wall seconds, launches)."""
     import torch
-    w.run(g, starts[:SHARD_WARMUP], seed=0)
+    if warm:
+        w.run(g, starts[:SHARD_WARMUP], seed=0)
     torch.cuda.synchronize()
     reset_all_launches()
     t0 = time.perf_counter()
@@ -3192,7 +3240,11 @@ def sharded_closed(name, prog, g, starts, n_shards, card, add) -> None:
     single, single_wall, launched = timed_run(fused_walker(prog), g, starts)
     add(launched)
     w = sharded_walker(prog, n_shards)
-    res, wall, launched = timed_run(w, g, starts)
+    # Weighted Node2Vec's cut batch is one superstep after a hop-0 scan
+    # whose chunks follow the hubs among its starts: a warm-up on a few
+    # starts costs as much as the run, and phases 3 and 8 have warmed the
+    # allocator and the engine's code.
+    res, wall, launched = timed_run(w, g, starts, warm=name not in SHARD_CUT)
     label = f"sharded {name} N={n_shards}x{NUM_SLOTS // n_shards}"
     if any(launched.values()):
         raise AssertionError(f"{label}: kernel launches {launched}")
@@ -3225,29 +3277,127 @@ def sharded_closed(name, prog, g, starts, n_shards, card, add) -> None:
           f"supersteps {int(single.stats.supersteps)}"
           f"{'; ' + phase3 if phase3 else ''}; paths, lengths == the single "
           f"backend's | {card}")
+    return res
 
 
-def sharded_stream(g, card, add) -> None:
+def same_result(a, b) -> bool:
+    """Paths, lengths and every folded stat equal."""
+    import torch
+    return (torch.equal(a.paths, b.paths) and torch.equal(a.lengths, b.lengths)
+            and [int(x) for x in a.stats] == [int(x) for x in b.stats])
+
+
+def across_cards() -> list:
+    """(label, devices) of the 4 shards in 2 and 4 groups, one group a
+    card, for as many groups as the machine has cards."""
+    import torch
+    return [(f"G={G} one a card", [torch.device("cuda", i)
+                                   for i in range(G)])
+            for G in SHARD_GROUPS if G <= torch.cuda.device_count()]
+
+
+def sharded_grouped(name, prog, g, starts, base, single, card, runs,
+                    profile=False) -> None:
+    """A closed batch with the 4 shards in each ``runs`` entry's groups
+    (label, devices), after one group on cuda:0 when ``base`` is None:
+    paths, lengths and every stat equal to ``base`` (one group's run of
+    the batch; None: that first run), paths and lengths to ``single`` (the
+    single backend's fused run), no kernel launched.  The graph is
+    partitioned onto the mesh before the timed run.  With ``profile``, a
+    traced drain of each run on cuda:0 (device busy share and launches a
+    superstep).  Weighted Node2Vec's runs take no warm-up (see
+    :func:`sharded_closed`)."""
+    import torch
+
+    from repro_torch.graph import partition_graph
+    if base is None:
+        runs = [("G=1 on cuda:0", on_card0(1))] + runs
+    for label, devices in runs:
+        mesh = group_mesh(devices)
+        pg = partition_graph(g, SHARD_N, mesh)
+        w = sharded_walker(prog, mesh=mesh)
+        full = (f"sharded {name} N={SHARD_N}x{NUM_SLOTS // SHARD_N} {label} "
+                f"starts={int(starts.shape[0])} hops={prog.max_hops}")
+        traced = profile and "cuda:0" in label
+        if traced:   # the traced drain also warms the timed run
+            profile_sharded(w, pg, starts, full)
+        res, wall, launched = timed_run(
+            w, pg, starts, warm=not traced and name not in SHARD_CUT)
+        if any(launched.values()) or int(res.stats.drops):
+            raise AssertionError(f"{full}: launches {launched}, drops "
+                                 f"{int(res.stats.drops)}")
+        base = res if base is None else base
+        if not (same_result(res, base) and torch.equal(res.paths, single.paths)
+                and torch.equal(res.lengths, single.lengths)):
+            raise AssertionError(f"{full}: differs from one group on one "
+                                 "card or from the single backend")
+        sup = int(res.stats.supersteps)
+        print(f"{full}: walks/s={int(starts.shape[0]) / wall:.1f} "
+              f"supersteps={sup} wall_ms_per_superstep="
+              f"{wall / sup * 1e3:.4f} wall_s={wall:.4f}; paths, lengths, "
+              f"stats == one group's and the single backend's | {card}")
+
+
+def sharded_groups(graphs, starts_np, bases, card, add,
+                   across_only=False) -> None:
+    """Phase 8's shard groups: URW (cut to SHARD_GROUP_HOPS, its one-group
+    run made here) and weighted Node2Vec (SHARD_CUT, against ``bases``,
+    the one-group runs above, or its own) in 2 and 4 groups on cuda:0 and
+    one group a card where the machine has the cards (only these with
+    ``across_only``)."""
+    import torch
+    runs = [] if across_only else [(f"G={G} on cuda:0", on_card0(G))
+                                   for G in SHARD_GROUPS]
+    runs += across_cards()
+    for name in SHARD_GROUP_PROGRAMS:
+        g = graphs[name]
+        n, hops = SHARD_CUT.get(name, (SHARD_STARTS, SHARD_GROUP_HOPS))
+        prog = dataclasses.replace(programs()[name], max_hops=hops)
+        starts = torch.from_numpy(starts_np[:n]).to(g.device)
+        with timed(f"sharded {name} groups"):
+            single, _, launched = timed_run(fused_walker(prog), g, starts)
+            add(launched)
+            sharded_grouped(name, prog, g, starts, bases.get(name), single,
+                            card, runs, profile=name not in SHARD_CUT)
+    if torch.cuda.device_count() < 2:
+        print(f"sharded across cards: not run: this machine has "
+              f"{torch.cuda.device_count()} card (torch.cuda.device_count())"
+              ", so every group ran on cuda:0 (on 2 or more cards: python3 "
+              "chip_smoke.py --across-cards)")
+
+
+def sharded_stream(g, card, add, mesh=None, base=None) -> dict:
     """A sharded URW stream (4 x 1,024 lanes, capacity 8,192) fed 3 x
     capacity arrivals by :func:`soak`: every (epoch, qid) equals its
     closed batch (the single backend, fused), the ring wrapped, no drop,
-    no kernel launched by the stream."""
+    no kernel launched by the stream.  Given ``mesh`` and ``base`` (the
+    one-group stream's harvest), the stream in the mesh's groups, cut in
+    depth to the first capacity of arrivals (one epoch), each equal to
+    ``base``'s row of the same (epoch, qid)."""
     prog = programs()["urw"]
-    stream = sharded_walker(prog).stream(g, capacity=SHARD_STREAM_CAPACITY,
-                                         seed=STREAM_SEED)
+    stream = sharded_walker(prog, mesh=mesh).stream(
+        g, capacity=SHARD_STREAM_CAPACITY, seed=STREAM_SEED)
+    arrivals = stream_starts(g, SHARD_STREAM_CAPACITY)
+    if base is not None:
+        arrivals = arrivals[:SHARD_STREAM_CAPACITY]
     reset_all_launches()
-    h = soak(stream, stream_starts(g, SHARD_STREAM_CAPACITY))
+    h = soak(stream, arrivals)
     launched = embedding_launches()
     st = stream.walk_stats()
-    label = f"sharded stream urw N={SHARD_N} capacity={SHARD_STREAM_CAPACITY}"
+    label = (f"sharded stream urw N={SHARD_N} "
+             f"G={len(mesh.devices) if mesh else 1} "
+             f"capacity={SHARD_STREAM_CAPACITY}")
     if any(launched.values()) or st.drops:
         raise AssertionError(f"{label}: launches {launched}, drops "
                              f"{st.drops}")
-    if len(set(h["epochs"].tolist())) < 3:
-        raise AssertionError(f"{label}: the ring did not wrap twice")
-    reset_all_launches()
-    check_against_closed("urw", "fused", g, h, SHARD_STREAM_CAPACITY)
-    add(embedding_launches())
+    if base is None:
+        if len(set(h["epochs"].tolist())) < 3:
+            raise AssertionError(f"{label}: the ring did not wrap twice")
+        reset_all_launches()
+        check_against_closed("urw", "fused", g, h, SHARD_STREAM_CAPACITY)
+        add(embedding_launches())
+    elif not same_harvest(h, harvest_rows(base, base["epochs"] == 0)):
+        raise AssertionError(f"{label}: differs from the one-group stream")
     walks = h["epochs"].size
     split = {k: round(v * 1e3, 3) for k, v in h["split"].items()}
     print(f"{label}: {walks} walks, walks/s={walks / h['wall']:.1f} "
@@ -3256,7 +3406,9 @@ def sharded_stream(g, card, add) -> None:
           f"host_read_share={stream.host_read_s / h['wall']:.4f} "
           f"wall_s={h['wall']:.4f} wall_split_ms={split} "
           f"epochs={sorted(set(h['epochs'].tolist()))}; every (epoch, qid) "
-          f"equals its closed batch | {card}")
+          f"equals {'the one-group stream' if base else 'its closed batch'} "
+          f"| {card}")
+    return h
 
 
 def sharded_service(g, card, add) -> None:
@@ -3279,18 +3431,24 @@ def sharded_service(g, card, add) -> None:
           f"under stream_key({out['seed']}, epoch)")
 
 
-def sharded_embeddings(g, card, add) -> None:
+def sharded_embeddings(g, card, add, devices=None, one=None) -> None:
     """``train_embeddings`` at phase 4's width (DeepWalk, dim 128, batch
-    4,096, 8,192 walks a round; 2 rounds of 8 steps) on the sharded
-    backend (its producer a sharded stream) and on the single backend
-    (fused): rings, tables and moments equal; the sharded run launches
-    3 embedding-bag and 3 segment-sum kernels a step and nothing else."""
+    4,096, 8,192 walks a round, so the 4 x 1,024 pool fills; 2 rounds of
+    8 steps) on the single backend (fused), the sharded backend (its
+    producer a sharded stream) and the sharded backend in 2 groups (on
+    ``devices``, by default both on cuda:0; the one-group run on the mesh
+    ``one``, if given): rings, tables and moments equal (the 2-group
+    ones whole on its first device); the sharded runs launch 3
+    embedding-bag and 3 segment-sum kernels a step and nothing else."""
     import torch
     prog = programs()["deepwalk"]
     steps = SHARD_EMB["rounds"] * SHARD_EMB["steps_per_round"]
     outs = {}
+    devices = devices or on_card0(2)
+    two = f"sharded G=2 on {' and '.join(str(d) for d in devices)}"
     for label, w in (("single", fused_walker(prog)),
-                     ("sharded", sharded_walker(prog))):
+                     ("sharded", sharded_walker(prog, mesh=one)),
+                     (two, sharded_walker(prog, mesh=group_mesh(devices)))):
         reset_all_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3311,8 +3469,21 @@ def sharded_embeddings(g, card, add) -> None:
                     for k in a["params"])):
         raise AssertionError("sharded embeddings differ from the single "
                              "backend's")
+    c = outs[two]
+
+    def tree(out, t):
+        return out["params"] if t == "params" else getattr(out["opt_state"],
+                                                           t)
+    # The 2-group ring, tables and moments lie whole on its first device.
+    if not (all(x.device == devices[0] and torch.equal(x, y)
+                for x, y in zip(c["ring"], b["ring"]))
+            and all(tree(c, t)[k].device == devices[0]
+                    and torch.equal(tree(c, t)[k], tree(b, t)[k])
+                    for k in b["params"] for t in ("params", "mu", "nu"))):
+        raise AssertionError("sharded embeddings in 2 groups differ from "
+                             "one group's")
     print("sharded embeddings: ring, tables and moments == the single "
-          "backend's")
+          f"backend's; in 2 groups (whole on {devices[0]}) == one group's")
 
 
 def check_embedding_launches(label, launched, steps) -> None:
@@ -3320,6 +3491,7 @@ def check_embedding_launches(label, launched, steps) -> None:
     for the single backend's producer and none for the sharded one's."""
     want = {k: 0 for k in launched}
     want.update(embedding_bag=3 * steps, segment_sum=3 * steps)
+    # (the sharded producers, in one group or two, launch no kernel)
     if label == "single" and launched["fused_superstep"] > 0:
         want["fused_superstep"] = launched["fused_superstep"]
     if launched != want:
@@ -3336,6 +3508,14 @@ def sharded_profile(g) -> None:
         0, g.num_vertices, SHARD_PROFILE_STARTS).astype(np.int32)).to(
         g.device)
     w.run(g, starts[:NUM_SLOTS // 4], seed=0)
+    profile_sharded(w, g, starts, f"sharded urw N={SHARD_N} "
+                    f"starts={SHARD_PROFILE_STARTS}")
+
+
+def profile_sharded(w, g, starts, label) -> None:
+    """``torch.profiler`` over one drain of ``w`` (warmed by the caller):
+    busy time over wall, device launches a superstep, the top kernels."""
+    import torch
     torch.cuda.synchronize()
     with device_trace() as prof:
         t0 = time.perf_counter()
@@ -3346,12 +3526,12 @@ def sharded_profile(g) -> None:
     busy_ms = sum(r[0] for r in rows) / 1e3
     supersteps = int(res.stats.supersteps)
     if busy_ms == 0:
-        print("profile sharded urw: device time not measured (the profiler "
+        print(f"profile {label}: device time not measured (the profiler "
               "recorded no device activity)")
         return
     top = "; ".join(f"{k[:60]} {us / 1e3:.3f} ms x{n}"
                     for us, n, k in rows[:5])
-    print(f"profile sharded urw N={SHARD_N} starts={SHARD_PROFILE_STARTS}: "
+    print(f"profile {label}: "
           f"supersteps={supersteps} wall_ms={wall_ms:.3f} "
           f"device_busy_ms={busy_ms:.3f} "
           f"device_busy_share={busy_ms / wall_ms:.4f} "
@@ -3373,6 +3553,7 @@ def run_sharded(graphs, starts_np) -> dict:
     def add(launched):
         for k, n in launched.items():
             totals[k] += n
+    bases = {}
     for name, prog in programs().items():
         g = graphs[name]
         n, hops = SHARD_CUT.get(name, (SHARD_STARTS, prog.max_hops))
@@ -3381,12 +3562,18 @@ def run_sharded(graphs, starts_np) -> dict:
         print(f"sharded {name}: cut in depth to {n} starts and {hops} "
               f"hops (width {SHARD_N} x {NUM_SLOTS // SHARD_N} kept)")
         t = time.perf_counter()
-        sharded_closed(name, prog, g, starts, SHARD_N, card, add)
+        res = sharded_closed(name, prog, g, starts, SHARD_N, card, add)
+        if name in SHARD_CUT:
+            bases[name] = res
         if name in SHARD_WIDE_PROGRAMS:
             sharded_closed(name, prog, g, starts, SHARD_WIDE, card, add)
         print(f"  sharded {name} time {time.perf_counter() - t:.1f} s")
+    sharded_groups(graphs, starts_np, bases, card, add)
     with timed("sharded stream"):
-        sharded_stream(graphs["urw"], card, add)
+        h = sharded_stream(graphs["urw"], card, add)
+    with timed("sharded stream G=2"):
+        sharded_stream(graphs["urw"], card, add,
+                       mesh=group_mesh(on_card0(2)), base=h)
     with timed("sharded service"):
         sharded_service(graphs["urw"], card, add)
     with timed("sharded embeddings"):
@@ -3394,6 +3581,49 @@ def run_sharded(graphs, starts_np) -> dict:
     with timed("sharded profile"):
         sharded_profile(graphs["urw"])
     return totals
+
+
+def run_across_cards() -> int:
+    """``python3 chip_smoke.py --across-cards`` on a machine with 2 or
+    more cards: phase 8's grouped runs with one group a card (closed URW
+    and weighted Node2Vec batches in 2 and 4 groups, the URW stream and a
+    training round in 2), each against one group on cuda:0 and the
+    single backend, with every card's name and power limit."""
+    import torch
+
+    from repro_torch.graph import make_dataset
+    from repro_torch.kernels import build
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"--across-cards needs 2 or more cards; this machine has "
+              f"{cards}", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    build.build(["fused_superstep", "embedding_bag", "segment_sum"])
+    g = make_dataset("WG", weighted=True, with_alias=True,
+                     scale_override=WG_SCALE)
+    print(f"build and graph: {time.perf_counter() - t0:.1f} s; {cards} "
+          f"cards")
+    card = card_line().replace("\n", "; ")
+    print(card)
+    starts = np.random.default_rng(0).integers(
+        0, g.num_vertices, NUM_STARTS).astype(np.int32)
+    totals = {k: 0 for k in embedding_launches()}
+
+    def add(launched):
+        for k, n in launched.items():
+            totals[k] += n
+    graphs = {name: g for name in SHARD_GROUP_PROGRAMS}
+    sharded_groups(graphs, starts, {}, card, add, across_only=True)
+    one, two = group_mesh(on_card0(1)), across_cards()[0][1]
+    with timed("sharded stream one a card"):
+        h = sharded_stream(g, card, add, mesh=one)
+        sharded_stream(g, card, add, base=h, mesh=group_mesh(two))
+    with timed("sharded embeddings one a card"):
+        sharded_embeddings(g, card, add, devices=two, one=one)
+    print(f"across cards: {time.perf_counter() - t0:.1f} s; every run "
+          f"equal to one group on cuda:0; kernel launches {totals}")
+    return 0
 
 
 # Phase 9: the closed batches run again with the timers' clock replaced by
@@ -5274,6 +5504,8 @@ def main() -> int:
         return 1
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    if sys.argv[1:] == ["--across-cards"]:
+        return run_across_cards()
 
     from repro_torch.graph import make_dataset
     from repro_torch.kernels import build

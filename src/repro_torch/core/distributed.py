@@ -1,15 +1,21 @@
 """Sharded walk engine: N asynchronous "pipelines" = N shards (paper §IV:
 16 pipelines over 32 HBM channels).
 
-The shards are stacked along a leading axis on the graph's device (the
-mesh of `repro_torch.distributed.mesh`).  Per superstep each shard (a)
+The shards lie in groups, each group's shards stacked along a leading
+axis on its device (the mesh of `repro_torch.distributed.mesh`; one group
+on the graph's device by default).  Per superstep each shard (a)
 executes one *phase* of work for every live task homed on it, (b)
 terminates finished walks and refills freed lanes from its local query
 shard (zero-bubble scheduling), (c) routes every live task to the shard
 that owns the data its next phase reads, with one all-to-all (the
-butterfly, `router.py`).  All shards step together: every tensor of a
-superstep holds every shard's lanes, and each lane reads its shard's part
-of the graph through the stacked view (:class:`LocalView`).
+butterfly, `router.py`).  All shards step together: one controller issues
+each phase once a group (one flattened pass over the group's lanes, each
+lane reading its shard's part of the graph through the group's stacked
+view, :class:`LocalView`), and the collectives between phases copy
+blocks between the groups' devices.  CUDA launches are asynchronous, but
+the superstep is bound by the host, which issues every group's launches in
+turn, and the peer copies between cards add to it: on four H100s a
+superstep over 2 or 4 cards took 2-5x one card's (``PERF.md``).
 
 One generic superstep serves every sampler through the phase-program IR
 (`repro_torch.core.phase_program`): :class:`ProgramCapability` interprets
@@ -43,8 +49,10 @@ device, scattered into per-query paths after the run
 
 The superstep is plain torch (the reference's is plain ``jnp`` under
 ``shard_map``): no kernel of its own.  The host drives the loop and reads
-the global done flag once per superstep, so the loop stops exactly where
-the reference's ``while_loop`` stops.
+the global done flag once per superstep (the groups' partial flags summed
+on the first group's device, then read once), so the loop stops exactly
+where the reference's ``while_loop`` stops.  A closed run's logs and
+per-shard stats are returned on the first group's device.
 """
 from __future__ import annotations
 
@@ -68,7 +76,8 @@ from repro_torch.core.scheduler import routing_capacity
 from repro_torch.core.tasks import (WalkerSlots, WalkStats, empty_n2v_slots,
                                     empty_reservoir_slots, empty_slots)
 from repro_torch.core.walk_engine import Chunk
-from repro_torch.distributed.mesh import Mesh, all_gather, psum
+from repro_torch.distributed.mesh import (Mesh, all_gather, check_devices,
+                                          gather_first, psum, reduce_first)
 from repro_torch.graph.partition import PartitionedGraph, owner_of
 
 __all__ = [
@@ -128,18 +137,20 @@ class DistConfig:
 
 
 class LocalView(NamedTuple):
-    """Every shard of a partitioned graph presented with the sampler
-    interface: the shards' arrays laid end to end.
+    """One group's shards of a partitioned graph presented with the
+    sampler interface: the group's arrays laid end to end.
 
-    ``row_ptr`` holds each shard's ``V_loc + 1`` row pointers, offset by
-    ``shard · E_loc`` so that they address the flat ``col`` (and the edge
-    payloads) directly; ``type_offsets`` holds each shard's rows with one
-    spare row, so both per-vertex arrays share the stride
-    ``rows_per_shard``.  ``num_shards`` makes the shared sampler arithmetic
-    residency-aware: `samplers.vertex_row` maps a vertex id to ``(v % N) ·
-    rows_per_shard + v // N``, its row in its owner's block.  A lane homed
-    on the vertex's owner reads exactly what the reference's per-device
-    view reads; the other lanes' reads are masked, as there."""
+    ``row_ptr`` holds each of the group's shards' ``V_loc + 1`` row
+    pointers, offset by ``(shard - first_shard) · E_loc`` so that they
+    address the flat ``col`` (and the edge payloads) directly;
+    ``type_offsets`` holds each shard's rows with one spare row, so both
+    per-vertex arrays share the stride ``rows_per_shard``.  ``num_shards``
+    (N, every group's) makes the shared sampler arithmetic
+    residency-aware: `samplers.vertex_row` maps a vertex id to ``(v % N -
+    first_shard) · rows_per_shard + v // N``, its row in its owner's
+    block.  A lane homed on the vertex's owner reads exactly what the
+    reference's per-device view reads; the other lanes' reads are masked,
+    as there, and clamped into the group's arrays."""
     row_ptr: torch.Tensor
     col: torch.Tensor
     weights: Optional[torch.Tensor]
@@ -150,28 +161,34 @@ class LocalView(NamedTuple):
     num_shards: int = 1
     rows_per_shard: int = 1
     num_edges: int = 0
+    first_shard: int = 0
+    group_shards: int = 1
 
 
-def local_view(pg: PartitionedGraph) -> LocalView:
-    """The stacked :class:`LocalView` of every shard of ``pg``."""
-    N, E_loc = pg.num_devices, pg.col.shape[1]
-    off = torch.arange(N, dtype=torch.int32,
-                       device=pg.device)[:, None] * E_loc
-    to = None
-    if pg.type_offsets is not None:
-        pad = torch.zeros((N, 1, pg.type_offsets.shape[2]),
-                          dtype=pg.type_offsets.dtype, device=pg.device)
-        to = torch.cat([pg.type_offsets, pad], 1).reshape(
-            -1, pg.type_offsets.shape[2])
+def local_view(pg: PartitionedGraph) -> list:
+    """One stacked :class:`LocalView` a group of ``pg``, on its device."""
+    views = []
+    for grp in pg.groups:
+        n, E_loc = grp.col.shape
+        dev = grp.row_ptr.device
+        off = torch.arange(n, dtype=torch.int32, device=dev)[:, None] * E_loc
+        to = None
+        if grp.type_offsets is not None:
+            pad = torch.zeros((n, 1, grp.type_offsets.shape[2]),
+                              dtype=grp.type_offsets.dtype, device=dev)
+            to = torch.cat([grp.type_offsets, pad], 1).reshape(
+                -1, grp.type_offsets.shape[2])
 
-    def flat(x):
-        return None if x is None else x.reshape(-1)
-    return LocalView(
-        row_ptr=(pg.row_ptr + off).reshape(-1), col=flat(pg.col),
-        weights=flat(pg.weights), alias_prob=flat(pg.alias_prob),
-        alias_idx=flat(pg.alias_idx), max_degree=pg.max_degree,
-        type_offsets=to, num_shards=N,
-        rows_per_shard=pg.vertices_per_device + 1, num_edges=N * E_loc)
+        def flat(x):
+            return None if x is None else x.reshape(-1)
+        views.append(LocalView(
+            row_ptr=(grp.row_ptr + off).reshape(-1), col=flat(grp.col),
+            weights=flat(grp.weights), alias_prob=flat(grp.alias_prob),
+            alias_idx=flat(grp.alias_idx), max_degree=pg.max_degree,
+            type_offsets=to, num_shards=pg.num_devices,
+            rows_per_shard=pg.vertices_per_device + 1, num_edges=n * E_loc,
+            first_shard=grp.first_shard, group_shards=n))
+    return views
 
 
 class DistLogs(NamedTuple):
@@ -519,37 +536,61 @@ def get_capability(spec: SamplerSpec, cfg: DistConfig, num_devices: int,
 # --------------------------------------------------------------------------
 # Generic superstep: phase-step → emission log → terminate → flow-controlled
 # refill → butterfly route.  Identical for every capability.  Every tensor
-# holds all shards: the pool's fields are (N, S[, ...]), a shard's
-# counters (N,).
+# holds one group's shards: the pool's fields are (n, S[, ...]), a shard's
+# counters (n,); each step runs once a group, and the collectives join the
+# groups.
 # --------------------------------------------------------------------------
 
 
+class _Group(NamedTuple):
+    """What a superstep needs of one group: its view of the graph and the
+    (n, S) global shard of each of its pool lanes."""
+    view: LocalView
+    rank: torch.Tensor
+
+
+def _groups(graph: PartitionedGraph, S: int) -> list:
+    out = []
+    for view in local_view(graph):
+        n, first = view.group_shards, view.first_shard
+        rank = torch.arange(first, first + n, dtype=torch.int32,
+                            device=view.row_ptr.device)[:, None].expand(n, S)
+        out.append(_Group(view, rank))
+    return out
+
+
 def _flatten(slots):
-    """(N, S, ...) pool → (N·S, ...) lanes, one pass of the step for all
-    shards."""
+    """(n, S, ...) pool → (n·S, ...) lanes, one pass of the step for all
+    the group's shards."""
     return type(slots)(*(f.reshape(-1, *f.shape[2:]) for f in slots))
 
 
-def _unflatten(slots, N: int):
-    return type(slots)(*(f.reshape(N, -1, *f.shape[1:]) for f in slots))
+def _unflatten(slots, n: int):
+    return type(slots)(*(f.reshape(n, -1, *f.shape[1:]) for f in slots))
 
 
-def _zero_stats(N: int, device) -> WalkStats:
-    """Per-shard counters: each field an (N,) int64 tensor."""
-    return WalkStats(*(torch.zeros((N,), dtype=torch.int64, device=device)
+def _zero_stats(n: int, device) -> WalkStats:
+    """Per-shard counters: each field an (n,) int64 tensor."""
+    return WalkStats(*(torch.zeros((n,), dtype=torch.int64, device=device)
                        for _ in WalkStats._fields))
 
 
-def _lane_ranks(N: int, S: int, device) -> torch.Tensor:
-    """(N, S) int32: the shard each pool lane sits on."""
-    return torch.arange(N, dtype=torch.int32, device=device)[:, None] \
-        .expand(N, S)
+def _step_group(cap, grp: _Group, slots, base_key):
+    """Process: one phase for the group's locally-homed live tasks.
+    Returns the pool and the (n, S) masks and records of the step."""
+    shape = grp.rank.shape
+    lanes = _flatten(slots)
+    mine = lanes.active & (cap.home(lanes) == grp.rank.reshape(-1))
+    out = cap.step(grp.view, lanes, mine, base_key)
+    return (_unflatten(out.slots, shape[0]),
+            *(x.view(shape) for x in (mine, out.adv, out.terminated,
+                                      out.new_hop, out.v_next)))
 
 
 def _write_log(logs, cap_log: int, cursor, adv, qid, hop, vertex):
     """Append one record per ``adv`` lane, in lane order, to each shard's
     emission log; returns the new cursor and each shard's records past
-    ``cap_log`` (counted as drops).  ``logs`` are (N, cap_log + 1): the
+    ``cap_log`` (counted as drops).  ``logs`` are (n, cap_log + 1): the
     spare last column absorbs the lanes that record nothing."""
     pos = cursor[:, None] + torch.cumsum(adv.to(torch.int64), 1) - 1
     keep = adv & (pos < cap_log)
@@ -561,18 +602,22 @@ def _write_log(logs, cap_log: int, cursor, adv, qid, hop, vertex):
     return torch.clamp(cursor + n, max=cap_log), (adv & ~keep).sum(1)
 
 
-def _route(cap, cfg: DistConfig, N: int, slots):
-    """Butterfly all-to-all of every live task to its next home; returns
-    the new pool (incoming buckets, then retention) and the route result."""
+def _pack(cap, cfg: DistConfig, N: int, slots):
+    """Bucket every live task of a group for its next home."""
     K, R = cfg.bucket_cap(N), cfg.retention_cap(N)
     dest = cap.route_dest(slots)
     lane = torch.arange(cfg.pool_size(N), device=dest.device)
     priority = torch.where(lane >= N * K, 0, 1)  # retained tasks go first
-    rr = router.pack_buckets(slots, dest, priority, N, K, R)
-    incoming = router.exchange(rr.send, cfg.axis_name)
-    slots = type(slots)(*(torch.cat([a, b], 1)
-                          for a, b in zip(incoming, rr.retention)))
-    return slots, rr
+    return router.pack_buckets(slots, dest, priority, N, K, R)
+
+
+def _route(rrs: list) -> list:
+    """Butterfly all-to-all of every group's buckets; each group's new
+    pool is its incoming buckets, then its retention."""
+    incoming = router.exchange([rr.send for rr in rrs])
+    return [type(inc)(*(torch.cat([a, b], 1)
+                        for a, b in zip(inc, rr.retention)))
+            for inc, rr in zip(incoming, rrs)]
 
 
 def _add_stats(stats: WalkStats, cfg: DistConfig, mine, adv, terminated,
@@ -592,15 +637,15 @@ def _add_stats(stats: WalkStats, cfg: DistConfig, mine, adv, terminated,
     )
 
 
-def _admission(cfg: DistConfig, N: int, slots, pending):
+def _admission(cfg: DistConfig, N: int, slots, pending, n_active,
+               global_live):
     """Flow-controlled refill ranks: each shard admits at most its fair
-    share of the global headroom N·W_loc - live, so system-wide live tasks
-    never exceed N·W_loc — the bound the retention region is provisioned
-    for (drops == 0 by construction, not by margin).  Returns (take,
-    rank among the shard's free lanes)."""
+    share of the global headroom N·W_loc - live (``global_live``, the
+    psum of every shard's ``n_active``), so system-wide live tasks never
+    exceed N·W_loc — the bound the retention region is provisioned for
+    (drops == 0 by construction, not by margin).  Returns (take, rank
+    among the shard's free lanes)."""
     W_loc = cfg.slots_per_device
-    n_active = slots.active.sum(1)
-    global_live = psum(n_active)
     slack = torch.clamp(N * W_loc - global_live, min=0)
     free = ~slots.active
     budget = torch.minimum(torch.clamp(W_loc - n_active, min=0), slack // N)
@@ -609,73 +654,96 @@ def _admission(cfg: DistConfig, N: int, slots, pending):
     return free & (rank_free < avail[:, None]), rank_free
 
 
-def _superstep_dist(cap, cfg: DistConfig, N: int, base_key, view,
-                    starts_loc, qcount, rank, seeds, carry):
-    """One closed superstep over every shard.  ``rank`` is the (N, S)
-    shard of each pool lane; ``starts_loc`` (N, q_loc) and ``qcount`` (N,)
-    are each shard's query shard; ``seeds`` its refill seeds."""
-    (slots, head, log_q, log_h, log_v, cursor, stats, done, t) = carry
-    S = cfg.pool_size(N)
+class _Closed(NamedTuple):
+    """One group's closed-run state: pool, per-shard query heads,
+    emission logs and cursors, stats."""
+    slots: Any
+    head: torch.Tensor
+    log_q: torch.Tensor
+    log_h: torch.Tensor
+    log_v: torch.Tensor
+    cursor: torch.Tensor
+    stats: WalkStats
 
-    # ---- process: one phase for locally-homed live tasks ----------------
-    lanes = _flatten(slots)
-    mine = lanes.active & (cap.home(lanes) == rank.reshape(-1))
-    out = cap.step(view, lanes, mine, base_key)
-    slots = _unflatten(out.slots, N)
-    mine, adv, terminated = (x.view(N, S) for x in
-                             (mine, out.adv, out.terminated))
 
-    # ---- emission log (streaming write-back, paper §IV-B) ---------------
-    # Runs before the terminated lanes' query_id is cleared (the final hop
-    # of a walk is still a recorded visit).
-    log_drop = torch.zeros_like(head)
-    if cfg.record_paths:
-        cursor, log_drop = _write_log(
-            (log_q, log_h, log_v), cfg.log_capacity, cursor, adv,
-            torch.where(adv, slots.query_id, -1), out.new_hop.view(N, S),
-            out.v_next.view(N, S))
-
-    slots = slots._replace(
-        query_id=torch.where(terminated, -1, slots.query_id),
-        active=slots.active & ~terminated,
-    )
+def _superstep_dist(cap, cfg: DistConfig, N: int, base_key, groups, inputs,
+                    carry):
+    """One closed superstep over every shard of every group.  ``inputs``
+    are each group's ``(starts_loc (n, q_loc), qcount (n,), seeds)``, its
+    shards' query shards and refill seeds; ``carry`` each group's
+    :class:`_Closed`.  Returns the new carry and the global done flag (a
+    (1,) bool tensor on the first group's device)."""
+    stepped = []
+    for grp, c in zip(groups, carry):
+        slots, mine, adv, terminated, new_hop, v_next = _step_group(
+            cap, grp, c.slots, base_key)
+        # ---- emission log (streaming write-back, paper §IV-B) -----------
+        # Runs before the terminated lanes' query_id is cleared (the final
+        # hop of a walk is still a recorded visit).
+        cursor, log_drop = c.cursor, torch.zeros_like(c.head)
+        if cfg.record_paths:
+            cursor, log_drop = _write_log(
+                (c.log_q, c.log_h, c.log_v), cfg.log_capacity, cursor, adv,
+                torch.where(adv, slots.query_id, -1), new_hop, v_next)
+        slots = slots._replace(
+            query_id=torch.where(terminated, -1, slots.query_id),
+            active=slots.active & ~terminated,
+        )
+        stepped.append((slots, mine, adv, terminated, cursor, log_drop))
 
     # ---- zero-bubble refill, flow-controlled to the global live bound ---
-    take, rank_free = _admission(cfg, N, slots, qcount - head)
-    k_local = head[:, None] + rank_free
-    k_safe = torch.clamp(k_local, 0, starts_loc.shape[1] - 1)
-    # Refill seeds: the plain engine admits hop-0 tasks at the start
-    # vertex; a hop-0 prescan capability seeds hop-1 tasks (v_prev = the
-    # start) and skips queries the prescan already terminated (`enter`).
-    seed_vc, seed_vp, seed_hop, seed_enter = (x.gather(1, k_safe)
-                                              for x in seeds)
-    adm = take & seed_enter  # admitted to the pool
-    slots = slots._replace(
-        v_curr=torch.where(adm, seed_vc, slots.v_curr),
-        v_prev=torch.where(adm, seed_vp, slots.v_prev),
-        query_id=torch.where(adm, (k_local * N + rank).to(torch.int32),
-                             slots.query_id),
-        hop=torch.where(adm, seed_hop, slots.hop),
-        active=slots.active | adm,
-        epoch=torch.where(adm, 0, slots.epoch),  # closed batch == epoch 0
-    )
-    slots = cap.reset_extras(slots, adm)
-    head = head + take.sum(1)
+    n_active = [st[0].active.sum(1) for st in stepped]
+    global_live = psum(n_active)
+    refilled, rrs = [], []
+    for grp, (starts_loc, qcount, seeds), c, st, n_act, live in zip(
+            groups, inputs, carry, stepped, n_active, global_live):
+        slots = st[0]
+        take, rank_free = _admission(cfg, N, slots, qcount - c.head, n_act,
+                                     live)
+        k_local = c.head[:, None] + rank_free
+        k_safe = torch.clamp(k_local, 0, starts_loc.shape[1] - 1)
+        # Refill seeds: the plain engine admits hop-0 tasks at the start
+        # vertex; a hop-0 prescan capability seeds hop-1 tasks (v_prev =
+        # the start) and skips queries the prescan already terminated
+        # (`enter`).
+        seed_vc, seed_vp, seed_hop, seed_enter = (x.gather(1, k_safe)
+                                                  for x in seeds)
+        adm = take & seed_enter  # admitted to the pool
+        slots = slots._replace(
+            v_curr=torch.where(adm, seed_vc, slots.v_curr),
+            v_prev=torch.where(adm, seed_vp, slots.v_prev),
+            # Query ids are global: query k of shard r is k·N + r.
+            query_id=torch.where(adm, (k_local * N + grp.rank)
+                                 .to(torch.int32), slots.query_id),
+            hop=torch.where(adm, seed_hop, slots.hop),
+            active=slots.active | adm,
+            epoch=torch.where(adm, 0, slots.epoch),  # closed batch == 0
+        )
+        slots = cap.reset_extras(slots, adm)
+        refilled.append(c.head + take.sum(1))
+        # ---- route: bucket every live task for its next home ------------
+        rrs.append(_pack(cap, cfg, N, slots))
 
     # ---- route: butterfly all-to-all to each task's next home -----------
-    slots, rr = _route(cap, cfg, N, slots)
+    pools = _route(rrs)
 
     # ---- stats + global termination -------------------------------------
-    stats = _add_stats(stats, cfg, mine, adv, terminated,
-                       (head < qcount).to(torch.int64), rr.waits,
-                       rr.drops + log_drop)
-    remaining = torch.clamp(qcount - head, min=0)
-    done = (slots.active.sum(1) + remaining).sum() == 0
-    return (slots, head, log_q, log_h, log_v, cursor, stats, done, t + 1)
+    out, work = [], []
+    for (_, qcount, _), c, st, head, slots, rr in zip(
+            inputs, carry, stepped, refilled, pools, rrs):
+        _, mine, adv, terminated, cursor, log_drop = st
+        stats = _add_stats(c.stats, cfg, mine, adv, terminated,
+                           (head < qcount).to(torch.int64), rr.waits,
+                           rr.drops + log_drop)
+        remaining = torch.clamp(qcount - head, min=0)
+        work.append(slots.active.sum(1) + remaining)
+        out.append(c._replace(slots=slots, head=head, cursor=cursor,
+                              stats=stats))
+    return out, reduce_first(work, torch.sum) == 0
 
 
-def _run_hop0_prescan(cap, cfg: DistConfig, N: int, view: LocalView,
-                      starts_sh, qcount, base_key, log_q, log_h, log_v):
+def _run_hop0_prescan(cap, cfg: DistConfig, N: int, groups, starts,
+                      qcounts, base_key, logs):
     """One-time batched hop-0 pass for prescan capabilities (closed engine).
 
     Every query's hop-0 scan runs once, on its start vertex's owner (the
@@ -684,53 +752,77 @@ def _run_hop0_prescan(cap, cfg: DistConfig, N: int, view: LocalView,
     in its emission log, in global query-list order, and the hop-1 refill
     seeds go back to the shard staging each query.  Runs before the
     superstep loop — O(Q) work once instead of a full reservoir scan in
-    every superstep.
+    every superstep.  ``starts``, ``qcounts`` and ``logs`` are per group;
+    returns each group's ``(seeds, cursor, stats)``.
     """
-    q_loc = starts_sh.shape[1]
-    dev = starts_sh.device
-    starts_all = all_gather(starts_sh)                       # (N, q_loc)
-    ks = torch.arange(q_loc, dtype=torch.int32, device=dev)
-    ranks = torch.arange(N, dtype=torch.int32, device=dev)
-    qid_all = (ks[None, :] * N + ranks[:, None]).reshape(-1)
-    valid = (ks[None, :] < qcount[:, None]).reshape(-1)
-    sflat = starts_all.reshape(-1)
-    v1, adv0, term0, enter = cap.prescan_hop0(view, sflat, qid_all, valid,
-                                              base_key)
-    own = owner_of(sflat, N)[None, :] == ranks[:, None]      # (N, N·q_loc)
+    q_loc = starts[0].shape[1]
+    starts_all = all_gather(starts)                     # (N, q_loc) a group
+    qcount_all = all_gather(qcounts)
+    out, sums = [], []
+    for grp, s_all, qc_all, (log_q, log_h, log_v) in zip(
+            groups, starts_all, qcount_all, logs):
+        dev = s_all.device
+        first, n = grp.view.first_shard, grp.view.group_shards
+        ks = torch.arange(q_loc, dtype=torch.int32, device=dev)
+        ranks = torch.arange(N, dtype=torch.int32, device=dev)
+        qid_all = (ks[None, :] * N + ranks[:, None]).reshape(-1)
+        valid = (ks[None, :] < qc_all[:, None]).reshape(-1)
+        sflat = s_all.reshape(-1)
+        owner = owner_of(sflat, N)
+        if n < N:   # the starts another group owns are its to scan
+            valid = valid & (owner >= first) & (owner < first + n)
+        v1, adv0, term0, enter = cap.prescan_hop0(grp.view, sflat, qid_all,
+                                                  valid, base_key)
+        own = owner[None, :] == grp.rank[:, :1]             # (n, N·q_loc)
 
-    # The owner that computed each hop-1 vertex logs its (qid, 1, v1)
-    # record — same emission-log discipline as the superstep.
-    log_drop = torch.zeros((N,), dtype=torch.int64, device=dev)
-    cursor = torch.zeros((N,), dtype=torch.int64, device=dev)
-    rec = own & adv0[None, :]
-    if cfg.record_paths:
-        cursor, log_drop = _write_log(
-            (log_q, log_h, log_v), log_q.shape[1] - 1, cursor, rec,
-            torch.where(rec, qid_all, -1), torch.ones_like(qid_all), v1)
-
-    stats0 = _zero_stats(N, dev)._replace(
-        steps=rec.sum(1), terminations=(own & term0[None, :]).sum(1),
-        drops=log_drop)
+        # The owner that computed each hop-1 vertex logs its (qid, 1, v1)
+        # record — same emission-log discipline as the superstep.
+        log_drop = torch.zeros((n,), dtype=torch.int64, device=dev)
+        cursor = torch.zeros((n,), dtype=torch.int64, device=dev)
+        rec = own & adv0[None, :]
+        if cfg.record_paths:
+            cursor, log_drop = _write_log(
+                (log_q, log_h, log_v), log_q.shape[1] - 1, cursor, rec,
+                torch.where(rec, qid_all, -1), torch.ones_like(qid_all), v1)
+        stats0 = _zero_stats(n, dev)._replace(
+            steps=rec.sum(1), terminations=(own & term0[None, :]).sum(1),
+            drops=log_drop)
+        out.append((cursor, stats0))
+        sums.append((v1, enter))
 
     # Each query has exactly one owner, so its hop-1 seeds are the owner's
     # result (the reference's psum of owner-masked values).
-    seeds = (torch.where(enter, v1, 0).view(N, q_loc), starts_sh,
-             torch.ones_like(starts_sh), enter.view(N, q_loc))
-    return seeds, cursor, stats0
+    if len(groups) > 1:
+        # v1 + 1 where the owner entered it, else 0: one psum carries both.
+        tot = psum([torch.where(e, v + 1, 0).view(1, N, q_loc)
+                    for v, e in sums])
+        sums = [(torch.where(t[0] > 0, t[0] - 1, 0), t[0] > 0) for t in tot]
+    else:
+        sums = [(torch.where(e, v, 0).view(N, q_loc), e.view(N, q_loc))
+                for v, e in sums]
+    res = []
+    for grp, st, (v1, enter), (cursor, stats0) in zip(groups, starts, sums,
+                                                      out):
+        rows = slice(grp.view.first_shard,
+                     grp.view.first_shard + grp.view.group_shards)
+        seeds = (v1[rows], st, torch.ones_like(st), enter[rows])
+        res.append((seeds, cursor, stats0))
+    return res
 
 
 def _check_typed(pg: PartitionedGraph, spec: SamplerSpec) -> None:
     if "typed" not in lower(spec).requires:
         return
-    if pg.type_offsets is None:
+    to = pg.groups[0].type_offsets
+    if to is None:
         raise ValueError(
             "metapath programs need type_offsets partitioned with the "
             "graph — build the CSRGraph with num_edge_types > 0 before "
             "partition_graph")
-    if max(spec.metapath) >= pg.type_offsets.shape[-1] - 1:
+    if max(spec.metapath) >= to.shape[-1] - 1:
         raise ValueError(
             f"metapath schedule {spec.metapath} names an edge type the "
-            f"graph lacks (it has {pg.type_offsets.shape[-1] - 1})")
+            f"graph lacks (it has {to.shape[-1] - 1})")
 
 
 def _check_mesh(mesh: Optional[Mesh], pg: PartitionedGraph) -> None:
@@ -739,9 +831,10 @@ def _check_mesh(mesh: Optional[Mesh], pg: PartitionedGraph) -> None:
     if mesh.num_shards != pg.num_devices:
         raise ValueError(f"the mesh has {mesh.num_shards} shards, the graph "
                          f"{pg.num_devices}")
-    if torch.device(mesh.device) != pg.device:
-        raise ValueError(f"the mesh is on {mesh.device}, the graph on "
-                         f"{pg.device}")
+    devices = check_devices(mesh.devices)
+    if devices != pg.devices:
+        raise ValueError(f"the mesh places its groups on {devices}, the "
+                         f"graph on {pg.devices}")
 
 
 def make_distributed_engine(pg: PartitionedGraph, spec: SamplerSpec,
@@ -749,7 +842,8 @@ def make_distributed_engine(pg: PartitionedGraph, spec: SamplerSpec,
     """Build the closed sharded runner ``run(graph, starts_sharded,
     qcount, base_key) -> (log_q, log_h, log_v, cursor, stats)`` for graphs
     shaped like ``pg``: the emission logs (N, log_capacity), each shard's
-    cursor (N,) and per-shard `WalkStats` (each field (N,)).
+    cursor (N,) and per-shard `WalkStats` (each field (N,)), all on the
+    first group's device.
 
     Works for every sampler kind that declares a capability — first- and
     second-order walks share this one routing path.
@@ -762,41 +856,53 @@ def make_distributed_engine(pg: PartitionedGraph, spec: SamplerSpec,
     S = cfg.pool_size(N)
 
     def run(graph: PartitionedGraph, starts_sharded, qcount, base_key):
-        dev = graph.device
-        view = local_view(graph)
+        groups = _groups(graph, S)
         base_key = tuple(int(x) for x in base_key)
-        starts_l = torch.as_tensor(starts_sharded, dtype=torch.int32,
-                                   device=dev)
-        qcount_l = torch.as_tensor(qcount, device=dev).reshape(-1).to(
-            torch.int64)
+        starts_all = torch.as_tensor(starts_sharded, dtype=torch.int32)
+        qcount_all = torch.as_tensor(qcount).reshape(-1).to(torch.int64)
         cap_log = cfg.log_capacity if cfg.record_paths else 1
-        log_q, log_h, log_v = (torch.full((N, cap_log + 1), -1,
-                                          dtype=torch.int32, device=dev)
-                               for _ in range(3))
-        cursor = torch.zeros((N,), dtype=torch.int64, device=dev)
-        stats = _zero_stats(N, dev)
-        # Default refill seeds: hop-0 tasks at the start vertex.
-        seeds = (starts_l, torch.full_like(starts_l, -1),
-                 torch.zeros_like(starts_l),
-                 torch.ones(starts_l.shape, dtype=torch.bool, device=dev))
+        inputs, carry, logs = [], [], []
+        for grp in groups:
+            dev = grp.rank.device
+            n, first = grp.view.group_shards, grp.view.first_shard
+            starts_l = starts_all[first:first + n].to(dev)
+            qcount_l = qcount_all[first:first + n].to(dev)
+            log = tuple(torch.full((n, cap_log + 1), -1, dtype=torch.int32,
+                                   device=dev) for _ in range(3))
+            # Default refill seeds: hop-0 tasks at the start vertex.
+            seeds = (starts_l, torch.full_like(starts_l, -1),
+                     torch.zeros_like(starts_l),
+                     torch.ones(starts_l.shape, dtype=torch.bool,
+                                device=dev))
+            inputs.append((starts_l, qcount_l, seeds))
+            logs.append(log)
+            carry.append(_Closed(
+                _unflatten(cap.empty_pool(n * S, dev), n),
+                torch.zeros((n,), dtype=torch.int64, device=dev), *log,
+                torch.zeros((n,), dtype=torch.int64, device=dev),
+                _zero_stats(n, dev)))
         if cap.prescan:
             # ---- one-time batched hop-0 local scan (out of the
             # per-superstep critical path; see ProgramCapability) ------
-            seeds, cursor, stats = _run_hop0_prescan(
-                cap, cfg, N, view, starts_l, qcount_l, base_key,
-                log_q, log_h, log_v)
-        pool = _unflatten(cap.empty_pool(N * S, dev), N)
-        carry = (pool, torch.zeros((N,), dtype=torch.int64, device=dev),
-                 log_q, log_h, log_v, cursor, stats, None, 0)
-        rank = _lane_ranks(N, S, dev)
+            pre = _run_hop0_prescan(cap, cfg, N, groups,
+                                    [x[0] for x in inputs],
+                                    [x[1] for x in inputs], base_key, logs)
+            inputs = [(s, q, seeds) for (s, q, _), (seeds, _, _) in
+                      zip(inputs, pre)]
+            carry = [c._replace(cursor=cursor, stats=stats) for c, (
+                _, cursor, stats) in zip(carry, pre)]
+        t = 0
         while True:   # the reference's while_loop: done or max_supersteps
-            carry = _superstep_dist(cap, cfg, N, base_key, view, starts_l,
-                                    qcount_l, rank, seeds, carry)
-            if carry[8] >= cfg.max_supersteps or bool(carry[7]):
+            carry, done = _superstep_dist(cap, cfg, N, base_key, groups,
+                                          inputs, carry)
+            t += 1
+            if t >= cfg.max_supersteps or bool(done):
                 break
-        _, _, log_q, log_h, log_v, cursor, stats, _, _ = carry
-        return (log_q[:, :cap_log], log_h[:, :cap_log], log_v[:, :cap_log],
-                cursor, stats)
+        stats = WalkStats(*(gather_first(f) for f in
+                            zip(*(c.stats for c in carry))))
+        return (*(gather_first([getattr(c, f)[:, :cap_log] for c in carry])
+                  for f in ("log_q", "log_h", "log_v")),
+                gather_first([c.cursor for c in carry]), stats)
 
     return run
 
@@ -811,8 +917,8 @@ def make_distributed_engine(pg: PartitionedGraph, spec: SamplerSpec,
 
 
 class DistStreamState(NamedTuple):
-    """Persistent sharded stream state; every field's leading axis is the
-    shard (channel) axis.
+    """Persistent sharded stream state of one group; every field's
+    leading axis is the group's shard (channel) axis.
 
     Arrivals are staged by the host into per-shard *arrival rings* —
     (start, qid, epoch) triplets appended at monotone ``tail`` counters on
@@ -834,54 +940,57 @@ class DistStreamState(NamedTuple):
     overflow (live queries are bounded by ``capacity`` host-side).
     """
 
-    slots: Any                  # capability task word, fields (N, S, ...)
-    ring_start: torch.Tensor    # (N, cap) int32 — start vertex by arrival seq
-    ring_qid: torch.Tensor      # (N, cap) int32 — slot id by arrival seq
-    ring_epoch: torch.Tensor    # (N, cap) int32 — occupant epoch
-    head: torch.Tensor          # (N,) int64 — monotone per-shard issue count
-    tail: torch.Tensor          # (N,) int64 — monotone per-shard arrivals
-    paths: torch.Tensor         # (N, cap+1, max_hops+1) int32
-    lengths: torch.Tensor       # (N, cap+1) int32
-    done: torch.Tensor          # (N, cap+1) bool — terminated, by slot id
-    stats: WalkStats            # fields (N,)
+    slots: Any                  # capability task word, fields (n, S, ...)
+    ring_start: torch.Tensor    # (n, cap) int32 — start vertex by arrival seq
+    ring_qid: torch.Tensor      # (n, cap) int32 — slot id by arrival seq
+    ring_epoch: torch.Tensor    # (n, cap) int32 — occupant epoch
+    head: torch.Tensor          # (n,) int64 — monotone per-shard issue count
+    tail: torch.Tensor          # (n,) int64 — monotone per-shard arrivals
+    paths: torch.Tensor         # (n, cap+1, max_hops+1) int32
+    lengths: torch.Tensor       # (n, cap+1) int32
+    done: torch.Tensor          # (n, cap+1) bool — terminated, by slot id
+    stats: WalkStats            # fields (n,)
 
 
 def init_dist_stream_state(pg: PartitionedGraph, spec: SamplerSpec,
-                           cfg: DistConfig, capacity: int) -> DistStreamState:
-    """Empty sharded open-system state on the graph's device with room for
-    ``capacity`` live queries (global slot ids 0..capacity-1, shared
-    across shards)."""
-    N, dev = pg.num_devices, pg.device
+                           cfg: DistConfig, capacity: int) -> list:
+    """Empty sharded open-system state, one :class:`DistStreamState` a
+    group on its device, with room for ``capacity`` live queries (global
+    slot ids 0..capacity-1, shared across shards)."""
+    N = pg.num_devices
     cap_ = get_capability(spec, cfg, N, pg.vertices_per_device,
                           pg.max_degree)
-    pool = _unflatten(cap_.empty_pool(N * cfg.pool_size(N), dev), N)
+    states = []
+    for n, dev in zip((g.row_ptr.shape[0] for g in pg.groups), pg.devices):
+        def zeros(shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        states.append(DistStreamState(
+            slots=_unflatten(cap_.empty_pool(n * cfg.pool_size(N), dev), n),
+            ring_start=zeros((n, capacity)), ring_qid=zeros((n, capacity)),
+            ring_epoch=zeros((n, capacity)),
+            head=zeros((n,), torch.int64), tail=zeros((n,), torch.int64),
+            paths=torch.full((n, capacity + 1, cfg.max_hops + 1), -1,
+                             dtype=torch.int32, device=dev),
+            lengths=zeros((n, capacity + 1)),
+            done=zeros((n, capacity + 1), torch.bool),
+            stats=_zero_stats(n, dev),
+        ))
+    return states
 
-    def zeros(shape, dtype=torch.int32):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-    return DistStreamState(
-        slots=pool,
-        ring_start=zeros((N, capacity)), ring_qid=zeros((N, capacity)),
-        ring_epoch=zeros((N, capacity)),
-        head=zeros((N,), torch.int64), tail=zeros((N,), torch.int64),
-        paths=torch.full((N, capacity + 1, cfg.max_hops + 1), -1,
-                         dtype=torch.int32, device=dev),
-        lengths=zeros((N, capacity + 1)),
-        done=zeros((N, capacity + 1), torch.bool),
-        stats=_zero_stats(N, dev),
-    )
 
-
-def inject_stream_queries(state: DistStreamState, starts_blk, qid_blk,
-                          epoch_blk, counts) -> DistStreamState:
+def inject_stream_queries(states: list, starts_blk, qid_blk, epoch_blk,
+                          counts) -> list:
     """Stage arrival blocks into the per-shard rings (host→device).
 
     ``starts_blk``/``qid_blk``/``epoch_blk`` are (N, B) host blocks; row
     r's first ``counts[r]`` entries are real arrivals for shard r, the
     rest padding that is never written.  Recycled slots' ``done`` bits and
-    path rows are cleared on *every* shard — an old occupant's hops may
-    have been recorded anywhere.  Writes the state in place; returns it.
+    path rows are cleared on *every* shard of every group — an old
+    occupant's hops may have been recorded anywhere.  Writes each group's
+    state in place; returns them.
     """
-    N, cap = state.ring_qid.shape
+    N = sum(st.ring_qid.shape[0] for st in states)
+    cap = states[0].ring_qid.shape[1]
     counts = np.asarray(counts, np.int64).reshape(N)
     B = np.asarray(qid_blk).shape[1]
     if counts.min(initial=0) < 0 or counts.max(initial=0) > B:
@@ -891,99 +1000,112 @@ def inject_stream_queries(state: DistStreamState, starts_blk, qid_blk,
     rows, cols = np.nonzero(valid)
     block = np.stack([rows, cols] + [np.asarray(x, np.int64)[valid] for x in
                                      (starts_blk, qid_blk, epoch_blk)])
-    qids = block[4]
+    qids = block[3]
     if qids.size and not (0 <= qids.min() and qids.max() < cap):
         raise ValueError(f"slot ids must lie in [0, {cap}), got "
                          f"[{qids.min()}, {qids.max()}]")
-    dev = state.tail.device
-    rows, cols, start, qid, epoch = torch.from_numpy(block).to(dev).unbind()
-    pos = (state.tail[rows] + cols) % cap
-    state.ring_start[rows, pos] = start.to(torch.int32)
-    state.ring_qid[rows, pos] = qid.to(torch.int32)
-    state.ring_epoch[rows, pos] = epoch.to(torch.int32)
-    state.done[:, qid] = False
-    state.paths[:, qid, :] = -1
-    state.lengths[:, qid] = 0
-    state.tail.add_(torch.from_numpy(counts).to(dev))
-    return state
+    first = 0
+    for st in states:
+        n, dev = st.ring_qid.shape[0], st.tail.device
+        mine = (block[0] >= first) & (block[0] < first + n)
+        part = block[:, mine]
+        part[0] -= first
+        r, c, start, qid, epoch = torch.from_numpy(part).to(dev).unbind()
+        pos = (st.tail[r] + c) % cap
+        st.ring_start[r, pos] = start.to(torch.int32)
+        st.ring_qid[r, pos] = qid.to(torch.int32)
+        st.ring_epoch[r, pos] = epoch.to(torch.int32)
+        every = qid if n == N else torch.from_numpy(qids).to(dev)
+        st.done[:, every] = False
+        st.paths[:, every, :] = -1
+        st.lengths[:, every] = 0
+        st.tail.add_(torch.from_numpy(counts[first:first + n]).to(dev))
+        first += n
+    return states
 
 
 def _superstep_dist_stream(cap, cfg: DistConfig, N: int, capacity: int,
-                           base_key, view, rank, st: DistStreamState):
+                           base_key, groups, states):
     """One streaming superstep: phase-step → path/done scatter → terminate
     → flow-controlled ring refill → butterfly route (mirrors
     `_superstep_dist`, with the arrival ring in place of the start shard
-    and scatter windows in place of the emission log).  Returns the state
-    and the global work flag (a 0-dim bool tensor)."""
-    S = cfg.pool_size(N)
-    rows = torch.arange(N, device=rank.device)[:, None]
-
-    # ---- process: one phase for locally-homed live tasks ----------------
-    lanes = _flatten(st.slots)
-    mine = lanes.active & (cap.home(lanes) == rank.reshape(-1))
-    out = cap.step(view, lanes, mine, base_key)
-    slots = _unflatten(out.slots, N)
-    mine, adv, terminated, new_hop, v_next = (
-        x.view(N, S) for x in (mine, out.adv, out.terminated, out.new_hop,
-                               out.v_next))
-
-    # ---- streaming write-back: scatter executed hops locally ------------
-    sq = torch.where(adv, slots.query_id, capacity).long()  # capacity = spare
-    st.paths[rows, sq, new_hop.long()] = v_next
-    st.lengths[rows, sq] = new_hop + 1
-    st.done[rows, torch.where(terminated, slots.query_id,
-                              capacity).long()] = True
-
-    slots = slots._replace(
-        query_id=torch.where(terminated, -1, slots.query_id),
-        active=slots.active & ~terminated,
-    )
+    and scatter windows in place of the emission log).  Returns each
+    group's state and the global work flag (a (1,) bool tensor on the
+    first group's device)."""
+    stepped = []
+    for grp, st in zip(groups, states):
+        rows = torch.arange(grp.rank.shape[0], device=grp.rank.device)[:, None]
+        slots, mine, adv, terminated, new_hop, v_next = _step_group(
+            cap, grp, st.slots, base_key)
+        # ---- streaming write-back: scatter executed hops locally --------
+        sq = torch.where(adv, slots.query_id, capacity).long()  # spare row
+        st.paths[rows, sq, new_hop.long()] = v_next
+        st.lengths[rows, sq] = new_hop + 1
+        st.done[rows, torch.where(terminated, slots.query_id,
+                                  capacity).long()] = True
+        slots = slots._replace(
+            query_id=torch.where(terminated, -1, slots.query_id),
+            active=slots.active & ~terminated,
+        )
+        stepped.append((slots, mine, adv, terminated, rows))
 
     # ---- zero-bubble refill from the local arrival ring, flow-controlled
     # to the global live bound N·W_loc (the closed engine's coordination,
     # so losslessness carries over to the open system) -------------------
-    take, rank_free = _admission(cfg, N, slots, st.tail - st.head)
-    pos = (st.head[:, None] + torch.clamp(rank_free, min=0)) % capacity
-    qid = st.ring_qid.gather(1, pos)
-    start = st.ring_start.gather(1, pos)
-    ep = st.ring_epoch.gather(1, pos)
-    slots = slots._replace(
-        v_curr=torch.where(take, start, slots.v_curr),
-        v_prev=torch.where(take, -1, slots.v_prev),
-        query_id=torch.where(take, qid, slots.query_id),
-        hop=torch.where(take, 0, slots.hop),
-        active=slots.active | take,
-        epoch=torch.where(take, ep, slots.epoch),
-    )
-    slots = cap.reset_extras(slots, take)
-    head = st.head + take.sum(1)
-    # Record hop 0 on the staging shard; the route below hands the task to
-    # owner(start_vertex) for its first hop.
-    sq = torch.where(take, qid, capacity).long()
-    st.paths[rows, sq, 0] = start
-    st.lengths[rows, sq] = 1
+    n_active = [x[0].active.sum(1) for x in stepped]
+    global_live = psum(n_active)
+    heads, rrs = [], []
+    for st, x, n_act, live in zip(states, stepped, n_active, global_live):
+        slots, rows = x[0], x[4]
+        take, rank_free = _admission(cfg, N, slots, st.tail - st.head,
+                                     n_act, live)
+        pos = (st.head[:, None] + torch.clamp(rank_free, min=0)) % capacity
+        qid = st.ring_qid.gather(1, pos)
+        start = st.ring_start.gather(1, pos)
+        ep = st.ring_epoch.gather(1, pos)
+        slots = slots._replace(
+            v_curr=torch.where(take, start, slots.v_curr),
+            v_prev=torch.where(take, -1, slots.v_prev),
+            query_id=torch.where(take, qid, slots.query_id),
+            hop=torch.where(take, 0, slots.hop),
+            active=slots.active | take,
+            epoch=torch.where(take, ep, slots.epoch),
+        )
+        slots = cap.reset_extras(slots, take)
+        heads.append(st.head + take.sum(1))
+        # Record hop 0 on the staging shard; the route below hands the task
+        # to owner(start_vertex) for its first hop.
+        sq = torch.where(take, qid, capacity).long()
+        st.paths[rows, sq, 0] = start
+        st.lengths[rows, sq] = 1
+        rrs.append(_pack(cap, cfg, N, slots))
 
     # ---- route: butterfly all-to-all to each task's next home -----------
-    slots, rr = _route(cap, cfg, N, slots)
+    pools = _route(rrs)
 
     # ---- stats + global work flag ---------------------------------------
-    stats = _add_stats(st.stats, cfg, mine, adv, terminated,
-                       (head < st.tail).to(torch.int64), rr.waits, rr.drops)
-    pending = torch.clamp(st.tail - head, min=0)
-    work = (slots.active.sum(1) + pending).sum() > 0
-    return st._replace(slots=slots, head=head, stats=stats), work
+    out, work = [], []
+    for st, x, head, slots, rr in zip(states, stepped, heads, pools, rrs):
+        _, mine, adv, terminated, _ = x
+        stats = _add_stats(st.stats, cfg, mine, adv, terminated,
+                           (head < st.tail).to(torch.int64), rr.waits,
+                           rr.drops)
+        work.append(slots.active.sum(1) + torch.clamp(st.tail - head, min=0))
+        out.append(st._replace(slots=slots, head=head, stats=stats))
+    return out, reduce_first(work, torch.sum) > 0
 
 
 def make_sharded_stream_engine(pg: PartitionedGraph, spec: SamplerSpec,
                                cfg: DistConfig, mesh: Optional[Mesh] = None,
                                capacity: int = 4096):
-    """Build ``run(graph, state, base_key, k) -> Chunk`` (the single
-    engine's: the state, the supersteps run, the seconds blocked in the
-    work-flag read) advancing the sharded stream by at most ``k``
+    """Build ``run(graph, states, base_key, k) -> Chunk`` (the single
+    engine's: the groups' states, the supersteps run, the seconds blocked
+    in the work-flag read) advancing the sharded stream by at most ``k``
     supersteps, stopping early when no work remains on any shard (the
-    flag is read once before the first superstep and once after each).
-    The host injects with :func:`inject_stream_queries` between chunks
-    and harvests by max-folding the per-shard path windows.
+    flag, summed over the groups on the first group's device, is read once
+    before the first superstep and once after each).  The host injects
+    with :func:`inject_stream_queries` between chunks and harvests by
+    max-folding the per-shard path windows.
     """
     N = pg.num_devices
     _check_mesh(mesh, pg)
@@ -992,24 +1114,24 @@ def make_sharded_stream_engine(pg: PartitionedGraph, spec: SamplerSpec,
                           pg.max_degree)
     S = cfg.pool_size(N)
 
-    def run(graph: PartitionedGraph, state: DistStreamState, base_key,
+    def run(graph: PartitionedGraph, states: list, base_key,
             k: int) -> Chunk:
-        view = local_view(graph)
+        groups = _groups(graph, S)
         base_key = tuple(int(x) for x in base_key)
-        rank = _lane_ranks(N, S, graph.device)
         t = clock.now()
-        work = bool((state.slots.active.sum() + torch.clamp(
-            state.tail - state.head, min=0).sum()) > 0)
+        work = bool(reduce_first([st.slots.active.sum(1)
+                                  + torch.clamp(st.tail - st.head, min=0)
+                                  for st in states], torch.sum) > 0)
         sync_s = clock.now() - t
         ran = 0
         while work and ran < k:
-            state, flag = _superstep_dist_stream(cap_, cfg, N, capacity,
-                                                 base_key, view, rank, state)
+            states, flag = _superstep_dist_stream(cap_, cfg, N, capacity,
+                                                  base_key, groups, states)
             ran += 1
             t = clock.now()
             work = bool(flag)   # once per superstep
             sync_s += clock.now() - t
-        return Chunk(state, ran, sync_s)
+        return Chunk(states, ran, sync_s)
 
     return run
 

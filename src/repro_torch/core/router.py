@@ -17,9 +17,9 @@ and no loss:
     (``drops`` must be 0; capacity is provisioned by
     `scheduler.routing_capacity`, the Theorem VI.1 margin).
 
-Every function takes one shard's lanes ``(S, ...)`` or all shards' lanes
-stacked ``(N, S, ...)``; the exchange is the mesh's tiled all-to-all
-(`repro_torch.distributed.mesh`).
+`pack_buckets` takes one shard's lanes ``(S, ...)`` or one group's shards'
+lanes stacked ``(n, S, ...)``; the exchange is the mesh's tiled
+all-to-all across the groups (`repro_torch.distributed.mesh`).
 """
 from __future__ import annotations
 
@@ -124,9 +124,12 @@ def pack_buckets(slots: WalkerSlots, dest: torch.Tensor,
                        drops=drops)
 
 
-def exchange(send, axis_name: str = "ch"):
-    """The butterfly hop: all-to-all the (N, N·K) send buffers so bucket d
-    of every shard lands on shard d.  Fixed shapes; one collective per
-    superstep.  ``axis_name`` is the mesh's (kept for the reference's
-    signature; the shard axis is the leading one)."""
-    return type(send)(*(mesh.all_to_all(f) for f in send))
+def exchange(sends, axis_name: str = "ch"):
+    """The butterfly hop: all-to-all the send buffers so bucket d of every
+    shard lands on shard d.  ``sends`` holds each shard group's (n, N·K)
+    buffers (one group: the stacked (N, N·K) buffers), and each group gets
+    its incoming buckets back on its device.  Fixed shapes; one collective
+    a task field per superstep.  ``axis_name`` is the mesh's (kept for the
+    reference's signature; the shard axis is the leading one)."""
+    fields = [mesh.all_to_all(list(f)) for f in zip(*sends)]
+    return [type(sends[0])(*f) for f in zip(*fields)]

@@ -126,14 +126,21 @@ def vertex_row(g, v: torch.Tensor) -> torch.Tensor:
     """The row of vertex ``v`` in ``g``'s per-vertex arrays (``row_ptr``,
     ``type_offsets``); negative and out-of-range ids clamp to a valid row
     (callers mask validity).  The identity on a `CSRGraph`; on the sharded
-    engine's stacked view (`core.distributed.LocalView`, whose shards lie
-    end to end) it is the owner's block ``(v % N) · rows_per_shard`` plus
-    the local row ``v // N``, so one expression serves every shard."""
+    engine's stacked view of a group (`core.distributed.LocalView`, whose
+    shards lie end to end) it is the owner's block ``(v % N -
+    first_shard) · rows_per_shard`` plus the local row ``v // N``, so one
+    expression serves every shard of the group.  A vertex another group
+    owns clamps into this group's blocks: its lane's reads are masked, but
+    an index past the arrays would fault on the card."""
     v = torch.where(v >= 0, v, 0)
     shards = getattr(g, "num_shards", 0)
     if shards:
         local = torch.clamp(v // shards, 0, g.rows_per_shard - 2)
-        return (v % shards) * g.rows_per_shard + local
+        block = v % shards
+        if g.group_shards < shards:
+            block = torch.clamp(block - g.first_shard, 0,
+                                g.group_shards - 1)
+        return block * g.rows_per_shard + local
     return torch.clamp(v, 0, g.num_vertices - 1)
 
 

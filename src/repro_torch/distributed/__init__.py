@@ -1,4 +1,4 @@
-"""The shard axis of the sharded backend and its collectives; the
+"""The shard groups of the sharded backend and their collectives; the
 dry-run's placements (``PartitionSpec``, ``shard_shape``); the GPipe
 schedule over a stacked ``pipe`` axis."""
 from repro_torch.distributed import pipeline

@@ -11,7 +11,14 @@ Prints the graph's size and one summary line (steps, supersteps, launches,
 MStep/s, occupancy, starved lane-supersteps, drops; route waits on the
 sharded backend).  Throughput is wall time around the drain, on the device
 named by ``--device``.  ``--backend sharded`` partitions the graph into
-``--devices`` shards, all on that device (the plain torch superstep).
+``--devices`` shards (the plain torch superstep), placed as
+`repro_torch.walker.compile.default_mesh` places them: on a machine with
+several cards, in G groups on the first G cards, G the largest divisor of
+the shard count that is at most the number of cards; otherwise all on
+``--device``.  Spread over cards, the superstep is slower than on one card
+(on four H100s, URW at 4 x 1,024 lanes: 24.14 ms a superstep on one card,
+61.25 on 2, 98.31 on 4; ``PERF.md``); ``CUDA_VISIBLE_DEVICES=0`` keeps every
+shard on one card.
 """
 from __future__ import annotations
 
@@ -46,8 +53,10 @@ def main():
     ap.add_argument("--backend", default="single",
                     choices=list(walker.BACKENDS))
     ap.add_argument("--devices", type=int, default=8,
-                    help="sharded only: shard count (every shard on "
-                         "--device)")
+                    help="sharded only: shard count (placed over the "
+                         "visible cards by the default mesh rule, which "
+                         "runs 2-5x slower than one card; "
+                         "CUDA_VISIBLE_DEVICES=0 keeps them on one)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--record-paths", action="store_true")
     ap.add_argument("--seed", type=int, default=0)

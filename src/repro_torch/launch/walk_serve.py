@@ -9,8 +9,11 @@ models).
   PYTHONPATH=src python -m repro_torch.launch.walk_serve --backend sharded \
       --devices 4 --slots 4096
 
-Sharded serving runs the same service over the sharded superstep, every
-shard on ``--device``.
+Sharded serving runs the same service over the sharded superstep, its
+``--devices`` shards placed as `repro_torch.launch.walk` places them (in
+groups over the visible cards, else on ``--device``; spread over cards the
+superstep is 2-5x slower than on one, and ``CUDA_VISIBLE_DEVICES=0``
+keeps every shard on one card).
 
 Prints the graph's size, the backend and offered load, the counts
 (requests, walks, supersteps, drops), the sojourn percentiles in
@@ -38,9 +41,10 @@ def main():
     ap.add_argument("--backend", default="single",
                     choices=sorted(walker.BACKENDS),
                     help="single device, or sharded into --devices shards "
-                         "on --device")
+                         "(in groups over the visible cards)")
     ap.add_argument("--devices", type=int, default=4,
-                    help="sharded only: shard count")
+                    help="sharded only: shard count (placed as "
+                         "--backend sharded says)")
     ap.add_argument("--dataset", default="WG")
     ap.add_argument("--scale", type=int, default=None,
                     help="RMAT scale override (default: the dataset's "

@@ -89,8 +89,14 @@ def _weighted_quantile(sorted_deg: np.ndarray, cum: np.ndarray,
 def graph_signature(graph) -> GraphSignature:
     """Fingerprint a `CSRGraph` or `PartitionedGraph` on either device
     for the cache (host numpy work over one copy of its row pointers)."""
-    row_ptr = graph.row_ptr.cpu().numpy().astype(np.int64)
-    if row_ptr.ndim == 2:       # PartitionedGraph: per-shard row pointers
+    groups = getattr(graph, "groups", None)
+    arrays = groups[0] if groups else graph
+    if groups:                  # PartitionedGraph: per-shard row pointers
+        row_ptr = np.concatenate([x.row_ptr.cpu().numpy() for x in groups])
+    else:
+        row_ptr = graph.row_ptr.cpu().numpy()
+    row_ptr = row_ptr.astype(np.int64)
+    if row_ptr.ndim == 2:
         deg = np.diff(row_ptr, axis=1).reshape(-1)
     else:
         deg = np.diff(row_ptr)
@@ -104,7 +110,7 @@ def graph_signature(graph) -> GraphSignature:
         num_vertices=int(getattr(graph, "num_vertices", deg.size)),
         num_edges=int(getattr(graph, "num_edges", int(deg.sum()))),
         max_degree=int(getattr(graph, "max_degree", int(sd[-1]))),
-        weighted=getattr(graph, "weights", None) is not None,
+        weighted=getattr(arrays, "weights", None) is not None,
         typed=getattr(graph, "edge_type", None) is not None,
         deg_q=tuple(_degree_quantile(sd, q) for q in PLAIN_QS),
         deg_wq=tuple(_weighted_quantile(sd, cum, q) for q in WEIGHTED_QS),

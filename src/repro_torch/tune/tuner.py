@@ -38,8 +38,10 @@ from repro_torch.tune.space import (EXEC_KNOBS, Candidate, default_candidate,
 def _device_kind(graph) -> str:
     """The machine axis of the cache key: the name of the card the graph
     lives on, or ``cpu`` for a graph on the host."""
-    if graph.device.type == "cuda":
-        return torch.cuda.get_device_name(graph.device)
+    devices = getattr(graph, "devices", None)   # a partition's groups
+    device = devices[0] if devices else graph.device
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
     return "cpu"
 
 

@@ -13,13 +13,14 @@ backend and returns a :class:`Walker`:
 The walk runs where the graph lives: on the card, ``step_impl="cuda"``
 and ``"fused"`` launch their kernels; on the CPU they run the kernels'
 plain versions.  ``backend="sharded"`` partitions the graph into N shards
-stacked on its device (`repro_torch.core.distributed`: per-phase butterfly
-routing, flow-controlled lossless refill; the plain torch superstep) and
-offers the same four calls.  Paths are a pure function of (seed, epoch,
-query_id, hop), so they are bit-identical to the reference package for
-the same graph, starts and seed, under every step implementation and
-either backend; on the single backend the stats differ only in
-``launches`` (one per superstep, or one per fused launch).
+placed in groups over the mesh's devices (`repro_torch.core.distributed`:
+per-phase butterfly routing, flow-controlled lossless refill; the plain
+torch superstep) and offers the same four calls.  Paths are a pure
+function of (seed, epoch, query_id, hop), so they are bit-identical to
+the reference package for the same graph, starts and seed, under every
+step implementation and either backend; on the single backend the stats
+differ only in ``launches`` (one per superstep, or one per fused
+launch).
 
 Streams are continuous: query-id slots form a ring (a host-side free ring
 hands slots to arrivals; ``release`` reclaims them after harvest with
@@ -50,7 +51,7 @@ from repro_torch.core.walk_engine import (Drain, StreamState, build_engine,
                                           init_stream_state, inject_queries,
                                           make_superstep_runner,
                                           maybe_build_cache)
-from repro_torch.distributed.mesh import Mesh
+from repro_torch.distributed.mesh import Mesh, gather_first, reduce_first
 from repro_torch.graph.partition import PartitionedGraph, partition_graph
 from repro_torch.models import embeddings as emb
 from repro_torch.optim import adamw
@@ -78,10 +79,15 @@ def compile(program: WalkProgram, backend: str = "single",
 
     backend:
       ``single``  — one device: slot-pool engine with zero-bubble refill.
-      ``sharded`` — N shards stacked on the graph's device (``mesh``, or
-                    ``execution.num_devices``, or a `PartitionedGraph`'s
-                    own count): vertex-partitioned graph, per-phase
-                    butterfly routing, flow-controlled lossless refill.
+      ``sharded`` — N shards (``mesh``, or ``execution.num_devices``, or
+                    a `PartitionedGraph`'s own count): vertex-partitioned
+                    graph, per-phase butterfly routing, flow-controlled
+                    lossless refill.  The shards lie in groups, one a
+                    device of ``mesh``; without one, as the reference's
+                    ``jax.devices()[:N]``, over the largest G dividing N
+                    that is at most the visible cards (:func:`default_mesh`;
+                    one group on the graph's device on one card or the
+                    CPU).  A `PartitionedGraph` keeps its own placement.
     """
     if not isinstance(program, WalkProgram):
         raise TypeError(
@@ -92,6 +98,24 @@ def compile(program: WalkProgram, backend: str = "single",
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
     return Walker(program, backend, execution or ExecutionConfig(), mesh)
+
+
+def default_mesh(graph, num_shards: int) -> Mesh:
+    """The mesh a sharded run takes when none is given: G groups on
+    ``cuda:0`` … ``cuda:G-1``, G the largest divisor of ``num_shards``
+    that is at most the number of visible cards; one group on the graph's
+    device when G is 1 (one card, or a graph on the CPU).  Spread over
+    cards the superstep is slower than on one card (on four H100s, URW at
+    4 x 1,024 lanes took 2.2-2.5x one card's time over 2 cards and 4.1-5x
+    over 4; ``PERF.md``): the spread buys room for the graph, not speed, and
+    ``Mesh(num_shards, "cuda:0")`` keeps every shard on one card."""
+    dev = graph.device
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    G = max(d for d in range(1, min(num_shards, cards) + 1)
+            if num_shards % d == 0)
+    if G == 1:
+        return Mesh(num_shards, dev)
+    return Mesh(num_shards, [torch.device("cuda", i) for i in range(G)])
 
 
 class Walker:
@@ -140,21 +164,23 @@ class Walker:
 
     def _partition(self, graph) -> PartitionedGraph:
         """``graph`` as shards: a `PartitionedGraph` as it is, a `CSRGraph`
-        partitioned over the mesh's shards, ``execution.num_devices``, or
-        the number of visible cards (at least 1)."""
+        partitioned over the mesh's shards and devices, or over
+        ``execution.num_devices`` (default: the number of visible cards, at
+        least 1) shards placed by :func:`default_mesh`."""
         if isinstance(graph, PartitionedGraph):
             return graph
-        if self._mesh is not None:
-            n = self._mesh.num_shards
-        else:
+        mesh = self._mesh
+        if mesh is None:
             n = (self.execution.num_devices
                  or max(torch.cuda.device_count(), 1))
-        return partition_graph(graph, n)
+            mesh = default_mesh(graph, n)
+        return partition_graph(graph, mesh.num_shards, mesh)
 
     def _requires_sharded(self, graph) -> None:
         if not isinstance(graph, PartitionedGraph):
             self.program.requires(graph)
-        elif self.program.spec.kind == "alias" and graph.alias_prob is None:
+        elif (self.program.spec.kind == "alias"
+              and graph.groups[0].alias_prob is None):
             raise ValueError(
                 "alias (DeepWalk) programs need alias tables on the "
                 "partitioned graph — build the CSRGraph with alias tables "
@@ -164,9 +190,10 @@ class Walker:
         """The closed sharded runner for graphs shaped like ``pg`` under
         the resolved ``(program, execution)``, built once, and its
         `DistConfig`."""
-        key = (pg.num_devices, pg.vertices_per_device, tuple(pg.col.shape),
-               pg.max_degree, pg.weights is not None,
-               pg.alias_prob is not None, program.spec, execution)
+        grp = pg.groups[0]
+        key = (pg.num_devices, pg.devices, pg.vertices_per_device,
+               tuple(grp.col.shape), pg.max_degree, grp.weights is not None,
+               grp.alias_prob is not None, program.spec, execution)
         if key not in self._dist_cache:
             cfg = execution.dist_config(program, pg.num_devices)
             self._dist_cache[key] = (
@@ -209,7 +236,7 @@ class Walker:
             paths, lengths = assemble_paths(logs, starts_np,
                                             self.program.max_hops)
             return WalkResult(paths=paths, lengths=lengths, stats=total)
-        dev = pg.device
+        dev = pg.devices[0]
         return WalkResult(
             paths=torch.full((1, 1), -1, dtype=torch.int32, device=dev),
             lengths=torch.zeros((1,), dtype=torch.int32, device=dev),
@@ -224,8 +251,9 @@ class Walker:
         ``rng.stream_key(s, e)``).  On the sharded backend ``graph`` may be
         a ``CSRGraph`` (partitioned on the fly) or a ``PartitionedGraph``;
         the emission logs are assembled into the single backend's
-        ``WalkResult`` layout, with the shards' stats folded (max of
-        ``supersteps`` and ``launches``, sum of the rest)."""
+        ``WalkResult`` layout on the mesh's first device, with the shards'
+        stats folded (max of ``supersteps`` and ``launches``, sum of the
+        rest)."""
         if self.backend == "sharded":
             return self._run_sharded(graph, starts, seed)
         self.program.requires(graph)
@@ -323,6 +351,14 @@ class Walker:
         must be True: the port has no other gather, since plain indexing's
         backward on the card adds with atomics in no fixed order.
 
+        On the sharded backend the producer's shards lie in the mesh's
+        device groups; the corpus ring, both tables and their AdamW
+        moments lie whole on the first group's device, where each round's
+        walks are harvested and every SGNS step runs its two kernels.  The
+        step sees whole tables, as the reference's ``pallas_call`` (which
+        has no sharding rule) does; the run is bit-equal to the one-group
+        run.
+
         ``overlap=True`` issues round ``r+1``'s walks before round ``r``'s
         grad steps, the reference's order; here that order runs nothing
         concurrently, since the engine's drain reads its progress on the
@@ -355,12 +391,12 @@ class Walker:
                 "on the embedding-bag and segment-sum kernels (ROADMAP.md "
                 "queue 3)")
         nv = int(graph.num_vertices)
-        device = graph.device
         path_width = self.program.max_hops + 1
 
         # ------------------------------------------------------- producer
         stream = None
         if self.backend == "single":
+            device = graph.device
             self.program.requires(graph)
             program, execution = self._bind(graph, walks_per_round)
             engine = self._single_engine(graph, program, dataclasses.replace(
@@ -376,6 +412,7 @@ class Walker:
             # The stream's epoch r is round r: its walks are the closed
             # batch under stream_key(seed, r), as on the single backend.
             stream = self.stream(graph, capacity=walks_per_round, seed=seed)
+            device = stream.graph.devices[0]
 
             def produce(r: int):
                 starts = (r * walks_per_round
@@ -426,8 +463,8 @@ class Walker:
         cap = ring_capacity or 2 * walks_per_round
         if stream is not None:
             # A multiple of the shard count, as the reference rounds it to
-            # shard the ring's rows; here every shard shares the graph's
-            # device, so the ring and tables are not placed per shard.
+            # shard the ring's rows; here the ring stays whole on the first
+            # group's device.
             ndev = stream.graph.num_devices
             cap = -(-cap // ndev) * ndev
         ring0 = corpus_ring.init_ring(cap, path_width, device)
@@ -726,9 +763,12 @@ class ShardedWalkStream(_StreamBase):
     injections only while global live tasks stay ≤ N·W_loc, so the closed
     engine's losslessness (drops == 0) carries over to the open system.
     Harvest max-folds the per-shard path windows (each hop is recorded by
-    exactly the shard that executed it).  ``host_read_s`` sums the seconds
-    spent blocked in host reads (the runner's work flag and
-    :meth:`done_mask`) since the stream was made or reset.
+    exactly the shard that executed it), over the groups on the first
+    group's device.  ``states`` holds one
+    `~repro_torch.core.distributed.DistStreamState` a group, on its
+    device.  ``host_read_s`` sums the seconds spent blocked in host reads
+    (the runner's work flag and :meth:`done_mask`) since the stream was
+    made or reset.
 
     Bit-identity: the ``(epoch, qid)`` occupant samples exactly the walk
     ``Walker.run`` samples for query ``qid`` under ``rng.stream_key(seed,
@@ -750,8 +790,8 @@ class ShardedWalkStream(_StreamBase):
         self._fresh_state()
 
     def _fresh_state(self) -> None:
-        self.state = init_dist_stream_state(self.graph, self.program.spec,
-                                            self._cfg, self.capacity)
+        self.states = init_dist_stream_state(self.graph, self.program.spec,
+                                             self._cfg, self.capacity)
         self._base_key = task_rng.stream_key(self.seed)
         self._next_dev = 0  # round-robin staging cursor
         self.host_read_s = 0.0
@@ -783,38 +823,44 @@ class ShardedWalkStream(_StreamBase):
         blocks[:, r, i // N] = starts, qids, epochs
         cnt = np.bincount(r, minlength=N)
         self._next_dev = (self._next_dev + n) % N
-        self.state = inject_stream_queries(self.state, *blocks, cnt)
+        self.states = inject_stream_queries(self.states, *blocks, cnt)
 
     def advance(self, k: int = 16) -> int:
         """Run at most ``k`` supersteps; returns how many ran."""
-        self.state, ran, sync_s = self._runner(self.graph, self.state,
-                                               self._base_key, k)
+        self.states, ran, sync_s = self._runner(self.graph, self.states,
+                                                self._base_key, k)
         self.host_read_s += sync_s
         return ran
 
     def done_mask(self) -> np.ndarray:
         """(capacity,) bool — a slot is done once any shard terminated its
-        occupant's walk."""
+        occupant's walk (one host read)."""
         t = clock.now()
-        done = self.state.done[:, :self.capacity].any(0).cpu().numpy()
+        done = reduce_first([st.done[:, :self.capacity]
+                             for st in self.states], torch.any)[0]
+        done = done.cpu().numpy()
         self.host_read_s += clock.now() - t
         return done
 
     def harvest_device(self, qids):
         """Max-fold the per-shard path windows for the given slot ids — a
-        reduction over the shard axis, on the stream's device."""
-        idx = torch.as_tensor(np.asarray(qids, np.int64),
-                              device=self.graph.device)
-        return (self.state.paths[:, idx, :].amax(0),
-                self.state.lengths[:, idx].amax(0))
+        reduction over the shard axis, on the first group's device."""
+        q = np.asarray(qids, np.int64)
+        parts = []
+        for st in self.states:
+            idx = torch.as_tensor(q, device=st.paths.device)
+            parts.append((st.paths[:, idx, :], st.lengths[:, idx]))
+        return tuple(reduce_first(x, torch.amax)[0] for x in zip(*parts))
 
     def walk_stats(self) -> WalkStats:
         """Engine counters summed across shards (supersteps/launches are
         the global lockstep clock: max), as host ints."""
+        shards = (gather_first(f) for f in zip(*(st.stats
+                                                 for st in self.states)))
         return WalkStats(*(
             int(v.max()) if name in ("supersteps", "launches")
             else int(v.sum())
-            for name, v in zip(WalkStats._fields, self.state.stats)))
+            for name, v in zip(WalkStats._fields, shards)))
 
     def reset(self, seed=None) -> None:
         """Fresh state and ring (keeps the runner); pass a new ``seed`` to

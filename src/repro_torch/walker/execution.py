@@ -67,8 +67,9 @@ class ExecutionConfig:
                         of the stats change.
       num_devices:      sharded backend only — shard count (default: the
                         number of visible cards, at least 1; a
-                        `PartitionedGraph` brings its own).  Every shard
-                        lives on the graph's device.
+                        `PartitionedGraph` brings its own).  The shards
+                        are placed by the mesh given to ``compile``, else
+                        by `walker.compile.default_mesh`.
       slots_per_device: sharded backend only — W_loc override (default
                         ``num_slots // num_devices``).
       capacity_margin:  × Theorem VI.1 margin on routing bucket capacity.

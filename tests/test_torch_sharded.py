@@ -40,7 +40,8 @@ from repro_torch.core.distributed import (DistConfig, DistLogs,
                                           _run_distributed, assemble_paths,
                                           run_distributed)
 from repro_torch.core.tasks import N2VSlots, WalkerSlots
-from repro_torch.distributed import Mesh, all_to_all, psum
+from repro_torch.distributed import (Mesh, all_gather, all_to_all, pmax,
+                                  psum)
 from repro_torch.graph import make_dataset, partition_graph
 from repro_torch.serve import HopsController
 from repro_torch.tune import graph_signature
@@ -51,6 +52,9 @@ H = 10                  # hop budget
 NUM_STARTS = 160
 W_LOC = 16              # lanes a shard
 TABLE_TOL = dict(rtol=1e-5, atol=1e-6)
+# train_embeddings against the reference: 2 rounds of 16 walks, 6 steps.
+TRAIN = dict(seed=3, rounds=2, walks_per_round=16, steps_per_round=6,
+             batch_size=32, dim=8, window=3, num_negatives=4)
 # name -> (WalkProgram builder, its arguments, make_dataset keywords)
 PROGRAMS = {
     "urw": ("urw", (), {}),
@@ -219,6 +223,18 @@ def test_mesh_collectives():
         assert torch.equal(y[d], want)
     c = torch.tensor([3, 4, 5])
     assert psum(c).tolist() == [12, 12, 12]
+    # The same collectives over shard groups (here 3 groups of 1 and 1 of
+    # 3, all on the CPU) give each group its rows of the stacked result.
+    for n in (1, 3):
+        parts = list(x.split(n))
+        for got, want in zip(all_to_all(parts), y.split(n)):
+            assert torch.equal(got, want)
+        for got in psum(list(c.split(n))):
+            assert got.tolist() == [12] * n
+        for got in pmax(list(c.split(n))):
+            assert got.tolist() == [5] * n
+        for got in all_gather(parts):
+            assert torch.equal(got, x)
 
 
 # ------------------------------------------------------------ closed batch
@@ -516,10 +532,13 @@ import numpy as np
 from repro import walker
 from repro.core.distributed import DistConfig, _run_distributed
 from repro.graph import make_dataset, partition_graph
+from repro.core import rng as ref_rng
+from repro.models import embeddings as ref_emb
 from repro.serve import HopsController
 
 H, W_LOC = {H}, {W_LOC}
 PROGRAMS = {PROGRAMS}
+TRAIN = {TRAIN}
 out = {{}}
 
 
@@ -532,15 +551,19 @@ def program(name, max_hops=H):
 starts = np.random.default_rng(0).integers(0, 512, {NUM_STARTS}).astype(
     np.int32)
 for name, (_, _, kw) in PROGRAMS.items():
-    pg = partition_graph(make_dataset("WG", scale_override=9, **kw), 2)
-    logs, stats = _run_distributed(
-        pg, starts, program(name).spec,
-        DistConfig(slots_per_device=W_LOC, max_hops=H, log_capacity=1 << 12),
-        seed=4)
-    for f in logs._fields:
-        out[f"{{name}}.log.{{f}}"] = np.asarray(getattr(logs, f))
-    for f in stats._fields:
-        out[f"{{name}}.stats.{{f}}"] = np.asarray(getattr(stats, f))
+    g = make_dataset("WG", scale_override=9, **kw)
+    for n, tag in ((4, "4"), (2, "")):      # N shards on devices[:N]
+        pg = partition_graph(g, n)
+        logs, stats = _run_distributed(
+            pg, starts, program(name).spec,
+            DistConfig(slots_per_device=W_LOC, max_hops=H,
+                       log_capacity=1 << 12),
+            seed=4)
+        for f in logs._fields:
+            out[f"{{name}}.log{{tag}}.{{f}}"] = np.asarray(getattr(logs, f))
+        for f in stats._fields:
+            out[f"{{name}}.stats{{tag}}.{{f}}"] = np.asarray(
+                getattr(stats, f))
     stream = walker.compile(
         program(name), backend="sharded",
         execution=walker.ExecutionConfig(slots_per_device=W_LOC)).stream(
@@ -570,6 +593,20 @@ out["svc.adapt_num"] = np.asarray(
 out["svc.adapt_reason"] = np.asarray([e.reason for e in svc.adaptation])
 out["svc.chunk"] = np.asarray(svc.chunk)
 out["svc.stats"] = np.asarray(svc.walk_stats())
+
+# train_embeddings on a 2-device mesh: the ring's rows and both tables
+# (with their moments) sharded over the devices.
+te = walker.compile(walker.WalkProgram.urw(H), backend="sharded",
+                    execution=walker.ExecutionConfig(
+                        num_devices=2)).train_embeddings(
+    make_dataset("WG", scale_override=9), **TRAIN, use_kernel=False)
+init = ref_emb.init_params(ref_rng.stream_key(TRAIN["seed"]), te["config"])
+for k in ("in_embed", "out_embed"):
+    out[f"te.init.{{k}}"] = np.asarray(init[k])
+    out[f"te.params.{{k}}"] = np.asarray(te["params"][k])
+for f in ("paths", "lengths", "tail"):
+    out[f"te.ring.{{f}}"] = np.asarray(getattr(te["ring"], f))
+out["te.step"] = np.asarray(te["step"])
 np.savez(sys.argv[1] if len(sys.argv) > 1 else "{PATH}", **out)
 print("REF_SHARDED_OK")
 """
@@ -577,13 +614,15 @@ print("REF_SHARDED_OK")
 
 @pytest.fixture(scope="module")
 def ref_sharded(tmp_path_factory):
-    """The reference's sharded engine on two forced host devices: closed
-    logs and stats, mid-flight streams and an adaptive service (one
-    subprocess for the whole module)."""
+    """The reference's sharded engine on four forced host devices (N
+    shards on the first N): closed logs and stats at N = 2 and 4,
+    mid-flight streams, an adaptive service and ``train_embeddings`` on 2
+    devices (one subprocess for the whole module)."""
     path = tmp_path_factory.mktemp("ref_sharded") / "ref.npz"
     code = REF_SHARDED.format(H=H, W_LOC=W_LOC, NUM_STARTS=NUM_STARTS,
-                              PROGRAMS=repr(PROGRAMS), PATH=str(path))
-    out = run_in_subprocess(code, devices=2, timeout=900)
+                              PROGRAMS=repr(PROGRAMS), TRAIN=repr(TRAIN),
+                              PATH=str(path))
+    out = run_in_subprocess(code, devices=4, timeout=900)
     assert "REF_SHARDED_OK" in out
     return dict(np.load(path))
 
@@ -614,6 +653,82 @@ def test_logs_and_stats_equal_reference_sharded(ref_sharded, name):
     stream.drain(chunk=7)
     np.testing.assert_array_equal(np.asarray(stream.walk_stats()),
                                   ref_sharded[f"{name}.stream.stats"])
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_groups_equal_reference_sharded(ref_sharded, name):
+    """N = 2 shards in 2 groups (one shard a group, both on the CPU, the
+    reference's one shard a device) give the reference's emission logs,
+    per-shard stats and stream stats."""
+    _, g = graphs(name)
+    mesh = Mesh(2, [g.device] * 2)
+    logs, stats = _run_distributed(
+        partition_graph(g, 2, mesh), starts_of(), program(walker, name).spec,
+        DistConfig(slots_per_device=W_LOC, max_hops=H, log_capacity=1 << 12),
+        mesh=mesh, seed=4)
+    for f in logs._fields:
+        np.testing.assert_array_equal(getattr(logs, f).numpy(),
+                                      ref_sharded[f"{name}.log.{f}"], f)
+    for f in stats._fields:
+        np.testing.assert_array_equal(getattr(stats, f).numpy(),
+                                      ref_sharded[f"{name}.stats.{f}"], f)
+    stream = walker.compile(
+        program(walker, name), backend="sharded", mesh=mesh,
+        execution=walker.ExecutionConfig(slots_per_device=W_LOC)).stream(
+            g, capacity=NUM_STARTS, seed=4)
+    starts = starts_of()
+    stream.inject(starts[:70])
+    stream.advance(3)
+    stream.inject(starts[70:])
+    stream.drain(chunk=7)
+    np.testing.assert_array_equal(np.asarray(stream.walk_stats()),
+                                  ref_sharded[f"{name}.stream.stats"])
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("groups", [2, 4])
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_groups_of_four_equal_reference_sharded(ref_sharded, name, groups):
+    """N = 4 shards in 2 and 4 groups (all on the CPU; the reference's one
+    shard a device on 4 devices) give the reference's emission logs and
+    per-shard stats."""
+    _, g = graphs(name)
+    mesh = Mesh(4, [g.device] * groups)
+    logs, stats = _run_distributed(
+        partition_graph(g, 4, mesh), starts_of(), program(walker, name).spec,
+        DistConfig(slots_per_device=W_LOC, max_hops=H, log_capacity=1 << 12),
+        mesh=mesh, seed=4)
+    for f in logs._fields:
+        np.testing.assert_array_equal(getattr(logs, f).numpy(),
+                                      ref_sharded[f"{name}.log4.{f}"], f)
+    for f in stats._fields:
+        np.testing.assert_array_equal(getattr(stats, f).numpy(),
+                                      ref_sharded[f"{name}.stats4.{f}"], f)
+
+
+@pytest.mark.slow
+def test_train_embeddings_in_groups_equal_reference_sharded(ref_sharded,
+                                                            monkeypatch):
+    """``train_embeddings`` over 2 groups (both on the CPU) from the
+    reference's initial tables: the ring equals the reference's 2-device
+    run bit for bit, and the tables are within TABLE_TOL of its tables."""
+    from repro_torch.models import embeddings as emb
+    _, g = graphs("urw")
+    init = {k: ref_sharded[f"te.init.{k}"] for k in ("in_embed", "out_embed")}
+    monkeypatch.setattr(emb, "init_params", lambda gen, cfg, device=None:
+                        emb.params_from_reference(init, device))
+    got = walker.compile(walker.WalkProgram.urw(H), backend="sharded",
+                         mesh=Mesh(2, [g.device] * 2)).train_embeddings(
+        g, **TRAIN)
+    for f in ("paths", "lengths", "tail"):
+        np.testing.assert_array_equal(getattr(got["ring"], f).numpy(),
+                                      ref_sharded[f"te.ring.{f}"], f)
+    for k in ("in_embed", "out_embed"):
+        np.testing.assert_allclose(got["params"][k].numpy(),
+                                   ref_sharded[f"te.params.{k}"],
+                                   **TABLE_TOL)
+    assert got["step"] == int(ref_sharded["te.step"]) == 12
 
 
 @pytest.mark.slow
