@@ -286,12 +286,22 @@ its seconds.
     shape those steps give them, bit-equal to their plain versions.
     deepseek_7b at full width with its depth cut to 12 of 30 layers (30
     do not fit), one run of 4 steps at batch 1.  ``pipeline_apply`` at 4
-    stages and 8 microbatches against the stages in turn (atol 1e-5);
-    ``crosspod_psum_compressed`` over 2 pods on the card equal to the
-    CPU's, bit for bit (the launcher's run is in phase 1).  The launch
-    counts are zeroed
-    before each FULL run and read after it; the comparisons' launches do
-    not count.
+    stages and 8 microbatches of a small ``tanh`` stage against the
+    stages in turn (atol 1e-5).  The substrate in device groups:
+    granite_moe FULL (drawn on the card) with its 32 layers as 4 GPipe
+    stages of 8 (``transformer._block`` in turn), forward only over 8
+    microbatches of 1 x 512 Zipf tokens' hidden states after the token
+    embedding (train_4k's 4,096 tokens cut in depth), the stages in 1, 2
+    and 4 groups on cuda:0 (``place_stages`` once), each output bit-equal
+    to the stages applied in turn on cuda:0, with ms a tick, both
+    kernels' launches and the bubble 3/11; ``crosspod_psum_compressed``
+    over 2 pods of one FULL layer's 10 leaves, 3 steps of error feedback,
+    stacked on the CPU and on the card and in 2 groups on cuda:0, bit for
+    bit (the launcher's run is in phase 1).  The launch counts are zeroed
+    before each FULL run and each grouped pipeline run and read after it;
+    the comparisons' launches do not count.  ``--across-cards`` ends with
+    the same pipeline one group a card (2 and 4 cards) and the pods on 2
+    cards, each equal to its one-group run on cuda:0.
 13. The dry-run against the card (:func:`run_dryrun_vs_card`): phase
     1's granite_moe ``train_4k`` FLOPs of matrix products, scaled from
     the global batch 256 to phase 12's batch, against ``lmt_step_ops``
@@ -3621,9 +3631,39 @@ def run_across_cards() -> int:
         sharded_stream(g, card, add, base=h, mesh=group_mesh(two))
     with timed("sharded embeddings one a card"):
         sharded_embeddings(g, card, add, devices=two, one=one)
+    del g
+    with timed("lmt substrate one group a card"):
+        lmt_across_cards(add)
     print(f"across cards: {time.perf_counter() - t0:.1f} s; every run "
           f"equal to one group on cuda:0; kernel launches {totals}")
     return 0
+
+
+def lmt_across_cards(add) -> None:
+    """Phase 12's grouped substrate with one group a card: granite_moe
+    FULL's 4 pipeline stages in 2 and 4 groups (as many as the cards) and
+    the compressed reduction's 2 pods on 2 cards, each equal to its one
+    group on cuda:0, under deterministic algorithms."""
+    import torch
+    cards = torch.cuda.device_count()
+    failures = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg, stacked, xs, shapes = lmt_pipe_draw()
+        lmt_pipeline(cfg, stacked, xs, failures, add,
+                     [("G=1 on cuda:0", on_card0(1))]
+                     + [(f"G={G} one a card", [torch.device("cuda", i)
+                                               for i in range(G)])
+                        for G in LMT_PIPE_GROUPS if 1 < G <= cards])
+        del stacked, xs
+        torch.cuda.empty_cache()
+        lmt_crosspod(shapes, failures,
+                     [(f"{LMT_PODS} groups on {LMT_PODS} cards",
+                       [torch.device("cuda", i) for i in range(LMT_PODS)])])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if failures:
+        raise AssertionError("lmt across cards: " + "; ".join(failures))
 
 
 # Phase 9: the closed batches run again with the timers' clock replaced by
@@ -4819,6 +4859,14 @@ LMT_LOSS_RTOL = 1e-5
 LMT_GRAD_NORM = 1e-3
 LMT_PIPE = (4, 8, 4, 16)         # stages, microbatches, rows, width
 LMT_PODS = 2                     # the compressed reduction's pods
+LMT_CROSSPOD_STEPS = 3           # its steps of error feedback
+# GPipe over granite_moe FULL: 32 layers as 4 stages of 8, 8 microbatches
+# of 1 x 512 tokens (train_4k's 4,096 cut in depth), forward only, the
+# stages in 1, 2 and 4 groups.
+LMT_PIPE_STAGES = 4
+LMT_PIPE_MICRO = 8
+LMT_PIPE_SEQ = 512
+LMT_PIPE_GROUPS = (1, 2, 4)
 LMT_MEASURED = {}   # granite_moe FULL's run 1, for phase 13
 
 
@@ -5175,13 +5223,10 @@ def lmt_widths(B) -> None:
 
 def lmt_substrate(failures) -> None:
     """``pipeline_apply`` at LMT_PIPE against the stages applied in turn
-    (the reference test's atol 1e-5), and ``crosspod_psum_compressed`` over
-    a LMT_PODS-pod mesh on the card against the same call on the CPU, bit
-    for bit, over 3 steps of error feedback."""
+    (the reference test's atol 1e-5)."""
     import torch
 
     from repro_torch.distributed import pipeline
-    from repro_torch.optim import grad_compression as gcomp
     from repro_torch.runtime import elastic
     P, M, mb, D = LMT_PIPE
     g = torch.Generator().manual_seed(15)
@@ -5190,7 +5235,7 @@ def lmt_substrate(failures) -> None:
 
     def stage(w, x):
         return torch.tanh(x @ w)
-    mesh = elastic.build_mesh((P,), ("pipe",))
+    mesh = elastic.build_mesh((P,), ("pipe",), devices=["cuda:0"])
     out = pipeline.pipeline_apply(stage, ws, xs, mesh)
     seq = xs
     for i in range(P):
@@ -5198,28 +5243,211 @@ def lmt_substrate(failures) -> None:
     err = float((out - seq).abs().max())
     if not (out.shape == seq.shape and err <= 1e-5):
         failures.append(f"lmt pipeline: max |diff| {err:.3g} > 1e-5")
-    pods = elastic.build_mesh((LMT_PODS,), ("pod",))
-    grads = {"w_gate": torch.randn((LMT_PODS, 40, 1536, 512), generator=g),
-             "router": torch.randn((LMT_PODS, 1536, 40), generator=g) * 1e-3,
-             "scale": torch.randn((LMT_PODS, 1536), generator=g)}
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        gr = tree_map(lambda x: x.to(dev), grads)
-        errs = gcomp.init_error_state(gr)
-        for _ in range(3):
-            red, errs = gcomp.crosspod_psum_compressed(gr, errs, pods.axis_name)
-        outs[dev] = [x.cpu() for x in tree_leaves(red) + tree_leaves(errs)]
-        del gr, errs, red
-    same = all(torch.equal(a, b) for a, b in zip(outs["cuda"], outs["cpu"]))
-    if not same:
-        failures.append("lmt crosspod_psum_compressed: card != CPU")
-    n = sum(x.numel() for x in tree_leaves(grads)) // LMT_PODS
     print(f"lmt pipeline_apply P={P} M={M} ({mb} x {D}): max |diff| to the "
           f"stages in turn {err:.3g} (atol 1e-5), bubble "
-          f"{pipeline.gpipe_bubble_fraction(P, M):.4f}; "
-          f"crosspod_psum_compressed over {LMT_PODS} pods ({n} elements a "
-          f"pod, {n} B of int8 payload against {4 * n} at float32), 3 steps: "
-          f"card {'==' if same else '!='} CPU bit for bit")
+          f"{pipeline.gpipe_bubble_fraction(P, M):.4f}")
+
+
+def lmt_crosspod(layer_shapes, failures, runs, card="cuda:0") -> None:
+    """``crosspod_psum_compressed`` over LMT_PODS pods of one granite_moe
+    FULL layer's leaves (``layer_shapes``: (shape, dtype) a leaf; the
+    gradients drawn on the CPU from a seed), LMT_CROSSPOD_STEPS steps of
+    error feedback: the
+    stacked call on the CPU and on ``card``, and the pods in groups for
+    each ``runs`` entry (label, devices: one a group), each reduced
+    gradient and error bit-equal to the stacked call's on the card."""
+    import torch
+
+    from repro_torch.distributed import Mesh
+    from repro_torch.optim import grad_compression as gcomp
+    gen = torch.Generator().manual_seed(16)
+    grads = [torch.randn((LMT_PODS, *shape), generator=gen).to(dtype)
+             for shape, dtype in layer_shapes]
+    n = sum(x[0].numel() for x in grads)
+
+    def run(devices):
+        G = len(devices)
+        mesh = Mesh(LMT_PODS, devices, "pod")
+        g = [[b.to(d) for b, d in zip(x.chunk(G), devices)] for x in grads]
+        if G == 1:
+            g = [x[0] for x in g]
+        e = gcomp.init_error_state(g)
+        sync_all()
+        t0 = time.perf_counter()
+        for _ in range(LMT_CROSSPOD_STEPS):
+            red, e = gcomp.crosspod_psum_compressed(g, e, "pod", mesh=mesh)
+        sync_all()
+        dt = (time.perf_counter() - t0) / LMT_CROSSPOD_STEPS
+        join = (lambda x: x.cpu()) if G == 1 else \
+            (lambda x: torch.cat([b.cpu() for b in x]))
+        return [join(x) for x in red + e], dt
+    t0 = time.perf_counter()
+    cpu, _ = run([torch.device("cpu")])
+    cpu_s = time.perf_counter() - t0
+    stacked, card_ms = run([torch.device(card)])
+    same_cpu = all(torch.equal(a, b) for a, b in zip(stacked, cpu))
+    texts = [f"stacked on {card} {card_ms * 1e3:.3f} ms a step, "
+             f"{'==' if same_cpu else '!='} CPU bit for bit ({cpu_s:.1f} s "
+             f"on the CPU)"]
+    if not same_cpu:
+        failures.append("lmt crosspod_psum_compressed: card != CPU")
+    for label, devices in runs:
+        got, dt = run(devices)
+        same = all(torch.equal(a, b) for a, b in zip(got, stacked))
+        texts.append(f"{label} {dt * 1e3:.3f} ms a step, "
+                     f"{'==' if same else '!='} stacked")
+        if not same:
+            failures.append(f"lmt crosspod_psum_compressed {label}: differs "
+                            "from the stacked call")
+    print(f"lmt crosspod_psum_compressed: one granite_moe FULL layer's "
+          f"{len(grads)} leaves over {LMT_PODS} pods ({n} elements a pod, "
+          f"{n} B of int8 payload against {4 * n} at float32), "
+          f"{LMT_CROSSPOD_STEPS} steps of error feedback: "
+          f"{'; '.join(texts)} ({card_line()})")
+
+
+def sync_all() -> None:
+    """Wait for every visible card (``torch.cuda.synchronize()`` waits for
+    the current one only)."""
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def lmt_pipe_stage(cfg):
+    """One GPipe stage of the transformer: ``_block`` over its layers in
+    turn on hidden states at positions 0..S-1."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tfm
+
+    def stage(layers, x):
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for lp in L.tree_unstack(layers):
+            x = tfm._block(cfg, x, positions, lp)[0]
+        return x
+    return stage
+
+
+def lmt_pipe_draw():
+    """granite_moe FULL drawn on cuda:0 from seed 0: its layers as
+    LMT_PIPE_STAGES stages (views of the stacked leaves), LMT_PIPE_MICRO
+    microbatches of 1 x LMT_PIPE_SEQ Zipf tokens (``lm_batch``'s) as
+    hidden states after the token embedding, and the leaves' (shape,
+    dtype) of one layer."""
+    import torch
+
+    from repro_torch.core.rng import seeded_generator
+    from repro_torch.models import transformer as tfm
+    cfg = lm_config("granite_moe")
+    t0 = time.perf_counter()
+    params = tfm.init_params(seeded_generator(0, "cuda"), cfg)
+    P = LMT_PIPE_STAGES
+    stacked = tree_map(lambda a: a.reshape(P, -1, *a.shape[1:]),
+                       params["layers"])
+    toks = lmt_batch(cfg, LMT_PIPE_MICRO, LMT_PIPE_SEQ, 0)[0]
+    with torch.no_grad():
+        xs = tfm._embed(params["embed"], toks)[:, None]
+    shapes = [(tuple(a.shape[1:]), a.dtype)
+              for a in tree_leaves(params["layers"])]
+    del params
+    torch.cuda.synchronize()
+    print(f"lmt pipeline: granite_moe FULL drawn on cuda:0 in "
+          f"{time.perf_counter() - t0:.1f} s; {cfg.n_layers} layers as "
+          f"{P} stages of {cfg.n_layers // P}; {LMT_PIPE_MICRO} microbatches "
+          f"of 1 x {LMT_PIPE_SEQ} tokens as hidden states "
+          f"{tuple(xs.shape)} (train_4k's 4,096 tokens cut in depth)")
+    return cfg, stacked, xs, shapes
+
+
+def lmt_pipeline(cfg, stacked, xs, failures, add, runs) -> dict:
+    """GPipe over granite_moe FULL's LMT_PIPE_STAGES stages, forward only:
+    the stages applied in turn to each microbatch on cuda:0 (the
+    comparison, not counted), then ``pipeline_apply`` with the stages in
+    groups for each ``runs`` entry (label, devices: one a group; the
+    stages placed once with ``place_stages``, each run's launch counts
+    zeroed just before it and read just after), each output bit-equal to
+    the stages in turn.  A run on a card not used before is run once
+    untimed first (the card's first launches load its kernels).  Prints
+    ms a tick and each run's launches; returns {label: ms a tick}."""
+    import torch
+
+    from repro_torch.distributed import pipeline, place_stages
+    from repro_torch.runtime import elastic
+    P, M = LMT_PIPE_STAGES, LMT_PIPE_MICRO
+    T = M + P - 1
+    stage = lmt_pipe_stage(cfg)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = []
+        for x in xs:
+            for i in range(P):
+                x = stage(tree_map(lambda a, i=i: a[i], stacked), x)
+            want.append(x)
+        want = torch.stack(want)
+        torch.cuda.synchronize()
+        seq_ms = (time.perf_counter() - t0) * 1e3
+        print(f"lmt pipeline: the {P} stages in turn on {M} microbatches "
+              f"on cuda:0: {seq_ms:.1f} ms ({seq_ms / M:.2f} ms a "
+              f"microbatch through all stages)")
+        out, warm = {}, {xs.device}
+        for label, devices in runs:
+            mesh = elastic.build_mesh((P,), ("pipe",), devices=devices)
+            sync_all()
+            t0 = time.perf_counter()
+            placed = place_stages(stacked, mesh)
+            sync_all()
+            place_s = time.perf_counter() - t0
+            if not warm.issuperset(devices):
+                pipeline.pipeline_apply(stage, placed, xs, mesh)
+                warm.update(devices)
+            sync_all()
+            reset_all_launches()
+            t0 = time.perf_counter()
+            y = pipeline.pipeline_apply(stage, placed, xs, mesh)
+            sync_all()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = zoo_counts()
+            add(counts)
+            same = y.device == devices[-1] and torch.equal(
+                y.to(want.device), want)
+            out[label] = ms / T
+            print(f"lmt pipeline {label}: {ms:.1f} ms for {T} ticks, "
+                  f"{ms / T:.2f} ms a tick; launches embedding_bag "
+                  f"{counts['embedding_bag']} segment_sum "
+                  f"{counts['segment_sum']}; stages placed in "
+                  f"{place_s:.2f} s; outputs on {y.device}, "
+                  f"{'bit-equal' if same else 'NOT EQUAL'} to the stages "
+                  f"in turn; bubble {pipeline.gpipe_bubble_fraction(P, M):.4f}"
+                  f" ({P - 1}/{T})")
+            if not same:
+                failures.append(f"lmt pipeline {label}: differs from the "
+                                "stages in turn")
+            if (label, devices) in (runs[0], runs[-1]):
+                lmt_pipe_profile(stage, placed, xs, mesh, label, ms,
+                                 len(set(devices)))
+            del placed, y
+    return out
+
+
+def lmt_pipe_profile(stage, placed, xs, mesh, label, ms, cards) -> None:
+    """One more run of the pipeline, traced: device busy ms (summed over
+    the ``cards`` it ran on) against the untraced run's ``ms`` on each
+    card, device launches a tick, the top activities."""
+    from repro_torch.distributed import pipeline
+    T = LMT_PIPE_MICRO + LMT_PIPE_STAGES - 1
+    with device_trace() as prof:
+        pipeline.pipeline_apply(stage, placed, xs, mesh)
+        sync_all()
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    top = "; ".join(f"{k[:40]} {us / 1e3:.3f} ms x{n:g}"
+                    for us, n, k in rows[:4])
+    print(f"lmt pipeline profile {label}: device busy {busy:.1f} ms over "
+          f"{cards} card(s), share {busy / (ms * cards):.4f} of the "
+          f"untraced {ms:.1f} ms on each; {sum(r[1] for r in rows) / T:.0f} "
+          f"device launches a tick; top: {top}")
 
 
 def run_lm_train() -> dict:
@@ -5249,6 +5477,15 @@ def run_lm_train() -> dict:
             lmt_deepseek(failures, add)
         with torch.no_grad(), timed("lmt substrate"):
             lmt_substrate(failures)
+            cfg, stacked, xs, shapes = lmt_pipe_draw()
+            lmt_pipeline(cfg, stacked, xs, failures, add,
+                         [(f"G={G} on cuda:0", on_card0(G))
+                          for G in LMT_PIPE_GROUPS])
+            del stacked, xs
+            torch.cuda.empty_cache()
+            lmt_crosspod(shapes, failures,
+                         [(f"{LMT_PODS} groups on cuda:0",
+                           on_card0(LMT_PODS))])
     finally:
         torch.use_deterministic_algorithms(False)
     if failures:

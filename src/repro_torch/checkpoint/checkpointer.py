@@ -9,7 +9,9 @@ A checkpoint holds a tree of the port's own structures: dicts (keys in
 sorted order, as the reference's pytrees flatten them), NamedTuples
 (fields in order), tuples and lists, with tensors (or numpy arrays) as
 leaves.  :func:`restore` loads into the structure of a ``like`` tree and
-puts each leaf on the device and dtype of the matching ``like`` leaf.
+puts each leaf on the dtype of the matching ``like`` leaf and on its
+device, or on the device a ``shardings`` tree names (an elastic restart
+onto a new mesh).
 bfloat16 has no numpy dtype, so such a leaf is stored as float32 (exact)
 and cast back.  Writes are synchronous.
 """
@@ -108,10 +110,15 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like: Any):
+def restore(ckpt_dir: str, step: int, like: Any, shardings: Any = None):
     """Load step ``step`` into the structure of ``like``, each leaf as a
-    tensor on the device and dtype of ``like``'s (numpy leaves stay
-    numpy)."""
+    tensor of the dtype of ``like``'s (numpy leaves stay numpy) on the
+    device that ``shardings`` names for it: a tree of ``like``'s
+    structure whose leaves are devices, or ``None`` to keep ``like``'s
+    leaf's device (the whole tree ``None``: every leaf on ``like``'s) --
+    the reference's re-sharding on restore, with one device a leaf (its
+    ``SingleDeviceSharding``).  ``like`` may lie on ``meta``: only its
+    structure, shapes and dtypes are read."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -120,16 +127,24 @@ def restore(ckpt_dir: str, step: int, like: Any):
         raise ValueError(f"checkpoint {d} holds {len(manifest['leaves'])} "
                          f"leaves; the structure to restore into has "
                          f"{len(refs)}")
+    places = [None] * len(refs)
+    if shardings is not None:
+        flat = flatten_with_paths(shardings)
+        if [p for p, _ in flat] != [p for p, _ in flatten_with_paths(like)]:
+            raise ValueError("shardings must have the structure of the "
+                             "tree to restore into")
+        places = [p for _, p in flat]
     loaded = []
-    for m, ref in zip(manifest["leaves"], refs):
+    for m, ref, place in zip(manifest["leaves"], refs, places):
         arr = np.load(os.path.join(d, m["file"]))
         want = tuple(ref.shape) if hasattr(ref, "shape") else np.shape(ref)
         if arr.shape != want:
             raise ValueError(f"checkpoint leaf {m['path']} has shape "
                              f"{list(arr.shape)}, expected {list(want)}")
         if isinstance(ref, torch.Tensor):
-            loaded.append(torch.from_numpy(arr).to(device=ref.device,
-                                                   dtype=ref.dtype))
+            loaded.append(torch.from_numpy(arr).to(
+                device=ref.device if place is None else place,
+                dtype=ref.dtype))
         else:
             loaded.append(arr.astype(np.asarray(ref).dtype))
     return unflatten(like, iter(loaded))

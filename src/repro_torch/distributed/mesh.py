@@ -9,10 +9,14 @@ program runs per device of a JAX mesh and talks through
 issues every group's work, every tensor of the sharded engine carries the
 group's shards as its leading axis, and each collective takes the
 per-group tensors and returns per-group tensors, copying blocks between
-the groups' devices.  A stacked tensor (one group) is the G = 1 case, with
-no copy: N shards are then the paper's N pipelines on one card.  Integer
-collectives are exact; a float ``psum`` over several groups adds the
-groups' partial sums in group order.
+the groups' devices.  A stacked tensor (one group) is the G = 1 case,
+with no copy: N shards are then the paper's N pipelines on one card.
+Integer collectives are exact; a float ``psum`` over several groups adds
+the groups' partial sums in group order.  :func:`ppermute` hands blocks
+on between positions (the GPipe stages of ``distributed.pipeline``);
+:class:`GridMesh` groups the positions of a mesh of several axes the
+same way, and :func:`axis_devices` reads the groups along one axis of
+either mesh.
 
 :class:`PartitionSpec` and :func:`shard_shape` are the placements of the
 dry-run (``launch.specs``): a layout over a :class:`GridMesh` on the
@@ -21,13 +25,40 @@ dry-run (``launch.specs``): a layout over a :class:`GridMesh` on the
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Sequence
+import math
+from typing import Any, Sequence
 
 import torch
 
 
+class _Groups:
+    """A mesh whose positions lie in groups, one a device of ``devices``."""
+
+    @property
+    def device(self) -> torch.device:
+        """The one device of a one-group mesh (raises for more groups)."""
+        if len(self.devices) > 1:
+            raise ValueError(f"the mesh spans {len(self.devices)} device "
+                             "groups; read .devices")
+        return self.devices[0]
+
+
+def _group(devices, positions: int, what: str) -> tuple:
+    """``devices`` (one device or a sequence of G) as a tuple of
+    ``torch.device``s, checking that G divides the mesh's ``positions``."""
+    if isinstance(devices, (str, torch.device)):
+        devices = (devices,)
+    devs = tuple(torch.device(d) for d in devices)
+    if not devs:
+        raise ValueError("a mesh needs at least one device")
+    if positions <= 0 or positions % len(devs):
+        raise ValueError(f"{len(devs)} device groups do not divide "
+                         f"{positions} {what}")
+    return devs
+
+
 @dataclasses.dataclass(frozen=True)
-class Mesh:
+class Mesh(_Groups):
     """A 1-D mesh of ``num_shards`` shards over ``devices``: one device, or
     a sequence of G devices (one may repeat), where G divides
     ``num_shards``.  Group g holds the ``num_shards / G`` consecutive
@@ -41,24 +72,8 @@ class Mesh:
     axis_name: str = "ch"
 
     def __post_init__(self):
-        devs = self.devices
-        if isinstance(devs, (str, torch.device)):
-            devs = (devs,)
-        devs = tuple(torch.device(d) for d in devs)
-        if not devs:
-            raise ValueError("a mesh needs at least one device")
-        if self.num_shards <= 0 or self.num_shards % len(devs):
-            raise ValueError(f"{len(devs)} device groups do not divide "
-                             f"{self.num_shards} shards")
-        object.__setattr__(self, "devices", devs)
-
-    @property
-    def device(self) -> torch.device:
-        """The one device of a one-group mesh (raises for more groups)."""
-        if len(self.devices) > 1:
-            raise ValueError(f"the mesh spans {len(self.devices)} device "
-                             "groups; read .devices")
-        return self.devices[0]
+        object.__setattr__(self, "devices",
+                           _group(self.devices, self.num_shards, "shards"))
 
 
 def _resolve(d) -> torch.device:
@@ -82,15 +97,36 @@ def check_devices(devices: Sequence) -> tuple:
     return tuple(_resolve(d) for d in devices)
 
 
-class GridMesh(NamedTuple):
+def card_groups(positions: int) -> tuple:
+    """One device a group for a mesh of ``positions`` over the visible
+    cards: ``cuda:0`` … ``cuda:G-1``, G the largest divisor of
+    ``positions`` at most the number of cards; ``(cuda,)`` when G is 1,
+    as on one card or none."""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    G = max(d for d in range(1, max(min(positions, cards), 1) + 1)
+            if positions % d == 0)
+    if G == 1:
+        return (torch.device("cuda"),)
+    return tuple(torch.device("cuda", i) for i in range(G))
+
+
+@dataclasses.dataclass(frozen=True)
+class GridMesh(_Groups):
     """A mesh of several named axes, ``shape[i]`` positions along
-    ``axis_names[i]``, stacked on ``device`` in row-major order as
-    :class:`Mesh` stacks its shards (``runtime.elastic.build_mesh``'s
+    ``axis_names[i]``, over ``devices`` (one device, or G devices where G
+    divides the positions): in row-major order the positions fall into G
+    groups of consecutive positions, group g on ``devices[g]``, as
+    :class:`Mesh` groups its shards (``runtime.elastic.build_mesh``'s
     multi-axis meshes)."""
 
     shape: tuple
     axis_names: tuple
-    device: torch.device
+    devices: Any
+
+    def __post_init__(self):
+        object.__setattr__(self, "devices",
+                           _group(self.devices, math.prod(self.shape),
+                                  "positions"))
 
 
 def axis_size(m, axis: str) -> int:
@@ -103,6 +139,29 @@ def axis_size(m, axis: str) -> int:
     if axis not in names:
         raise ValueError(f"the mesh has no axis {axis!r}: {names}")
     return shape[names.index(axis)]
+
+
+def axis_devices(m, axis: str) -> tuple:
+    """The device groups along ``axis`` of a :class:`Mesh` or
+    :class:`GridMesh`: one device a group, in axis order, each holding
+    ``axis_size(m, axis) / len(result)`` consecutive positions of the
+    axis, the other axes at position 0 (where the reference's per-axis
+    programs, which replicate over the other axes, all compute the same).
+    Raises where the axis's positions do not fall into groups of one
+    size."""
+    n = axis_size(m, axis)
+    if isinstance(m, Mesh):
+        return m.devices
+    stride = math.prod(m.shape[m.axis_names.index(axis) + 1:])
+    per = math.prod(m.shape) // len(m.devices)
+    groups = [i * stride // per for i in range(n)]
+    runs = [g for i, g in enumerate(groups) if i == 0 or g != groups[i - 1]]
+    if n % len(runs) or groups != [g for g in runs
+                                   for _ in range(n // len(runs))]:
+        raise ValueError(f"the {n} positions of axis {axis!r} do not fall "
+                         f"into groups of one size over {len(m.devices)} "
+                         "devices")
+    return tuple(m.devices[g] for g in runs)
 
 
 class PartitionSpec(tuple):
@@ -240,3 +299,28 @@ def all_to_all(x):
                   .transpose(0, 1).to(q.device) for p in x]
         out.append(torch.cat(blocks, 1).reshape(q.shape))
     return out
+
+
+def ppermute(x, perm):
+    """``jax.lax.ppermute`` over the positions of one axis: position
+    ``dst`` receives the block of position ``src`` for each ``(src, dst)``
+    of ``perm``, and a position that receives nothing gets zeros.  ``x``
+    is a stacked ``(N, ...)`` tensor (one group) or a list of per-group
+    ``(n, ...)`` tensors; each group gets one tensor back on its own
+    device, and only the blocks that cross groups are copied between
+    devices."""
+    parts = [x] if isinstance(x, torch.Tensor) else list(x)
+    n = parts[0].shape[0]
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) \
+            or not all(0 <= i < n * len(parts) for i in srcs + dsts):
+        raise ValueError(f"{perm} is not a permutation of some of the "
+                         f"{n * len(parts)} positions")
+    src_of = dict(zip(dsts, srcs))
+    out = []
+    for h, q in enumerate(parts):
+        rows = [parts[src_of[d] // n][src_of[d] % n].to(q.device)
+                if d in src_of else q.new_zeros(q.shape[1:])
+                for d in range(h * n, (h + 1) * n)]
+        out.append(torch.stack(rows))
+    return out[0] if isinstance(x, torch.Tensor) else out

@@ -4,25 +4,25 @@ and re-shard training state from the latest checkpoint, the reference's
 
 A pod loss at 2×16×16 degrades to 1×16×16: ``plan_remesh`` picks the
 largest supported mesh ≤ the healthy device count, and a restart reloads
-the checkpoint (checkpoints are mesh-agnostic, see
+the checkpoint onto the new mesh's devices (checkpoints are
+mesh-agnostic; ``checkpointer.restore``'s ``shardings``, see
 `checkpoint/checkpointer.py`).  Straggler-driven demotion uses the
 watchdog counts from `runtime/train_loop.py`.
 
 ``plan_remesh`` and ``ElasticController`` are the reference's plain
-Python.  ``build_mesh`` differs: the reference lays a ``jax.sharding.Mesh``
-over that many devices; the port stacks every position of the mesh on
-one device, as the sharded backend does, and returns
-`distributed/mesh.py`'s ``Mesh`` for a 1-D shape (the form the sharded
-backend reads) and a ``GridMesh`` for more axes.
+Python.  ``build_mesh`` lays the mesh's positions over the devices given
+as the reference lays a ``jax.sharding.Mesh`` over them, in groups where
+fewer devices than positions are given (`distributed/mesh.py`'s ``Mesh``
+for a 1-D shape, the form the sharded backend reads, and ``GridMesh``
+for more axes): one controller issues every group's work.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence, Tuple
 
-import torch
-
-from repro_torch.distributed.mesh import GridMesh, Mesh
+from repro_torch.distributed.mesh import GridMesh, Mesh, card_groups
 
 SUPPORTED_MESHES: Tuple[Tuple[int, ...], ...] = (
     (2, 16, 16), (1, 16, 16), (16, 16), (8, 16), (4, 16), (2, 16), (16,),
@@ -44,15 +44,24 @@ def plan_remesh(healthy_devices: int,
 
 
 def build_mesh(shape: Sequence[int], axes: Sequence[str], devices=None):
-    """A mesh of ``shape`` named ``axes``, every position stacked on
-    ``devices[0]`` (default: the card)."""
+    """A mesh of ``shape`` named ``axes`` over ``devices[:n]`` (n the
+    positions), as the reference's ``np.asarray(devices[:n])
+    .reshape(shape)``: one position a device where n devices are given,
+    else G groups of n / G consecutive positions in row-major order, G
+    the devices given (it must divide n).  Default: one group a visible
+    card (``distributed.mesh.card_groups``); with no card visible,
+    ``cuda`` unchecked, as ``Mesh`` takes it (the device is checked where
+    tensors are placed)."""
     if len(shape) != len(axes):
         raise ValueError(f"shape {tuple(shape)} and axes {tuple(axes)} "
                          "differ in length")
-    device = torch.device(devices[0] if devices else "cuda")
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    devices = list(devices)[:n] if devices is not None \
+        else card_groups(n)
     if len(shape) == 1:
-        return Mesh(int(shape[0]), device, axes[0])
-    return GridMesh(tuple(int(s) for s in shape), tuple(axes), device)
+        return Mesh(n, devices, axes[0])
+    return GridMesh(shape, tuple(axes), devices)
 
 
 @dataclasses.dataclass

@@ -117,13 +117,14 @@ def run(step_fn: Callable, state: Any, batch_fn: Callable,
 
 def resume_or_init(ckpt_dir: str, init_state: Any, shardings=None):
     """Restart: load the latest checkpoint into ``init_state``'s structure
-    (each leaf on its device and dtype) or return the fresh state, with
-    the step to start from.  ``shardings`` is accepted for the reference's
-    signature and ignored: one card holds every leaf whole."""
+    (each leaf on its dtype, and on the device ``shardings`` names for
+    it, or on ``init_state``'s leaf's where that is ``None``: see
+    ``checkpointer.restore``) or return the fresh state, with the step to
+    start from."""
     last = checkpointer.latest_step(ckpt_dir)
     if last is None:
         return init_state, 0
-    return checkpointer.restore(ckpt_dir, last, init_state), last
+    return checkpointer.restore(ckpt_dir, last, init_state, shardings), last
 
 
 @dataclasses.dataclass

@@ -51,7 +51,8 @@ from repro_torch.core.walk_engine import (Drain, StreamState, build_engine,
                                           init_stream_state, inject_queries,
                                           make_superstep_runner,
                                           maybe_build_cache)
-from repro_torch.distributed.mesh import Mesh, gather_first, reduce_first
+from repro_torch.distributed.mesh import (Mesh, card_groups, gather_first,
+                                          reduce_first)
 from repro_torch.graph.partition import PartitionedGraph, partition_graph
 from repro_torch.models import embeddings as emb
 from repro_torch.optim import adamw
@@ -110,12 +111,8 @@ def default_mesh(graph, num_shards: int) -> Mesh:
     over 4; ``PERF.md``): the spread buys room for the graph, not speed, and
     ``Mesh(num_shards, "cuda:0")`` keeps every shard on one card."""
     dev = graph.device
-    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
-    G = max(d for d in range(1, min(num_shards, cards) + 1)
-            if num_shards % d == 0)
-    if G == 1:
-        return Mesh(num_shards, dev)
-    return Mesh(num_shards, [torch.device("cuda", i) for i in range(G)])
+    groups = card_groups(num_shards) if dev.type == "cuda" else (dev,)
+    return Mesh(num_shards, groups if len(groups) > 1 else dev)
 
 
 class Walker:

@@ -92,6 +92,16 @@ NAMES = [
 ]
 
 
+# Names the port adds beside the reference's: the device groups of the
+# LM training substrate (the reference's mesh and ``shard_map`` need none).
+PORT_NAMES = [
+    ("distributed", "ppermute"), ("distributed", "axis_devices"),
+    ("distributed", "card_groups"), ("distributed", "place_stages"),
+    ("distributed", "StageGroups"), ("distributed.mesh", "ppermute"),
+    ("distributed.pipeline", "place_stages"),
+]
+
+
 def _kind(x) -> str:
     return ("module" if inspect.ismodule(x) else "class" if inspect.isclass(x)
             else "callable" if callable(x) else type(x).__name__)
@@ -189,6 +199,14 @@ def test_name_imports_from_both_packages(module, name):
     # Importing the kernels' wrappers builds nothing (no nvcc here).
     from repro_torch.kernels import build
     assert build._loaded == {}
+
+
+@pytest.mark.parametrize("module,name", PORT_NAMES)
+def test_port_name_imports_from_the_port(module, name):
+    mod = importlib.import_module(f"repro_torch.{module}")
+    assert callable(getattr(mod, name))
+    if hasattr(mod, "__all__"):
+        assert name in mod.__all__
 
 
 @pytest.mark.parametrize("module,name,kind", SOURCE_NAMES)

@@ -9,7 +9,8 @@ Tolerances, each with its reason:
 - the cross-pod reduction: bit for bit against numpy's float32 of the
   same expression (the int32 sum is exact).
 - the GPipe schedule: ``atol=1e-5`` against sequential application, the
-  reference test's tolerance (the stages run batched under ``vmap``).
+  reference test's tolerance (the grouped schedule is held bit for bit
+  in ``tests/test_torch_substrate_groups.py``).
 """
 import dataclasses
 import shutil

@@ -30,7 +30,7 @@ from repro.launch import train as ref_train
 from repro.models.gnn import pna as ref_pna
 from repro.optim import adamw as ref_adamw
 from repro.runtime import train_loop as ref_loop
-from repro_torch.checkpoint.checkpointer import flatten_with_paths
+from repro_torch.checkpoint.checkpointer import flatten_with_paths, tree_map
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.data import pipeline as pipe
 from repro_torch.launch import train
@@ -162,8 +162,9 @@ def test_resume_is_bit_identical(tmp_path):
         step, _fresh_port_state(), lambda s: b,
         train_loop.TrainLoopConfig(total_steps=2, ckpt_dir=ckpt, **lcfg))
     assert n2 == 2
-    state, start = train_loop.resume_or_init(ckpt, _fresh_port_state(),
-                                             shardings="ignored")
+    like = _fresh_port_state()
+    state, start = train_loop.resume_or_init(
+        ckpt, like, shardings=tree_map(lambda _: torch.device("cpu"), like))
     assert start == 2
     resumed, n3, hist3, _ = train_loop.run(
         step, state, lambda s: b,
