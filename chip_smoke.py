@@ -56,12 +56,14 @@ its seconds.
    (median of 30, 10 for Node2Vec, the state restored outside the timed
    region, host enqueue hidden behind a device sleep); the plain version
    (median of 5) and the bound from the main-path state.  At W = 4096 (main path, tail,
-   hub) each launch is repeated with the hot-vertex cache at 229,376 B,
-   which lands in shared memory, and for URW and DeepWalk from the
-   main-path state at 1 MiB, which is read from device memory: every
-   state tensor, the three cache counters included, equal to the plain
-   version with the cache; the cached launch timed next to the uncached
-   one, with its bound from the main-path state.  The embedding-bag and
+   hub) each launch is repeated with the hot-vertex cache at 229,376 B
+   (163,840 B for weighted Node2Vec, whose staging slots take 32 KiB of
+   the block's shared memory), which lands in shared memory, and for URW
+   and DeepWalk from the main-path state at 1 MiB, which is read from
+   device memory: every state tensor, the three cache counters
+   included, equal to the plain version with the cache; the cached
+   launch timed next to the uncached one, with its bound from the
+   main-path state.  The embedding-bag and
    segment-sum kernels over the ids of a real SGNS batch (phase 4's
    first, sampled from round 0's walks) and at general shapes (the
    embedding bag at ragged B, H = 2 and 7, D = 100 and 102 and from an
@@ -96,11 +98,12 @@ its seconds.
    fused, also static with a delay and without path records) equals the
    same batch on the CPU, whose plain path the CPU tests hold to the JAX
    reference; the small batch also runs fused with an 8 KiB cache.  The
-   cached main path, after the main path: each program fused with the cache at 229,376 B
-   against the same without it, in turns, must equal it in paths, lengths
-   and every stat but ``launches`` and the three cache counters, with the
-   walks/s, hit rate and coalesced share printed; URW at 16 KiB and
-   64 KiB builds no cache and counts nothing.
+   cached main path, after the main path: each program fused with the
+   cache at 229,376 B (weighted Node2Vec 163,840 B) against the same
+   without it, in turns, must equal it in paths, lengths and every stat
+   but ``launches`` and the three cache counters, with the walks/s, hit
+   rate and coalesced share printed; URW at 16 KiB and 64 KiB builds no
+   cache and counts nothing.
 4. Walks → embeddings: ``Walker.train_embeddings`` for DeepWalk (fused)
    on the main path's graph at full width (EMB: 4 rounds of 65,536
    80-hop walks, 4 × 24 SGNS steps of batch 4,096, dim 128, window 10,
@@ -202,8 +205,17 @@ its seconds.
    instead (:func:`run_across_cards`); with no argument the script needs
    one card.
 9. The static verifier (:func:`run_verifier`): ``repro_torch.analysis.
-   run_all()`` on this checkout (any finding raises; its two ``--check``
-   CLIs ran in phase 1); then, with the timers' clock
+   run_all()`` with its four passes on this checkout (any finding raises;
+   its two ``--check`` CLIs ran in phase 1), and each ``--fixture`` of the
+   ``dma`` pass (``dma-*``, ``visit-*``) exiting non-zero in a fresh
+   process; the reservoir's staged schedule on the card
+   (:func:`verifier_traces`): a weighted Node2Vec launch (k = 1) from the
+   main-path state traced by ``ops.trace_schedule``, equal to the
+   untraced launch and the plain version, its trace free of findings and
+   equal to ``dma_schedule("reservoir_n2v", chunks=n)`` op for op, and a
+   traced launch with the hub's row cached in shared memory (every live
+   lane on the hub) equal to the plain version, with no copy on a cache
+   buffer and equal to the cached declaration; then, with the timers' clock
    (``repro_torch.core.clock.now``) replaced by one that returns random
    values, URW and PPR fused closed batches at the main path's width
    (65,536 starts, W = 4,096, 80 hops, k = 16), each equal to phase 3's
@@ -399,11 +411,17 @@ FUSED_TIMED = "ppr"              # the program whose launch the JSON row times
 # The hot-vertex cache: the most that fits in one block's shared memory
 # (224 KiB of the H100's 227 KiB opt-in limit), and 1 MiB, which does not.
 CACHE_SHARED = 229_376
+# The reservoir's 32 KiB of cp.async staging slots come first in its shared
+# memory, so CACHE_SHARED's weighted block (204,428 B on WG 20) no longer
+# fits beside them; 163,840 B holds the hub's weighted row alone (148,072
+# B), which does.  Every cached run of node2vec_w at "the shared budget"
+# takes it (shared_budget).
+CACHE_SHARED_BY = {"node2vec_w": 163_840}
 CACHE_GLOBAL = 1_048_576
 CACHE_OFF = (16_384, 65_536)     # budgets that admit no vertex on WG 20
 # Phase 2's cached launches beside the uncached ones (W = NUM_SLOTS,
 # zero-bubble): every program from the main-path and tail states, the
-# Node2Vec kinds from the hub state too, all at CACHE_SHARED; URW and
+# Node2Vec kinds from the hub state too, all at shared_budget; URW and
 # DeepWalk also from the main-path state at CACHE_GLOBAL, and URW at
 # 80 KiB, which holds the hub alone (74,052 B of shared memory against
 # CACHE_SHARED's 213,752 B), to show how the launch's time follows the
@@ -411,6 +429,12 @@ CACHE_OFF = (16_384, 65_536)     # budgets that admit no vertex on WG 20
 CACHE_EXTRA = {("urw", "main"): (81_920, CACHE_GLOBAL),
                ("deepwalk", "main"): (CACHE_GLOBAL,)}
 CACHE_LANE_OPS = 4               # tag fill + leader test, per lane-superstep
+
+
+def shared_budget(name) -> int:
+    """The cache budget whose block program ``name`` stages in shared
+    memory: CACHE_SHARED, less for the reservoir (CACHE_SHARED_BY)."""
+    return CACHE_SHARED_BY.get(name, CACHE_SHARED)
 
 
 def card_line() -> str:
@@ -1190,7 +1214,7 @@ def check_fused(graphs, starts_np) -> dict:
                       f"{where}: kernel {ms:.6f} ms/launch "
                       f"({ms / max(ran, 1) * 1e3:.3f} us per superstep)")
             if W == NUM_SLOTS:
-                for budget in (CACHE_SHARED,
+                for budget in (shared_budget(name),
                                *CACHE_EXTRA.get((name, where), ())):
                     cached.append({"name": name, "where": where, **check_cached(
                         name, g, cfg, depth, key, state, K, budget, where, ms,
@@ -1343,7 +1367,7 @@ def run_main_path(graphs, starts_np) -> dict:
 
 def run_cached_main_path(graphs, starts_np) -> int:
     """Phase 3, cached: each program fused through the Walker with the
-    hot-vertex cache at CACHE_SHARED against the same without it, in turns
+    hot-vertex cache at shared_budget against the same without it, in turns
     (off, on, on, off; node2vec_w, whose drain takes seconds: on, off), on
     the main path's batch.  Every run zeroes the launch counts just before
     it and reads them just after.  A cached run must equal the uncached one
@@ -1370,7 +1394,7 @@ def run_cached_main_path(graphs, starts_np) -> int:
         base = ExecutionConfig(num_slots=NUM_SLOTS, record_paths=True,
                                step_impl="fused",
                                hops_per_launch=HOPS_PER_LAUNCH)
-        budgets = {"off": 0, "on": CACHE_SHARED}
+        budgets = {"off": 0, "on": shared_budget(name)}
         if name == "urw":
             budgets.update({f"{b} B": b for b in CACHE_OFF})
         walkers = {k: compile(prog, execution=dataclasses.replace(
@@ -3670,6 +3694,10 @@ def lmt_across_cards(add) -> None:
 # random values, against phase 3's fused runs of the same batches.
 VERIFIER_PROGRAMS = ("urw", "ppr")
 VERIFIER_CLOCK_SEED = 9
+VERIFIER_FIXTURES = ("dma-missing-wait", "dma-overwrite-in-flight",
+                     "dma-undrained", "dma-cached-phantom-copy",
+                     "visit-nonconsecutive", "visit-bad-first")
+VERIFIER_TRACE_WARP = 0          # the grid warp whose schedule is traced
 MAIN_FUSED = {}   # program -> phase 3's first fused WalkResult
 
 
@@ -3685,10 +3713,139 @@ def random_clock():
     return now, reads
 
 
+def start_fixtures() -> list:
+    """``python -m repro_torch.analysis --fixture NAME`` for each fixture
+    of the ``dma`` pass, each a fresh process, all started together."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    return [(name, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--fixture", name],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=ROOT)) for name in VERIFIER_FIXTURES]
+
+
+def finish_fixtures(procs) -> None:
+    """Each fixture's process must exit non-zero with findings printed."""
+    for name, proc in procs:
+        out, _ = proc.communicate(timeout=CLI_TIMEOUT)
+        if proc.returncode == 0 or "finding" not in out:
+            raise AssertionError(f"fixture {name}: exit {proc.returncode}, "
+                                 f"its defect not caught:\n{out}")
+        last = out.strip().splitlines()[-1]
+        print(f"verifier --fixture {name}: exit {proc.returncode} ({last})")
+
+
+def traced_launch(g, prog, cfg, depth, key, state, cache=None):
+    """An untraced and a traced launch of k = 1 supersteps from ``state``
+    (each on its own copy) and the plain version's: both launches equal
+    the plain version in every state tensor.  Returns the trace."""
+    import torch
+
+    from repro_torch.kernels.fused_superstep import ops, ref
+    k = PHASE2_K["node2vec_w"]
+    want = ref.fused_superstep_ref(g, prog.spec, cfg, depth,
+                                   clone_state(state), key, k,
+                                   None if cache is None else cache.hot_ids)
+    work, block = ops.pack(clone_state(state))
+    ops.fused_superstep(g, prog.spec, cfg, depth, work, key, k, block,
+                        cache=cache)
+    traced, tblock = ops.pack(clone_state(state))
+    trace = ops.trace_schedule(g, prog.spec, cfg, depth, traced, key, k,
+                               tblock, cache=cache, warp=VERIFIER_TRACE_WARP)
+    torch.cuda.synchronize()
+    for label, got in (("untraced", work), ("traced", traced)):
+        err = state_err(got, want)
+        if err != 0:
+            raise AssertionError(f"verifier trace: the {label} launch "
+                                 f"disagrees with the plain version (max "
+                                 f"abs err {err})")
+    if state_err(traced, work) != 0 or not torch.equal(tblock, block):
+        raise AssertionError("verifier trace: the traced launch's bits "
+                             "differ from the untraced launch's")
+    return trace
+
+
+def verifier_traces(g, starts_np) -> None:
+    """Phase 9, the reservoir's staged schedule on the card: weighted
+    Node2Vec (W = 4,096, k = 1) from the main-path state, and from a tail
+    state with every live lane on the hub and the hub's row cached in
+    shared memory, each launched untraced and traced
+    (:func:`traced_launch`).  Each trace has no finding from the DMA pass
+    and equals the declaration op for op: the uncached one
+    ``dma_schedule("reservoir_n2v", chunks=n)`` over the traced warp's n
+    items, the cached one the cached declaration, with no copy started
+    on a ``cache.*`` buffer.  Any difference raises."""
+    import dataclasses
+
+    from repro_torch.analysis.dma_hazards import check_schedule
+    from repro_torch.core.rng import stream_key
+    from repro_torch.core.walk_engine import EngineConfig, maybe_build_cache
+    from repro_torch.kernels.fused_superstep import ops
+    from repro_torch.kernels.fused_superstep.schedule import dma_schedule
+    prog = programs()["node2vec_w"]
+    cfg = EngineConfig(num_slots=NUM_SLOTS, max_hops=MAX_HOPS,
+                       mode="zero_bubble", injection_delay=0,
+                       step_impl="fused", hops_per_launch=HOPS_PER_LAUNCH)
+    CH = prog.spec.reservoir_chunk
+    if CH > 64:
+        raise AssertionError(f"reservoir_chunk {CH}: an item is one staged "
+                             f"window only at CH <= 64")
+
+    def check(label, trace, declared):
+        findings = check_schedule(trace.ops, f"trace.{label}")
+        if findings or trace.windows != trace.items or trace.items < 1:
+            raise AssertionError(f"verifier trace {label}: {len(findings)} "
+                                 f"findings, {trace.items} items, "
+                                 f"{trace.windows} windows: {findings}")
+        phantom = [op for op in trace.ops if op.kind == "start"
+                   and op.buffer.startswith("cache.")]
+        if phantom or trace.ops != declared:
+            first = next((i for i, (a, b) in enumerate(
+                zip(trace.ops, declared)) if a != b),
+                min(len(trace.ops), len(declared)))
+            raise AssertionError(
+                f"verifier trace {label}: {len(trace.ops)} ops against "
+                f"{len(declared)} declared, first difference at op {first}"
+                f"; {len(phantom)} starts on a cache buffer")
+        kinds = {k: sum(op.kind == k for op in trace.ops)
+                 for k in ("start", "wait", "read")}
+        print(f"verifier trace {label}: warp {VERIFIER_TRACE_WARP}, "
+              f"{trace.items} (lane, chunk) items; {len(trace.ops)} ops "
+              f"({kinds['start']} starts, {kinds['wait']} waits, "
+              f"{kinds['read']} reads) == the declared schedule op for op; "
+              f"0 findings; the traced launch == the untraced launch == "
+              f"the plain version in every state tensor")
+
+    key = tuple(int(k) for k in stream_key(0))   # the main path's
+    state, depth = main_path_state(g, prog, cfg, key, starts_np)
+    trace = traced_launch(g, prog, cfg, depth, key, state)
+    check("reservoir_n2v", trace,
+          dma_schedule("reservoir_n2v", chunks=trace.items,
+                       weighted=g.weights is not None))
+
+    ccfg = dataclasses.replace(cfg, cache_budget=shared_budget("node2vec_w"))
+    block = ops.cache_block(maybe_build_cache(prog.spec, ccfg, g), g.device)
+    tier = ops.cache_tier(prog.spec, ccfg, block)
+    if tier != "shared":
+        raise AssertionError(f"verifier trace: the hub's cache "
+                             f"({block.nbytes()} B) is in the {tier} tier")
+    state, depth = mid_drain_state(g, prog, ccfg,
+                                   tuple(int(k) for k in stream_key(7)),
+                                   seed=NUM_SLOTS)
+    all_hub_state(g, state)
+    key = tuple(int(k) for k in stream_key(7))
+    trace = traced_launch(g, prog, ccfg, depth, key, state, cache=block)
+    check(f"reservoir_n2v.cached (H={block.num_hot}, {block.nbytes()} B, "
+          f"shared)", trace,
+          dma_schedule("reservoir_n2v", chunks=trace.items, cached=True,
+                       weighted=g.weights is not None))
+
+
 def run_verifier(graphs, starts_np) -> dict:
     """Phase 9: the static verifier on this checkout
     (``repro_torch.analysis.run_all()`` and both ``--check`` CLIs, each
-    in a fresh process: any finding or docs drift raises), then the
+    in a fresh process: any finding or docs drift raises; the ``dma``
+    pass's fixtures, each caught in a fresh process), the reservoir's
+    traced schedule (:func:`verifier_traces`), then the
     timers' clock replaced by random values (``random_clock``): fused URW
     and PPR closed batches at the main path's width, each equal to phase
     3's fused run of the same batch in paths, lengths and every stat but
@@ -3703,12 +3860,16 @@ def run_verifier(graphs, starts_np) -> dict:
     from repro_torch.kernels.fused_superstep import ops as fused_ops
     from repro_torch.walker import ExecutionConfig, compile
     t = time.perf_counter()
+    fixtures = start_fixtures()
     findings = run_all()
     if findings:
         raise AssertionError("verifier findings:\n"
                              + render_findings(findings))
-    print(f"verifier: run_all() holds ({time.perf_counter() - t:.1f} s; "
-          f"both --check CLIs ran during the build)")
+    print(f"verifier: run_all() holds, 4 passes ({time.perf_counter() - t:.1f}"
+          f" s; both --check CLIs ran during the build)")
+    verifier_traces(graphs["node2vec_w"], starts_np)
+    finish_fixtures(fixtures)
+    print(f"verifier: fixtures and traces {time.perf_counter() - t:.1f} s")
 
     def launched(stats):
         n = fused_ops.LAUNCHES["fused_superstep"]

@@ -1,6 +1,6 @@
 """Static verifier for the invariants the port's walks rest on.
 
-Three passes, each reading a *declarative export* the runtime code already
+Four passes, each reading a *declarative export* the runtime code already
 maintains (nothing here re-implements a backend: the passes check the
 declarations the backends execute):
 
@@ -10,6 +10,10 @@ declarations the backends execute):
     task RNG passes a registered `rng.SALTS` channel; every
     ``fold_in(key, salt)`` in the CUDA sources passes a ``kSalt*``
     constant, and each ``kSalt*`` constant equals its registry channel.
+  * `dma_hazards` — every kernel's declared DMA schedule (``dma_schedule()``
+    beside the kernel: the fused kernel's reservoir ``cp.async`` ping-pong)
+    is hazard-free: reads dominated by copy-waits, no slot re-issued while
+    in flight, all copies drained, no copy on a cache hit path.
   * `residency` — every lowered `PhaseProgram` satisfies the sharded
     interpreter's contract (v_prev phases only under two_phase /
     chunked_loop, carries produced before consumed, derived flags
@@ -20,13 +24,10 @@ declarations the backends execute):
     library through ``kernels/build.load``, sends CPU tensors to its plain
     version and never falls back to it from an ``except`` handler.
 
-The reference's fourth pass, over declared TPU DMA schedules, has no
-counterpart: no CUDA kernel of the port issues an asynchronous copy.
-
-``python -m repro_torch.analysis --check`` runs all three and checks the
-docs tables; ``--table`` prints them; ``--fixture NAME`` runs a pass over a
-deliberately broken input and exits non-zero when (as it must) the defect
-is caught.
+``python -m repro_torch.analysis --check`` runs all four and checks the
+tables against the docs; ``--table`` prints them; ``--fixture NAME`` runs a
+pass over a deliberately broken input and exits non-zero when (as it must)
+the defect is caught.
 """
 from repro_torch.analysis.report import Finding, render_findings
 
@@ -35,9 +36,11 @@ __all__ = ["Finding", "render_findings", "run_all"]
 
 def run_all():
     """Run every pass over the package; returns the combined findings."""
-    from repro_torch.analysis import determinism, residency, rng_collisions
+    from repro_torch.analysis import (determinism, dma_hazards, residency,
+                                      rng_collisions)
     findings = []
     findings += rng_collisions.check_repo()
+    findings += dma_hazards.check_repo()
     findings += residency.check_repo()
     findings += determinism.check_repo()
     return findings

@@ -16,10 +16,13 @@ import pathlib
 import re
 from typing import Callable, Dict, List
 
-from repro_torch.analysis import determinism, residency, rng_collisions
+from repro_torch.analysis import (determinism, dma_hazards, residency,
+                                  rng_collisions)
 from repro_torch.analysis.report import Finding
 from repro_torch.core.phase_program import DrawStream, _default_spec, lower
 from repro_torch.core.rng import SALT_CHUNK0, SALT_COLUMN, SALT_STOP
+from repro_torch.kernels.common import DmaOp
+from repro_torch.kernels.fused_superstep.schedule import dma_schedule
 
 _WALK_COMMON = "kernels/csrc/walk_common.cuh"
 
@@ -93,6 +96,69 @@ def cuda_salt_mismatch() -> List[Finding]:
     return rng_collisions.check_cuda_source(src, f"fixture/{path.name}")
 
 
+# ----------------------------------------------------------- dma fixtures
+#
+# The reference breaks its walk-step gather loop; the port's one declared
+# loop is the fused kernel's reservoir ping-pong (``ckcol`` / ``ckwgt``),
+# so each defect is made there and caught as the reference's is.
+
+
+def dma_missing_wait() -> List[Finding]:
+    """The reservoir ping-pong with window 1's column-copy wait dropped:
+    the read consumes the slot while its copy is still in flight
+    (read-before-arrival), and the copy is never drained."""
+    ops = [op for op in dma_schedule("reservoir_n2v")
+           if not (op.kind == "wait" and op.buffer == "ckcol"
+                   and op.copy == 2)]
+    return dma_hazards.check_schedule(ops, "fixture.missing_wait")
+
+
+def dma_overwrite_in_flight() -> List[Finding]:
+    """The column buffer's ping-pong slots collapsed to one slot: window
+    x+1's copy re-issues the slot window x's copy still occupies
+    (overwrite-while-in-flight)."""
+    ops = [op._replace(slot=0) if op.buffer == "ckcol" else op
+           for op in dma_schedule("reservoir_n2v")]
+    return dma_hazards.check_schedule(ops, "fixture.overwrite")
+
+
+def dma_undrained() -> List[Finding]:
+    """A trailing prefetch with no drain before the kernel returns."""
+    ops = list(dma_schedule("reservoir_n2v"))
+    ops.append(DmaOp("start", "ckcol", 0, copy=999))
+    return dma_hazards.check_schedule(ops, "fixture.undrained")
+
+
+def dma_cached_phantom_copy() -> List[Finding]:
+    """A cached reservoir window that still copies from device memory on
+    the hit path: the lane's row sits in the shared-memory block, yet a
+    copy into the cache-tier column buffer is started anyway.  The same
+    bytes arrive (bit-identical), but the hit's saving is gone: the
+    silent regression the phantom-copy rule exists to trip."""
+    ops = list(dma_schedule("reservoir_n2v", cached=True))
+    hit = next(i for i, op in enumerate(ops)
+               if op.kind == "read" and op.tier == "vmem"
+               and op.buffer == "cache.col")
+    ops.insert(hit, DmaOp("start", "cache.col", 0, copy=990))
+    return dma_hazards.check_schedule(ops, "fixture.cached_phantom")
+
+
+def visit_nonconsecutive() -> List[Finding]:
+    """A grid-scheduled kernel visiting an output block, leaving it, then
+    returning: the revisit contract an unsorted segment vector breaks."""
+    ops = [DmaOp("visit", "out", 0, first=True),
+           DmaOp("visit", "out", 1, first=True),
+           DmaOp("visit", "out", 0, first=False)]
+    return dma_hazards.check_schedule(ops, "fixture.nonconsecutive")
+
+
+def visit_bad_first() -> List[Finding]:
+    """first_visit set on a revisit — would zero a partial accumulation."""
+    ops = [DmaOp("visit", "out", 0, first=True),
+           DmaOp("visit", "out", 0, first=True)]
+    return dma_hazards.check_schedule(ops, "fixture.bad_first")
+
+
 # ----------------------------------------------------- residency fixtures
 
 
@@ -157,6 +223,12 @@ FIXTURES: Dict[str, Callable[[], List[Finding]]] = {
     "rng-literal-salt": rng_literal_salt,
     "cuda-literal-salt": cuda_literal_salt,
     "cuda-salt-mismatch": cuda_salt_mismatch,
+    "dma-missing-wait": dma_missing_wait,
+    "dma-overwrite-in-flight": dma_overwrite_in_flight,
+    "dma-undrained": dma_undrained,
+    "dma-cached-phantom-copy": dma_cached_phantom_copy,
+    "visit-nonconsecutive": visit_nonconsecutive,
+    "visit-bad-first": visit_bad_first,
     "residency-vprev-draw": residency_vprev_draw,
     "residency-missing-carry": residency_missing_carry,
     "determinism-torch-random": determinism_torch_random,

@@ -7,7 +7,7 @@ from typing import NamedTuple, Sequence
 class Finding(NamedTuple):
     """One verified-invariant violation.
 
-    ``pass_name`` — rng | residency | determinism.
+    ``pass_name`` — rng | dma | residency | determinism.
     ``site``      — where (stream site, phase index, file:line).
     ``message``   — what is wrong and what would fix it (diagnostics name
                     the offending salts / phases / calls, not just "check

@@ -1,22 +1,25 @@
-"""Generated docs tables: the salt channels and the per-task draw streams,
-rendered as the reference renders them, so every line must already stand
-in ``docs/architecture.md`` (``python -m repro_torch.analysis --check``
-fails on drift, which makes the docs check a parity check).
+"""Generated docs tables.  The salt channels and the per-task draw streams
+are rendered as the reference renders them, so every line must already
+stand in ``docs/architecture.md`` (``python -m repro_torch.analysis
+--check`` fails on drift, which makes the docs check a parity check).
 
-The reference's third table, the declared kernel DMA schedules, has no
-counterpart: no CUDA kernel of the port issues an asynchronous copy
-(:data:`DMA_NOTE`)."""
+The third table, the declared kernel DMA schedules, is the port's own
+(its kernels stage otherwise than the reference's): its columns are the
+reference's, its rows the schedules the port declares, and ``--check``
+finds each of its lines in the README's section on the port."""
 from __future__ import annotations
 
 from repro_torch.analysis.rng_collisions import spec_streams
 from repro_torch.core.phase_program import _default_spec
 from repro_torch.core.rng import SALTS
 from repro_torch.core.samplers import KINDS
+from repro_torch.kernels.common import schedule_buffers
 
-#: Printed by ``--table`` in place of the reference's DMA schedule table.
-DMA_NOTE = ("Declared kernel DMA schedules: none — no CUDA kernel of the "
-            "port issues an asynchronous copy (cp.async, TMA or bulk copy), "
-            "so the `dma` pass is not ported (ROADMAP.md item 10).")
+#: The line under the schedule table on the kernels that declare none.
+UNSTAGED_NOTE = ("No asynchronous copies, so no schedule: `walk_step` "
+                 "(uniform, alias), the fused kernel's uniform, alias, "
+                 "metapath and rejection kinds, `embedding_bag` and "
+                 "`segment_sum` read device memory with plain loads.")
 
 
 def _span(stream) -> str:
@@ -45,6 +48,28 @@ def render_stream_table() -> str:
             lines.append(f"| {kind} | `{s.site}` | {_span(s)} "
                          f"| {s.width} |")
     return "\n".join(lines)
+
+
+def render_schedule_table() -> str:
+    from repro_torch.analysis.dma_hazards import kernel_schedules
+    lines = ["| kernel schedule | buffers | ops | async copies |",
+             "|---|---|---|---|"]
+    for name, ops in kernel_schedules().items():
+        bufs = ", ".join(f"`{b}`" for b in schedule_buffers(ops))
+        copies = sum(1 for op in ops if op.kind == "start")
+        lines.append(f"| `{name}` | {bufs} | {len(ops)} | {copies} |")
+    return "\n".join(lines)
+
+
+def render_schedules() -> str:
+    """The schedule table with its heading and :data:`UNSTAGED_NOTE`: the
+    lines ``--check`` finds in the README's section on the port."""
+    return "\n\n".join([
+        "Declared kernel DMA schedules (hazard-free, proven by the `dma` "
+        "pass):",
+        render_schedule_table(),
+        UNSTAGED_NOTE,
+    ])
 
 
 def render_table() -> str:

@@ -101,12 +101,30 @@
 // a Threefry chain and a bisection's dependent loads, not a hub's whole
 // neighbor list on one thread.
 //
+// The chunks' candidates are staged, the counterpart of the reference's
+// ckcol / ckwgt ping-pong (make_async_copy in _reservoir_sample): each
+// warp owns two slots in dynamic shared memory (kStageWarpBytes, ahead of
+// the cache's block), and while it scores one window of its items it has
+// the next window's columns and weights in flight into the other slot by
+// cp.async (4-byte copies: a row starts on any word).  A window is a
+// chunk's pairs [32j, 32j + 32), both positions of each pair, so at CH <=
+// 64 an item is one window; each thread copies just the words that it
+// then reads, with the direct read's clamps, so the staged words are the
+// words read before and every bit stays as it was.  The window is waited
+// (cp.async.wait_group 1, 0 when no copy follows it) and read, and a
+// __syncwarp() orders both around the slot's reuse.  Items of a cached
+// lane read the cache's block as before and issue no copy.  The warp's
+// order of starts, waits and reads is declared in ../schedule.py
+// (dma_schedule) and checked by the DMA pass; with Args.trace set, lane 0
+// of one warp records what it issued, so the card shows the same order.
+//
 // The gather hierarchy (a runtime condition, num_hot > 0, so it adds no
 // kernel instantiation): the wrapper passes the hot-vertex cache's packed
 // block (graph/hot_cache.py: the sorted hot ids, their degrees and row
 // offsets, and verbatim copies of their rows' columns and the kind's
 // payloads) as one int32 array.  Where it fits beside the kernel's static
-// shared memory, each block copies it into its dynamic shared memory at
+// shared memory (and the reservoir's staging slots, which come first),
+// each block copies it into its dynamic shared memory at
 // the start of each launch, the counterpart of the TPU kernel's VMEM; a
 // larger block is read in place in device memory.  Each superstep starts
 // with two passes over an owner's lanes: (1) every lane, idle or not,
@@ -148,8 +166,9 @@
 
 #include "walk_common.cuh"
 
-// The cache's packed block, staged here when it fits (cache_words > 0).
-extern __shared__ int4 s_block[];
+// Dynamic shared memory: the reservoir's staging slots (stage_bytes),
+// then the cache's packed block, staged when it fits (cache_words > 0).
+extern __shared__ int4 s_dyn[];
 
 namespace {
 
@@ -173,6 +192,34 @@ enum Kind {
 __host__ __device__ constexpr int max_threads(int kind) {
   return kind == kReservoir ? kMaxThreads : kMaxThreads / 2;
 }
+
+// The reservoir's staging: a warp's two slots, each a window's columns
+// (kStageWords: entry n * 32 + t is position 32j + t + n * pairs of the
+// chunk) and then its weights.
+constexpr int kStageWords = 64;
+constexpr int kSlotWords = 2 * kStageWords;
+constexpr int kStageWarpBytes = 2 * kSlotWords * 4;
+
+// Dynamic shared memory that the kind's staging takes ahead of the
+// cache's block: the reservoir's slots for every warp a block may have.
+__host__ __device__ constexpr int stage_bytes(int kind) {
+  return kind == kReservoir ? kMaxWarps * kStageWarpBytes : 0;
+}
+
+// The cache's block in dynamic shared memory, after the kind's staging.
+template <int kKind>
+__device__ __forceinline__ int* shared_block() {
+  return reinterpret_cast<int*>(s_dyn) + stage_bytes(kKind) / 4;
+}
+
+// The schedule trace (Args::trace, schedule.py): header words, then
+// records of (op, buffer, slot, copy id).
+enum TraceHeader {
+  kTrWarp = 0, kTrCap, kTrRecords, kTrItems, kTrWindows, kTrNextCopy,
+  kTrHeader = 8
+};
+enum TraceOp { kTrStart = 0, kTrWait = 1, kTrRead = 2 };
+enum TraceBuf { kTrCol = 0, kTrWgt = 1, kTrCacheCol = 2, kTrCacheWgt = 3 };
 
 // Control block layout (ops.py): int64 words.
 constexpr int kCtlWork = 0;
@@ -291,12 +338,15 @@ struct Args {
   int4* rlane;
   int* part;
   long long* hist;
+  // The reservoir's schedule trace (schedule.py's layout); null in every
+  // launch but a traced one.
+  int* trace;
 };
 
 // Where the cache's block is read from in tier kTier.
-template <int kTier>
+template <int kKind, int kTier>
 __device__ __forceinline__ const int* cache_base(const Args& a) {
-  return kTier == kShared ? reinterpret_cast<const int*>(s_block) : a.cache;
+  return kTier == kShared ? shared_block<kKind>() : a.cache;
 }
 
 // Lower-bound bisection of vv in the sorted hot ids (_cache_probe): the
@@ -333,11 +383,11 @@ __device__ __forceinline__ void cache_fill(const Args& a,
 // added to the block's s_cnt (shared-memory atomics, no barrier), and a
 // live lane whose row is cached is marked kCachedLive, for the cached lane
 // pass.  Every thread calls it (a warp sum).
-template <int kTier>
+template <int kKind, int kTier>
 __device__ __forceinline__ void cache_resolve(const Args& a,
                                               const unsigned long long* tags,
                                               int lo, int hi, int* s_cnt) {
-  const int* cb = cache_base<kTier>(a);
+  const int* cb = cache_base<kKind, kTier>(a);
   unsigned hits = 0, misses = 0, coalesced = 0;
 #pragma unroll 1
   for (int i = lo; i < hi; ++i) {
@@ -428,8 +478,8 @@ __device__ __forceinline__ void process_lane(const Args& a, int i,
     const bool valid = v >= 0 && v < a.num_vertices;
     if (kHit) {   // the directory: hot_deg at word H, hot_off at 2H
       const int cs = a.cslot[i];
-      addr = cache_base<kTier>(a)[2 * a.num_hot + cs];
-      deg = valid ? cache_base<kTier>(a)[a.num_hot + cs] : 0;
+      addr = cache_base<kKind, kTier>(a)[2 * a.num_hot + cs];
+      deg = valid ? cache_base<kKind, kTier>(a)[a.num_hot + cs] : 0;
     } else {
       const int vc = clampi(v, 0, a.num_vertices - 1);
       addr = __ldg(a.row_ptr + vc);
@@ -446,8 +496,8 @@ __device__ __forceinline__ void process_lane(const Args& a, int i,
     const int t = __ldg(a.schedule + h % a.schedule_len);
     int lo, cnt;
     if (kHit) {
-      const int* row =
-          cache_base<kTier>(a) + a.c_toff + a.cslot[i] * a.type_stride;
+      const int* row = cache_base<kKind, kTier>(a) + a.c_toff +
+                       a.cslot[i] * a.type_stride;
       lo = row[t];
       cnt = row[t + 1] - lo;
     } else {
@@ -466,8 +516,8 @@ __device__ __forceinline__ void process_lane(const Args& a, int i,
     const int kdraw = uniform_index(deg, u0);
     if (kHit) {
       const int e = clampi(addr + kdraw, 0, a.cache_entries - 1);
-      p = __int_as_float(cache_base<kTier>(a)[a.c_prob + e]);
-      al = cache_base<kTier>(a)[a.c_alias + e];
+      p = __int_as_float(cache_base<kKind, kTier>(a)[a.c_prob + e]);
+      al = cache_base<kKind, kTier>(a)[a.c_alias + e];
     } else if (a.num_edges > 0) {
       const int e = clampi(addr + kdraw, 0, a.num_edges - 1);
       p = __ldg(a.alias_prob + e);
@@ -484,8 +534,9 @@ __device__ __forceinline__ void process_lane(const Args& a, int i,
   // E == 0.
   int nxt = -1;
   if (deg > 0) {
+    const int* cb = cache_base<kKind, kTier>(a);
     if (kHit)
-      nxt = cache_base<kTier>(a)[a.c_col + clampi(idx, 0, a.cache_entries - 1)];
+      nxt = cb[a.c_col + clampi(idx, 0, a.cache_entries - 1)];
     else if (a.num_edges > 0)
       nxt = __ldg(a.col + clampi(idx, 0, a.num_edges - 1));
   }
@@ -599,9 +650,9 @@ __device__ __forceinline__ int rejection_pick(const Args& a, uint2 pk,
       const uint2 r = walk::threefry2x32(
           ck.x, ck.y, r_j, r_j + static_cast<uint32_t>(a.rounds));
       const int prop = uniform_index(deg, walk::bits_to_uniform(r.x));
+      const int* cb = cache_base<kRejection, kTier>(a);
       y[n] = kTier != kGraph
-                 ? cache_base<kTier>(a)[a.c_col + clampi(addr + prop, 0,
-                                                          a.cache_entries - 1)]
+                 ? cb[a.c_col + clampi(addr + prop, 0, a.cache_entries - 1)]
                  : __ldg(a.col + clampi(addr + prop, 0, a.num_edges - 1));
       u_acc[n] = walk::bits_to_uniform(r.y);
     }
@@ -643,8 +694,8 @@ __device__ __forceinline__ void process_lane_rejection(const Args& a, int i,
     const bool valid = v >= 0 && v < a.num_vertices;
     if (kHit) {   // the directory: hot_deg at word H, hot_off at 2H
       const int cs = a.cslot[i];
-      addr = cache_base<kTier>(a)[2 * a.num_hot + cs];
-      deg = valid ? cache_base<kTier>(a)[a.num_hot + cs] : 0;
+      addr = cache_base<kRejection, kTier>(a)[2 * a.num_hot + cs];
+      deg = valid ? cache_base<kRejection, kTier>(a)[a.num_hot + cs] : 0;
     } else {
       const int vc = clampi(v, 0, a.num_vertices - 1);
       addr = __ldg(a.row_ptr + vc);
@@ -715,8 +766,8 @@ __device__ __forceinline__ void reservoir_prepass(const Args& a, int lo,
     if (mark == kLive || mark == kCachedLive) {
       const int tier = mark == kLive ? kGraph
                        : a.cache_words > 0 ? kShared : kGlobal;
-      const int* cb = tier == kShared ? reinterpret_cast<const int*>(s_block)
-                                      : a.cache;
+      const int* cb =
+          tier == kShared ? shared_block<kReservoir>() : a.cache;
       if (mark == kCachedLive) a.active[i] = kLive;
       const int vcur = a.v_curr[i];
       const int h = a.hop[i];
@@ -789,31 +840,107 @@ __device__ __forceinline__ int block_lane(int width, int b) {
   return static_cast<int>(static_cast<long long>(width) * b / gridDim.x);
 }
 
-// One (lane, chunk) item by the whole warp: chunk c of lane `lane`'s
-// candidates, thread t taking pairs t, t + 32, ... of the chunk.  Chunk c
-// of CH candidates draws at salt SALT_CHUNK0 + c, draws t and t + pairs
-// (pairs = (CH + 1) / 2) sharing counter (t, t + pairs) as in
-// rng.key_bits(CH); candidate position p = c * CH + t < deg has weight
-// w = w_edge * bias and E-S key log(u + 1e-20) / w where w > 0, else -inf,
-// in IEEE float32 (logf, no fast math) as torch computes it on the card.
-// The warp's largest packed word goes to best[lane] by atomicMax.
+// cp.async of one 4-byte word from device memory into shared memory, and
+// the commit and wait of a warp's groups of them.
+__device__ __forceinline__ void cp_async4(int* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Appends one record to the schedule trace; only lane 0 of the traced warp
+// calls it.  Past the capacity only the count grows.
+__device__ __forceinline__ void trace_op(int* tr, int op, int buf, int slot,
+                                         int copy) {
+  const int r = tr[kTrRecords]++;
+  if (r < tr[kTrCap]) {
+    int* rec = tr + kTrHeader + 4 * r;
+    rec[0] = op;
+    rec[1] = buf;
+    rec[2] = slot;
+    rec[3] = copy;
+  }
+}
+
+// The pairs of chunk c (of a lane of degree deg) that draw: min(pairs,
+// valid candidates).  The chunk is ceil(that / 32) windows.
+__device__ __forceinline__ int chunk_span(const Args& a, int c, int deg) {
+  return min((a.chunk + 1) / 2, min(a.chunk, deg - c * a.chunk));
+}
+
+// Starts window j of chunk c of a lane whose row is at addr (degree deg)
+// into `slot` (kSlotWords: its columns, then its weights): thread t copies
+// the words of pair b = 32j + t that reservoir_chunk has it read, position
+// b and, where valid, b + pairs, each at clamp(addr + base + p, 0, E - 1)
+// as the direct read took it; one commit group a window.  With `traced`,
+// lane 0 records the starts on slot `parity`.
+__device__ __forceinline__ void stage_window(const Args& a, int* slot,
+                                             int addr, int deg, int c, int j,
+                                             bool traced, int parity) {
+  const int t = threadIdx.x & 31;
+  const int pairs = (a.chunk + 1) / 2;
+  const int base = c * a.chunk;
+  const int n_valid = min(a.chunk, deg - base);
+  const int b = 32 * j + t;
+  if (b < pairs && b < n_valid) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int p = b + n * pairs;
+      if (n == 1 && p >= n_valid) break;
+      const int e = clampi(addr + base + p, 0, a.num_edges - 1);
+      cp_async4(slot + 32 * n + t, a.col + e);
+      if (a.weights)
+        cp_async4(slot + kStageWords + 32 * n + t, a.weights + e);
+    }
+  }
+  cp_async_commit();
+  if (traced && t == 0) {
+    trace_op(a.trace, kTrStart, kTrCol, parity, a.trace[kTrNextCopy]++);
+    if (a.weights)
+      trace_op(a.trace, kTrStart, kTrWgt, parity, a.trace[kTrNextCopy]++);
+  }
+}
+
+// Window j of one (lane, chunk) item by the whole warp: chunk c of lane
+// `lane`'s candidates, thread t taking pair b = 32j + t of the chunk (so
+// at CH <= 64 the item is one window).  Chunk c of CH candidates draws at
+// salt SALT_CHUNK0 + c, draws b and b + pairs (pairs = (CH + 1) / 2)
+// sharing counter (b, b + pairs) as in rng.key_bits(CH); candidate
+// position p = c * CH + b < deg has weight w = w_edge * bias and E-S key
+// log(u + 1e-20) / w where w > 0, else -inf, in IEEE float32 (logf, no
+// fast math) as torch computes it on the card.  An uncached lane's
+// columns and weights are the window's staged `slot` (stage_window), a
+// cached lane's the cache's block.  The warp's largest packed word goes to
+// best[lane] by atomicMax.
 __device__ __forceinline__ void reservoir_chunk(const Args& a, int lane_id,
-                                                int c, const int4 r0,
-                                                const int4 r1) {
+                                                int c, int j, const int4 r0,
+                                                const int4 r1,
+                                                const int* slot) {
   const int addr = r0.z, deg = r0.w, vp = r1.x, plo = r1.y, phi = r1.z;
   const int tier = r1.w;
-  const int* cb = tier == kShared ? reinterpret_cast<const int*>(s_block)
-                                  : a.cache;
+  const int* cb = tier == kShared ? shared_block<kReservoir>() : a.cache;
   const float neg_inf = __uint_as_float(0xff800000u);
   const int pairs = (a.chunk + 1) / 2;
   const int base = c * a.chunk;
   const int n_valid = min(a.chunk, deg - base);
+  const int t = threadIdx.x & 31;
+  const int b = 32 * j + t;
   const uint2 dk = walk::fold_in(
       make_uint2(static_cast<uint32_t>(r0.x), static_cast<uint32_t>(r0.y)),
       walk::kSaltChunk0 + c);
   unsigned long long best = 0;
-  for (int b = threadIdx.x & 31; b < pairs && b < n_valid; b += 32) {
-    const int t[2] = {b, b + pairs};
+  if (b < pairs && b < n_valid) {
+    const int pos[2] = {b, b + pairs};
     const bool valid[2] = {true, b + pairs < n_valid};
     const uint2 r = walk::threefry2x32(
         dk.x, dk.y, static_cast<uint32_t>(b),
@@ -828,13 +955,13 @@ __device__ __forceinline__ void reservoir_chunk(const Args& a, int lane_id,
       w_edge[n] = 0.0f;
       if (!valid[n]) continue;
       if (tier != kGraph) {   // the row's packed columns and weights
-        const int e = clampi(addr + base + t[n], 0, a.cache_entries - 1);
+        const int e = clampi(addr + base + pos[n], 0, a.cache_entries - 1);
         y[n] = cb[a.c_col + e];
         w_edge[n] = a.c_wgt >= 0 ? __int_as_float(cb[a.c_wgt + e]) : 1.0f;
-      } else {
-        const int e = clampi(addr + base + t[n], 0, a.num_edges - 1);
-        y[n] = __ldg(a.col + e);
-        w_edge[n] = a.weights ? __ldg(a.weights + e) : 1.0f;
+      } else {                // the staged window
+        y[n] = slot[32 * n + t];
+        w_edge[n] =
+            a.weights ? __int_as_float(slot[kStageWords + 32 * n + t]) : 1.0f;
       }
     }
     bool common[2] = {false, false};
@@ -845,16 +972,39 @@ __device__ __forceinline__ void reservoir_chunk(const Args& a, int lane_id,
       const float w = __fmul_rn(w_edge[n], n2v_bias(a, vp, y[n], common[n]));
       const float key =
           w > 0.0f ? __fdiv_rn(logf(__fadd_rn(u[n], 1e-20f)), w) : neg_inf;
-      best = max(best, pack_key(key, base + t[n]));
+      best = max(best, pack_key(key, base + pos[n]));
     }
   }
   for (int o = 16; o > 0; o >>= 1)
     best = max(best, __shfl_xor_sync(kFullMask, best, o));
-  if ((threadIdx.x & 31) == 0) atomicMax(a.best + lane_id, best);
+  if (t == 0) atomicMax(a.best + lane_id, best);
+}
+
+// The lane whose items hold item x of the scan, with its first item and
+// chunk count: 32-ary searches of the blocks' first items (s_base), then
+// of the block's lanes' first items.  Every lane of the warp calls it.
+__device__ __forceinline__ int scan_lane(const Args& a, const int* s_base,
+                                         int x, int* first, int* nch) {
+  const int b = warp_last_le(0, gridDim.x, x,
+                             [&](int j) { return s_base[j]; });
+  const int lo = block_lane(a.width, b), hi = block_lane(a.width, b + 1);
+  const int lane_id = warp_last_le(lo, hi, x - s_base[b], [&](int j) {
+    return __ldcg(&a.rlane[3 * j + 2].x);
+  });
+  const int4 r2 = __ldcg(a.rlane + 3 * lane_id + 2);
+  *first = s_base[b] + r2.x;
+  *nch = r2.y;
+  return lane_id;
 }
 
 // The chunk scan: this warp's items [w * per, (w + 1) * per) of `total`,
-// over the lanes' records; s_base[b] is block b's first item.
+// over the lanes' records; s_base[b] is block b's first item.  The items'
+// windows pass through the warp's two staging slots in turn: before the
+// warp scores a window it starts the next window's copies (the next
+// item's, its lane found one item early), then waits for its own window
+// and reads it.  A cached lane's windows start nothing.  With Args.trace
+// set, lane 0 of the warp the trace names records its starts, waits and
+// reads (a warp-uniform branch).
 __device__ __forceinline__ void reservoir_scan(const Args& a,
                                                const int* s_base, int total) {
   const int warps = gridDim.x * (blockDim.x >> 5);
@@ -862,23 +1012,83 @@ __device__ __forceinline__ void reservoir_scan(const Args& a,
   const int per = (total + warps - 1) / warps;
   const int x0 = w * per;
   const int x1 = min(total, x0 + per);
-  int lane_id = -1, first = 0, nch = 0;   // the current lane's items
-  int4 r0 = {}, r1 = {};
-  for (int x = x0; x < x1; ++x) {
-    if (lane_id < 0 || x >= first + nch) {
-      const int b = warp_last_le(0, gridDim.x, x,
-                                 [&](int j) { return s_base[j]; });
-      const int lo = block_lane(a.width, b), hi = block_lane(a.width, b + 1);
-      lane_id = warp_last_le(lo, hi, x - s_base[b], [&](int j) {
-        return __ldcg(&a.rlane[3 * j + 2].x);
-      });
-      const int4 r2 = __ldcg(a.rlane + 3 * lane_id + 2);
-      first = s_base[b] + r2.x;
-      nch = r2.y;
-      r0 = __ldcg(a.rlane + 3 * lane_id);
-      r1 = __ldcg(a.rlane + 3 * lane_id + 1);
+  if (x0 >= x1) return;
+  int* const stage =
+      reinterpret_cast<int*>(s_dyn) + (threadIdx.x >> 5) * 2 * kSlotWords;
+  const bool traced = a.trace != nullptr && a.trace[kTrWarp] == w;
+  const bool lead = (threadIdx.x & 31) == 0;
+  if (traced && lead) a.trace[kTrItems] += x1 - x0;
+  int first, nch;
+  int lane_id = scan_lane(a, s_base, x0, &first, &nch);
+  int4 r0 = __ldcg(a.rlane + 3 * lane_id);
+  int4 r1 = __ldcg(a.rlane + 3 * lane_id + 1);
+  int x = x0, j = 0;
+  int fill = 0;                    // the slot the next staged window takes
+  bool staged = r1.w == kGraph;    // this window's copies are in flight
+  if (staged) {
+    stage_window(a, stage, r0.z, r0.w, x - first, 0, traced, 0);
+    fill = 1;
+  }
+  for (;;) {
+    const int c = x - first;
+    const bool adv = 32 * (j + 1) >= chunk_span(a, c, r0.w);   // next item
+    const bool more = !adv || x + 1 < x1;
+    int n_lane = lane_id, n_first = first, n_nch = nch;
+    bool n_staged = false;
+    if (more) {
+      int n_addr = r0.z, n_deg = r0.w, n_tier = r1.w;
+      if (adv && x + 1 >= first + nch) {
+        n_lane = scan_lane(a, s_base, x + 1, &n_first, &n_nch);
+        const int4 n_r0 = __ldcg(a.rlane + 3 * n_lane);
+        n_addr = n_r0.z;
+        n_deg = n_r0.w;
+        n_tier = __ldcg(&a.rlane[3 * n_lane + 1].w);
+      }
+      n_staged = n_tier == kGraph;
+      if (n_staged) {
+        stage_window(a, stage + fill * kSlotWords, n_addr, n_deg,
+                     adv ? x + 1 - n_first : c, adv ? 0 : j + 1, traced,
+                     fill);
+        fill ^= 1;
+      }
     }
-    reservoir_chunk(a, lane_id, x - first, r0, r1);
+    const int* slot = nullptr;
+    if (staged) {   // its slot: the one before the last started
+      const int cur = n_staged ? fill : fill ^ 1;
+      if (n_staged) cp_async_wait<1>();
+      else cp_async_wait<0>();
+      __syncwarp();
+      slot = stage + cur * kSlotWords;
+      if (traced && lead) {
+        const int nbuf = a.weights ? 2 : 1;
+        const int id = a.trace[kTrNextCopy] - nbuf * (n_staged ? 2 : 1);
+        trace_op(a.trace, kTrWait, kTrCol, cur, id);
+        if (a.weights) trace_op(a.trace, kTrWait, kTrWgt, cur, id + 1);
+        trace_op(a.trace, kTrRead, kTrCol, cur, -1);
+        if (a.weights) trace_op(a.trace, kTrRead, kTrWgt, cur, -1);
+      }
+    } else if (traced && lead && r1.w == kShared) {
+      trace_op(a.trace, kTrRead, kTrCacheCol, 0, -1);
+      if (a.c_wgt >= 0) trace_op(a.trace, kTrRead, kTrCacheWgt, 0, -1);
+    }
+    if (traced && lead) a.trace[kTrWindows] += 1;
+    reservoir_chunk(a, lane_id, c, j, r0, r1, slot);
+    __syncwarp();   // the slot's reads are done before it is refilled
+    if (!more) break;
+    if (adv) {
+      x += 1;
+      j = 0;
+      if (n_lane != lane_id) {
+        lane_id = n_lane;
+        first = n_first;
+        nch = n_nch;
+        r0 = __ldcg(a.rlane + 3 * lane_id);
+        r1 = __ldcg(a.rlane + 3 * lane_id + 1);
+      }
+    } else {
+      j += 1;
+    }
+    staged = n_staged;
   }
 }
 
@@ -900,8 +1110,8 @@ __device__ __forceinline__ void reservoir_finish(const Args& a, int lo,
     const int idx = clampi(pos, 0, max(r0.w - 1, 0));
     int nxt;
     if (tier != kGraph) {
-      const int* cb = tier == kShared ? reinterpret_cast<const int*>(s_block)
-                                      : a.cache;
+      const int* cb =
+          tier == kShared ? shared_block<kReservoir>() : a.cache;
       nxt = cb[a.c_col + clampi(r0.z + idx, 0, a.cache_entries - 1)];
     } else {
       nxt = __ldg(a.col + clampi(r0.z + idx, 0, a.num_edges - 1));
@@ -1056,8 +1266,9 @@ fused_superstep_kernel(const Args a) {
     if (a.cache_words > 0) {
       const int n4 = a.cache_words / 4;
       const int4* src = reinterpret_cast<const int4*>(a.cache);
-      for (int w = tid; w < n4; w += blockDim.x) s_block[w] = src[w];
-      int* dst = reinterpret_cast<int*>(s_block);
+      int4* blk = reinterpret_cast<int4*>(shared_block<kKind>());
+      for (int w = tid; w < n4; w += blockDim.x) blk[w] = src[w];
+      int* dst = reinterpret_cast<int*>(blk);
       for (int w = 4 * n4 + tid; w < a.cache_words; w += blockDim.x)
         dst[w] = a.cache[w];
     }
@@ -1089,9 +1300,9 @@ fused_superstep_kernel(const Args a) {
       cache_fill(a, tags, lo, hi);
       grid.sync();
       if (a.cache_words == 0)
-        cache_resolve<kGlobal>(a, tags, lo, hi, s_cnt);
+        cache_resolve<kKind, kGlobal>(a, tags, lo, hi, s_cnt);
       else
-        cache_resolve<kShared>(a, tags, lo, hi, s_cnt);
+        cache_resolve<kKind, kShared>(a, tags, lo, hi, s_cnt);
     }
 
     // The lanes, uncached then cached (one loop after the other, so the
@@ -1236,7 +1447,8 @@ cudaError_t allow_smem(K kernel, int smem) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// The grid for `width` lanes with `smem` bytes of dynamic shared memory:
+// The grid for `width` lanes with `smem` bytes of the cache's block in
+// dynamic shared memory, beside the kind's staging (stage_bytes):
 // the reservoir takes every resident warp (1,024 threads a block); the
 // other kinds one thread a lane, threads = width / #SMs rounded up to a
 // warp (at most 512), blocks = width / threads; never more blocks than
@@ -1248,8 +1460,9 @@ struct GridOf {
   template <int kKind, bool kStop, bool kRecord, bool kStatic>
   int run() const {
     const auto kernel = fused_superstep_kernel<kKind, kStop, kRecord, kStatic>;
+    const int total = stage_bytes(kKind) + smem;
     int device = 0, sms = 0, per_sm = 0;
-    cudaError_t e = allow_smem(kernel, smem);
+    cudaError_t e = allow_smem(kernel, total);
     if (e == cudaSuccess) e = cudaGetDevice(&device);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -1260,7 +1473,7 @@ struct GridOf {
       threads = min(threads, max(32, (per_sm_lanes + 31) / 32 * 32));
     }
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                      smem);
+                                                      total);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
     int blocks = min(per_sm * sms, kMaxBlocks);
@@ -1275,7 +1488,7 @@ struct GridOf {
 struct Launch {   // launch it on `stream`
   const Args& a;
   Grid grid;
-  int smem;       // dynamic shared-memory bytes (the staged cache block)
+  int smem;       // dynamic shared-memory bytes (staging and cache block)
   cudaStream_t stream;
 
   template <int kKind, bool kStop, bool kRecord, bool kStatic>
@@ -1293,7 +1506,7 @@ struct Launch {   // launch it on `stream`
   }
 };
 
-struct SmemLimit {   // the dynamic shared memory it can take, or -error
+struct SmemLimit {   // the shared memory its cache block can take, or -error
   template <int kKind, bool kStop, bool kRecord, bool kStatic>
   int run() const {
     int device = 0, optin = 0;
@@ -1306,7 +1519,7 @@ struct SmemLimit {   // the dynamic shared memory it can take, or -error
       e = cudaFuncGetAttributes(
           &attr, fused_superstep_kernel<kKind, kStop, kRecord, kStatic>);
     if (e != cudaSuccess) return -static_cast<int>(e);
-    return optin - static_cast<int>(attr.sharedSizeBytes);
+    return optin - static_cast<int>(attr.sharedSizeBytes) - stage_bytes(kKind);
   }
 };
 
@@ -1355,7 +1568,8 @@ int dispatch(const Op& op, int kind, bool stop, bool record,
 //
 // fused_superstep_grid writes the grid that the instantiation of (kind,
 // stop_prob > 0, record_paths, static_mode) takes for `width` lanes with
-// `smem` bytes of dynamic shared memory on the current device, and the
+// `smem` bytes of the cache's block in dynamic shared memory (after the
+// reservoir's staging slots) on the current device, and the
 // scratch bytes a launch of it needs with injection delay `delay`:
 // out = {blocks, threads, blocks a multiprocessor, scratch bytes}.
 // Returns 0 or a cudaError.
@@ -1385,6 +1599,8 @@ extern "C" int fused_superstep_grid(int kind, int stop, int record_paths,
 // with rounds, chunk or bisect_iters below 1, or a cache without its
 // block or probe trips.  num_hot = 0 runs without the cache; cache_words
 // > 0 stages the block's first cache_words words into shared memory.
+// `trace` is null, or (the reservoir kind) a schedule trace buffer
+// (schedule.py's layout) whose named warp records what it issues.
 extern "C" int fused_superstep(
     int* v_curr, int* v_prev, int* query_id, int* hop, uint8_t* active,
     int* epoch, const int* q_start, const int* q_order, const int* q_epoch,
@@ -1399,7 +1615,7 @@ extern "C" int fused_superstep(
     int chunk, int bisect_iters, int num_hot, int cache_entries,
     int probe_trips, int cache_words, int c_col, int c_wgt, int c_prob,
     int c_alias, int c_toff, int kind, int record_paths, int static_mode,
-    int blocks, int threads, void* stream) {
+    int blocks, int threads, int* trace, void* stream) {
   if (width < 1 || delay < 0 || blocks < 1 || blocks > kMaxBlocks ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
       scratch == nullptr ||
@@ -1425,18 +1641,19 @@ extern "C" int fused_superstep(
                reinterpret_cast<unsigned long long*>(s + l.best),
                reinterpret_cast<int4*>(s + l.rlane),
                reinterpret_cast<int*>(s + l.part),
-               reinterpret_cast<long long*>(s + l.hist)};
-  const int smem = (4 * a.cache_words + 15) / 16 * 16;
+               reinterpret_cast<long long*>(s + l.hist), trace};
+  const int smem = stage_bytes(kind) + (4 * a.cache_words + 15) / 16 * 16;
   return dispatch(Launch{a, Grid{blocks, threads, 0}, smem,
                          static_cast<cudaStream_t>(stream)},
                   kind, stop_prob > 0.0f, record_paths != 0,
                   static_mode != 0);
 }
 
-// The dynamic shared memory (bytes) that the instantiation of (kind,
-// stop_prob > 0, record_paths, static_mode) can take on the current
-// device: the opt-in limit less its static shared memory; a negative
-// cudaError on failure.  A cache block up to this size is staged.
+// The dynamic shared memory (bytes) that the cache's block can take in the
+// instantiation of (kind, stop_prob > 0, record_paths, static_mode) on the
+// current device: the opt-in limit less its static shared memory and its
+// staging slots (the reservoir's, stage_bytes); a negative cudaError on
+// failure.  A cache block up to this size is staged.
 extern "C" int fused_superstep_smem_limit(int kind, int stop, int record_paths,
                                           int static_mode) {
   return dispatch(SmemLimit{}, kind, stop != 0, record_paths != 0,

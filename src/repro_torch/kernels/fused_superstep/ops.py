@@ -31,6 +31,11 @@ device, made once by :func:`cache_block`.  The kernel stages a block that
 fits in a thread block's shared memory there at the start of each launch,
 and reads a larger one in place in device memory (:func:`cache_tier`
 says which); the plain version adds the same three counters.
+
+The reservoir kind stages each (lane, chunk) item's columns and weights
+through a ``cp.async`` ping-pong in shared memory, which ``schedule.py``
+declares for the DMA pass; :func:`trace_schedule` launches with one warp
+recording what it issues, to hold the kernel to that declaration.
 """
 from __future__ import annotations
 
@@ -47,6 +52,8 @@ from repro_torch.core.samplers import bisect_iters, n2v_constants
 from repro_torch.core.tasks import WalkStats
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_superstep import ref
+from repro_torch.kernels.fused_superstep.schedule import (
+    TRACE_CAP, TRACE_HEADER, TRACE_WARP, ScheduleTrace, decode_trace)
 
 #: Kernel launches since the last :func:`reset_launches`.
 LAUNCHES = {"fused_superstep": 0}
@@ -64,7 +71,10 @@ KINDS = {"uniform": 0, "alias": 1, "metapath": 2, "rejection_n2v": 3,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 _ARGTYPES = ([_P] * 22 + [_L] + [_I] * 9 + [_L] + [ctypes.c_uint] * 2
-             + [_F] * 4 + [_I] * 17 + [_P])
+             + [_F] * 4 + [_I] * 17 + [_P, _P])
+
+#: Records a schedule trace keeps (:func:`trace_schedule`).
+TRACE_CAPACITY = 4_096
 
 #: The packed edge payloads of a cache block after ``col``, in order.
 _CACHE_PAYLOADS = ("weights", "alias_prob", "alias_idx")
@@ -153,9 +163,12 @@ def _smem_limit(device_index: int, kind: int, stop: bool, record: bool,
 
 
 def smem_limit(spec, cfg, device) -> int:
-    """The dynamic shared memory (bytes) that the kernel's instantiation for
-    ``spec`` × ``cfg`` can take on CUDA ``device``: the device's opt-in
-    limit per block less the instantiation's static shared memory."""
+    """The dynamic shared memory (bytes) that a cache's block can take in
+    the kernel's instantiation for ``spec`` × ``cfg`` on CUDA ``device``:
+    the device's opt-in limit per block less the instantiation's static
+    shared memory and its staging slots (the reservoir kind's two
+    ``cp.async`` slots a warp, 32 KiB a block, come first; the kernel's
+    ``stage_bytes``)."""
     device = torch.device(device)
     return _smem_limit(device.index if device.index is not None
                        else torch.cuda.current_device(), KINDS[spec.kind],
@@ -201,7 +214,9 @@ def grid(spec, cfg, device, cache: CacheBlock | None = None) -> Grid:
 
 def _staged_words(spec, cfg, cache) -> int:
     """The words of ``cache``'s block that each launch stages into shared
-    memory: all of them in the shared tier, none in the global tier."""
+    memory, after the kind's staging slots (which the kernel adds to the
+    launch's dynamic shared memory itself): all of them in the shared tier,
+    none in the global tier."""
     if cache is None or cache_tier(spec, cfg, cache) != "shared":
         return 0
     return cache.words.numel()
@@ -380,6 +395,39 @@ def fused_superstep(graph, spec, cfg, depth, state, key, k, block,
     Every state tensor and the block are updated in place, and ``state``
     is returned.
     """
+    return _launch(graph, spec, cfg, depth, state, key, k, block, cache)
+
+
+def trace_schedule(graph, spec, cfg, depth, state, key, k, block,
+                   cache=None, warp: int = 0) -> ScheduleTrace:
+    """:func:`fused_superstep` with the reservoir's schedule trace on: the
+    same launch (counted, ``state`` and ``block`` updated in place, the same
+    bits), in which lane 0 of the grid's warp ``warp`` records each copy
+    start, wait and slot read it issues, in program order, up to
+    :data:`TRACE_CAPACITY` records (a warp that issues more raises, after
+    the launch).  Returns the decoded :class:`ScheduleTrace`, for the DMA
+    pass and for ``schedule.dma_schedule``.  Weighted Node2Vec on CUDA
+    tensors only: the plain version stages nothing."""
+    if spec.kind != "reservoir_n2v":
+        raise ValueError(f"only the reservoir kind stages its reads, not "
+                         f"{spec.kind!r}")
+    device = state.slots.v_curr.device
+    if device.type != "cuda":
+        raise ValueError(f"a schedule trace is the card's: the state is on "
+                         f"{device}")
+    if warp < 0:
+        raise ValueError(f"warp {warp} must be >= 0")
+    words = torch.zeros((TRACE_HEADER + 4 * TRACE_CAPACITY,),
+                        dtype=torch.int32, device=device)
+    words[TRACE_WARP], words[TRACE_CAP] = warp, TRACE_CAPACITY
+    _launch(graph, spec, cfg, depth, state, key, k, block, cache, words)
+    return decode_trace(words.cpu().numpy())
+
+
+def _launch(graph, spec, cfg, depth, state, key, k, block, cache,
+            trace=None):
+    """:func:`fused_superstep`, with an optional trace buffer (int32, on the
+    state's device) for :func:`trace_schedule`."""
     cache = _usable(spec, graph, cache)
     device = _check(graph, spec, cfg, depth, state, key, k, block, cache)
     if device.type == "cpu":
@@ -433,7 +481,7 @@ def fused_superstep(graph, spec, cfg, depth, state, key, k, block,
             spec.rejection_rounds, spec.reservoir_chunk,
             bisect_iters(graph.max_degree), *lay,
             KINDS[spec.kind], int(cfg.record_paths),
-            int(cfg.mode == "static"), g.blocks, g.threads,
+            int(cfg.mode == "static"), g.blocks, g.threads, ptr(trace),
             torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_superstep kernel launch failed: "

@@ -34,8 +34,8 @@ from repro.core import rng as ref_rng
 from repro.core import walk_engine as ref_engine
 from repro.core.samplers import KINDS as REF_KINDS
 from repro_torch import walker
-from repro_torch.analysis import (determinism, residency, rng_collisions,
-                                  run_all, tables)
+from repro_torch.analysis import (Finding, determinism, residency,
+                                  rng_collisions, run_all, tables)
 from repro_torch.analysis.__main__ import main as analysis_main
 from repro_torch.analysis.fixtures import FIXTURES, run_fixture
 from repro_torch.core import clock
@@ -232,6 +232,80 @@ def test_check_program_same_findings_as_reference(kind):
 
 def test_run_all_clean():
     assert run_all() == []
+
+
+def test_run_all_runs_four_passes(monkeypatch):
+    """Each pass's ``check_repo`` reaches ``run_all``'s findings, the dma
+    pass's among them."""
+    from repro_torch.analysis import dma_hazards
+    passes = (rng_collisions, dma_hazards, residency, determinism)
+    for mod in passes:
+        monkeypatch.setattr(mod, "check_repo", lambda mod=mod: [
+            Finding(mod.__name__.rsplit(".", 1)[-1], "site", "msg")])
+    assert [f.pass_name for f in run_all()] == [
+        "rng_collisions", "dma_hazards", "residency", "determinism"]
+
+
+# The hazard class of a dma finding, read from its message.
+_DMA_CLASSES = ("read-before-arrival", "overwrite-while-in-flight",
+                "not in flight there", "never waited", "phantom copy",
+                "non-consecutively", "first_visit set on a revisit")
+
+
+def _dma_classes(findings):
+    return sorted({c for f in findings for c in _DMA_CLASSES
+                   if c in f.message})
+
+
+@pytest.mark.parametrize("name", ["dma-missing-wait",
+                                  "dma-overwrite-in-flight", "dma-undrained",
+                                  "dma-cached-phantom-copy",
+                                  "visit-nonconsecutive", "visit-bad-first"])
+def test_dma_fixture_caught_as_the_reference_catches_it(name):
+    """The port's fixture breaks its own reservoir declaration where the
+    reference breaks its walk-step loop; both trip the same hazard
+    classes of the dma pass."""
+    from repro.analysis import fixtures as ref_fixtures
+    got, want = run_fixture(name), ref_fixtures.run_fixture(name)
+    assert {f.pass_name for f in got} == {f.pass_name for f in want} == {
+        "dma"}
+    assert _dma_classes(got) == _dma_classes(want) != []
+
+
+def test_table_prints_the_schedule_table(capsys):
+    assert analysis_main(["--table"]) == 0
+    out = capsys.readouterr().out
+    assert tables.render_table() in out
+    assert tables.render_schedules() in out
+    rows = tables.render_schedule_table().splitlines()
+    assert rows[0] == "| kernel schedule | buffers | ops | async copies |"
+    assert rows[2:] == [
+        "| `fused_superstep.reservoir_n2v` | `ckcol`, `ckwgt` | 18 | 6 |",
+        "| `fused_superstep.reservoir_n2v.cached` | `cache.col`, "
+        "`cache.wgt` | 6 | 0 |"]
+
+
+def test_check_holds_the_schedule_table_against_the_readme(tmp_path,
+                                                           monkeypatch,
+                                                           capsys):
+    """``--check`` finds the schedule lines in README.md's section on the
+    port, and reports drift where a line is missing there (the salt and
+    stream tables stay checked against docs/architecture.md)."""
+    from repro_torch.analysis import __main__ as cli
+    readme = (pathlib.Path(REPO) / "README.md").read_text()
+    section = cli._port_section(pathlib.Path(REPO) / "README.md")
+    for line in tables.render_schedules().splitlines():
+        assert not line or line in section, line
+    (tmp_path / "docs").mkdir()
+    shutil.copy(pathlib.Path(REPO) / "docs" / "architecture.md",
+                tmp_path / "docs" / "architecture.md")
+    row = tables.render_schedule_table().splitlines()[2]
+    (tmp_path / "README.md").write_text(readme.replace(row, ""))
+    monkeypatch.setattr(cli, "_ROOT", tmp_path)
+    assert analysis_main(["--check"]) == 1
+    assert "port section is missing 1" in capsys.readouterr().out
+    (tmp_path / "README.md").write_text(readme)
+    assert analysis_main(["--check"]) == 0
 
 
 @pytest.mark.parametrize("name", list(FIXTURES))

@@ -1,5 +1,6 @@
 """On-card checks of the CUDA kernels (walk-step, fused superstep, its
-Node2Vec rejection and reservoir branches and its hot-vertex cache tier
+Node2Vec rejection and reservoir branches, the reservoir's staged
+schedule traced against its declaration, and its hot-vertex cache tier
 included) and the ``cuda`` and ``fused`` steps.
 
 Marked ``gpu``: each test skips, with the reason, where CUDA is not
@@ -564,6 +565,105 @@ def test_fused_reservoir_with_every_lane_on_the_hub(cuda_graph, budget):
         assert a.dtype == b.dtype and torch.equal(a, b)
     if budget:
         assert int(got.stats.cache_hits) > 0
+
+
+def _on_the_hub(g, state, width):
+    """Every lane of ``state`` on the max-degree hub, even lanes after a hop
+    from one of its in-neighbors, odd ones at hop 0 (in place)."""
+    deg = g.row_ptr[1:] - g.row_ptr[:-1]
+    hub = int(torch.argmax(deg))
+    src = torch.searchsorted(g.row_ptr, torch.nonzero(g.col == hub)[:, 0],
+                             right=True) - 1
+    vp = int(src[src != hub][0])
+    s = state.slots
+    s.v_curr[:] = hub
+    s.v_prev[:] = torch.where(torch.arange(width, device="cuda") % 2 == 0,
+                              vp, -1).int()
+    s.hop[:] = torch.where(s.v_prev >= 0, 3, 0).int()
+
+
+@pytest.mark.parametrize("chunk,weighted,budget,where", [
+    (64, True, 0, "hub"), (17, True, 0, "hub"), (100, True, 0, "hub"),
+    (64, False, 0, "hub"), (64, True, 1 << 15, "hub"),
+    (64, True, 1 << 15, "drain")])
+def test_traced_reservoir_launch_equals_untraced_and_its_declaration(
+        cuda_graph, chunk, weighted, budget, where):
+    """Weighted Node2Vec (reservoir CH = ``chunk``; unweighted: every edge
+    1.0) at W = 4,096, one superstep from every lane on the hub or from a
+    mid-drain state, launched untraced and traced
+    (``ops.trace_schedule``, warp 0): both equal the plain version in
+    every state tensor.  The trace has no finding from the DMA pass and no
+    copy on a cache buffer; from the hub it equals the declaration op for
+    op (``dma_schedule`` over the warp's staged windows: one an item at CH
+    <= 64, two at CH = 100), cached or not."""
+    import dataclasses
+
+    from repro_torch.analysis.dma_hazards import check_schedule
+    from repro_torch.kernels.fused_superstep.schedule import dma_schedule
+    g = cuda_graph if weighted else dataclasses.replace(cuda_graph,
+                                                        weights=None)
+    prog = PROGRAMS["node2vec_w"]
+    spec = dataclasses.replace(prog.spec, reservoir_chunk=chunk)
+    W = 4096
+    cfg = EngineConfig(num_slots=W, max_hops=20, step_impl="fused",
+                       cache_budget=budget)
+    cache = None
+    if budget:
+        cache = fused_ops.cache_block(maybe_build_cache(spec, cfg, g),
+                                      g.device)
+        assert fused_ops.cache_tier(spec, cfg, cache) == "shared"
+    depth = walk_engine._stage_depth(cfg)
+    starts = torch.from_numpy(np.random.default_rng(chunk).integers(
+        0, g.num_vertices, W + W // 16).astype(np.int32)).cuda()
+    state = walk_engine.init_state(cfg, depth, starts)
+    if where == "hub":
+        _on_the_hub(g, state, W)
+    else:
+        while bool(state.slots.active.all()):
+            state = fused_ref.fused_superstep_ref(g, spec, cfg, depth, state,
+                                                  (3, 4), 1)
+    hot = None if cache is None else cache.hot_ids
+    want = fused_ref.fused_superstep_ref(g, spec, cfg, depth, _clone(state),
+                                         (3, 4), 1, hot)
+    work, block = fused_ops.pack(_clone(state))
+    fused_ops.fused_superstep(g, spec, cfg, depth, work, (3, 4), 1, block,
+                              cache=cache)
+    before = FUSED_LAUNCHES["fused_superstep"]
+    traced, tblock = fused_ops.pack(_clone(state))
+    trace = fused_ops.trace_schedule(g, spec, cfg, depth, traced, (3, 4), 1,
+                                     tblock, cache=cache, warp=0)
+    torch.cuda.synchronize()
+    assert FUSED_LAUNCHES["fused_superstep"] == before + 1
+    for a, b in zip(_tensors(traced), _tensors(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in zip(_tensors(work), _tensors(traced)):
+        assert torch.equal(a, b)
+    assert torch.equal(block, tblock)
+    assert trace.items >= 1 and trace.windows >= trace.items
+    assert check_schedule(trace.ops, "trace") == []
+    assert not [op for op in trace.ops
+                if op.kind == "start" and op.buffer.startswith("cache.")]
+    if where == "hub":
+        assert trace.windows == trace.items * (2 if chunk == 100 else 1)
+        assert trace.ops == dma_schedule("reservoir_n2v",
+                                         chunks=trace.windows,
+                                         cached=bool(budget),
+                                         weighted=weighted)
+
+
+def test_trace_schedule_takes_the_reservoir_on_the_card_only(cuda_graph):
+    """Another kind, or a state on the CPU, is refused: only the reservoir
+    stages its reads, and the plain version stages nothing."""
+    g = cuda_graph
+    cfg = EngineConfig(num_slots=32, max_hops=20, step_impl="fused")
+    depth = walk_engine._stage_depth(cfg)
+    starts = torch.arange(32, dtype=torch.int32)
+    for name, device in (("urw", "cuda"), ("node2vec_w", "cpu")):
+        state, block = fused_ops.pack(walk_engine.init_state(
+            cfg, depth, starts.to(device)))
+        with pytest.raises(ValueError):
+            fused_ops.trace_schedule(g, PROGRAMS[name].spec, cfg, depth,
+                                     state, (3, 4), 1, block)
 
 
 def test_segment_sum_kernel_empty_and_changed_ids(card):

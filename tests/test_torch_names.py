@@ -88,6 +88,7 @@ NAMES = [
     ("analysis.tables", "render_salt_table"),
     ("analysis.tables", "render_stream_table"),
     ("analysis.tables", "render_table"),
+    ("analysis.tables", "render_schedule_table"),
     ("analysis.fixtures", "FIXTURES"), ("analysis.fixtures", "run_fixture"),
 ]
 
@@ -108,9 +109,11 @@ def _kind(x) -> str:
 
 
 # The model zoo (models, configs, data, sampler, loop, launchers, the
-# dry-run tooling): every public name the reference defines in these
-# modules, found by reading the reference, less ``shard_batch``, a JAX
-# sharding, which the port's ``data.pipeline.to_device`` replaces.
+# dry-run tooling) and the DMA-schedule IR with its hazard pass: every
+# public name the reference defines in these modules, found by reading the
+# reference, less the DEFERRED ones: ``shard_batch``, a JAX sharding,
+# which the port's ``data.pipeline.to_device`` replaces, and
+# ``default_interpret``.
 ZOO_MODULES = (
     "models.layers", "models.gnn", "models.gnn.common", "models.gnn.schnet",
     "models.gnn.pna", "models.gnn.meshgraphnet", "models.gnn.mace",
@@ -124,9 +127,13 @@ ZOO_MODULES = (
     "configs.deepseek_7b", "configs.minitron_8b", "configs.stablelm_12b",
     "launch.serve", "optim.grad_compression", "runtime.elastic",
     "distributed.pipeline", "launch.specs", "launch.mesh",
+    "kernels.common", "analysis.dma_hazards",
 )
 DEFERRED = {
     ("data.pipeline", "shard_batch"),
+    # Chooses Pallas interpret mode off a TPU; a CUDA wrapper has no such
+    # mode (a CPU tensor runs the plain version), so it has no counterpart.
+    ("kernels.common", "default_interpret"),
 }
 # Modules of the reference that set ``XLA_FLAGS`` when imported (512 host
 # devices for the dry-run's mesh): their names are read from the source,
