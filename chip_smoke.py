@@ -110,7 +110,13 @@ its seconds.
    5 negatives), overlapped, serial and overlapped again, each run with
    the launch counts zeroed before it and read after (3 embedding-bag
    and 3 segment-sum launches a step): all three equal, no recorded host
-   copy when overlapped (:func:`run_embeddings`); walks/s of the
+   copy when overlapped (:func:`run_embeddings`); each run's wall, its
+   producer's and consumer's walls a round and its waits for the
+   producer (timers the script wraps around the loop), and the share of
+   the producer's time the overlapped runs hid; a device trace of one
+   overlapped round (how many fused launches ran at the same time as an
+   SGNS kernel, and on which streams); each run under a 300 s limit
+   (:func:`phase_limit`); walks/s of the
    producer, SGNS steps/s and each part of a step's wall and device busy
    time; a checkpointed run resumed after step 48 equal to the
    uninterrupted one (WG scale 16); a small run on the card against the
@@ -186,8 +192,9 @@ its seconds.
    x capacity arrivals) and a sharded service point (rho 0.9, 256
    requests of 64 walks), each (epoch, qid) equal to its closed batch;
    ``train_embeddings`` (DeepWalk at phase 4's width, 2 rounds of 8,192
-   walks and 8 steps) equal to the single backend's in ring, tables and
-   moments; and
+   walks and 8 steps), overlapped and serial, equal to the single
+   backend's in ring, tables and moments, with phase 4's walls and
+   hidden share; and
    ``torch.profiler`` over one sharded drain (the device's busy share).
    Each run prints walks/s and MSteps/s beside the single backend's
    (phase 3's torch and fused), supersteps, route waits and the bubble
@@ -2550,6 +2557,149 @@ def reset_all_launches():
         ops.reset_launches()
 
 
+# Each of phase 4's and phase 8's embeddings runs ends within this many
+# seconds, or the script prints every thread's stack and exits 1: a
+# cooperative fused launch that could never become resident beside the
+# SGNS kernels on the consumer's stream would hang there (the whole of
+# phase 4 took 31.8-47.6 s on an H100).
+EMB_LIMIT_S = 300
+# The traced overlapped run: 2 rounds at EMB's width, 4 steps a round (a
+# round's walks take 10-45 ms, a step ~36 ms on an H100), cut in depth
+# for the time limit.
+EMB_TRACE = {**EMB, "rounds": 2, "steps_per_round": 4}
+
+
+@contextlib.contextmanager
+def phase_limit(seconds=EMB_LIMIT_S):
+    """Exit the script (code 1, every thread's stack on stderr) if the
+    block has not ended within ``seconds``."""
+    import faulthandler
+    faulthandler.dump_traceback_later(seconds, exit=True)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+@contextlib.contextmanager
+def pipeline_clock():
+    """Timers the script wraps around ``train_loop.run_pipelined``'s
+    producer and append functions and around the wait for an overlapped
+    round (the package has none).  Yields a dict that the run fills:
+    ``produce`` (each round's wall, on the thread that produced it: a
+    round is whole on the device when its drain returns), ``append``
+    (the host time at which each round's append began), ``wait`` (each
+    wait for an overlapped round) and ``end`` (when the loop returned)."""
+    from repro_torch.runtime import train_loop
+    rec = {"produce": [], "append": [], "wait": [], "end": None}
+    real_run, real_result = train_loop.run_pipelined, \
+        train_loop._InFlight.result
+
+    def run(produce_fn, append_fn, *args, **kw):
+        def produce(r):
+            t = time.perf_counter()
+            walks = produce_fn(r)
+            rec["produce"].append(time.perf_counter() - t)
+            return walks
+
+        def append(ring, walks):
+            rec["append"].append(time.perf_counter())
+            return append_fn(ring, walks)
+        try:
+            return real_run(produce, append, *args, **kw)
+        finally:
+            rec["end"] = time.perf_counter()
+
+    def result(self):
+        t = time.perf_counter()
+        try:
+            return real_result(self)
+        finally:
+            rec["wait"].append(time.perf_counter() - t)
+    train_loop.run_pipelined, train_loop._InFlight.result = run, result
+    try:
+        yield rec
+    finally:
+        train_loop.run_pipelined = real_run
+        train_loop._InFlight.result = real_result
+
+
+def pipeline_walls(rec, overlapped: bool) -> dict:
+    """Per-round walls of a :func:`pipeline_clock` record, in ms: the
+    producer's; the caller's waits for a round (an overlapped run's
+    measured waits; a serial run's producer, which runs in the caller's
+    thread); the consumer's (from a round's append to the next one's, less
+    the wait for the next round; the last to the loop's end)."""
+    produce = [t * 1e3 for t in rec["produce"]]
+    wait = [t * 1e3 for t in (rec["wait"] if overlapped else rec["produce"])]
+    marks = rec["append"] + [rec["end"]]
+    consumer = [(b - a) * 1e3 - (wait[i + 1] if i + 1 < len(wait) else 0.0)
+                for i, (a, b) in enumerate(zip(marks, marks[1:]))]
+    return {"produce": produce, "wait": wait, "consumer": consumer}
+
+
+def fmt_ms(xs) -> str:
+    return "[" + ", ".join(f"{x:.3f}" for x in xs) + "]"
+
+
+def print_overlap(tag, walls, labels, serial, card) -> None:
+    """Each run's walls a round, then the share of the producer's time that
+    each overlapped run hid: ``(serial wall - overlapped wall) / summed
+    producer wall`` (the serial run's producer, which nothing contends
+    with; the serial wall also holds the baseline's host round-trips), and
+    the share the consumer did not wait for (``1 - waits / producer``,
+    over the rounds after the first, which nothing can hide)."""
+    for label in labels:
+        wall, pw = walls[label]
+        print(f"{tag} {label}: wall {wall:.4f} s; producer wall a round (ms) "
+              f"{fmt_ms(pw['produce'])}; consumer wall a round (ms) "
+              f"{fmt_ms(pw['consumer'])}; waits for the producer (ms) "
+              f"{fmt_ms(pw['wait'])} | {card}")
+    s_wall, s_pw = walls[serial]
+    summed = sum(s_pw["produce"])
+    for label in labels:
+        wall, pw = walls[label]
+        if label == serial:
+            continue
+        later = sum(pw["produce"][1:])
+        waited = sum(pw["wait"][1:])
+        unwaited = (f"{1 - waited / later:.4f}" if later > 0
+                    else "not measured (one round)")
+        print(f"{tag} {label} vs {serial}: hidden share (serial wall - "
+              f"overlapped wall) / summed producer wall = ({s_wall:.4f} - "
+              f"{wall:.4f}) / {summed / 1e3:.4f} = "
+              f"{(s_wall - wall) / (summed / 1e3):.4f}; producer time after "
+              f"round 0 not waited for: {unwaited} ({waited:.3f} of "
+              f"{later:.3f} ms waited) | {card}")
+
+
+def overlap_trace(prof) -> dict:
+    """Device activities of a :func:`device_trace` of an overlapped run:
+    how many fused launches intersect an embedding-bag or segment-sum
+    interval, and how many intersect any activity on a stream the fused
+    launches did not run on (the sampler's kernels and copies
+    included), out of all fused launches; and the streams each ran on
+    (kineto's resource id of the activity)."""
+    from torch.autograd import DeviceType
+    acts = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns(),
+             e.device_resource_id())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0]
+    fused = [a for a in acts if "fused_superstep" in a[0]]
+    sgns = [a for a in acts if "embedding_bag" in a[0]
+            or (a[0].startswith("segment_") and "_kernel" in a[0])]
+    fused_streams = {a[3] for a in fused}
+    other = [a for a in acts if a[3] not in fused_streams]
+
+    def hits(among):
+        return sum(any(c < b and a < d for _, c, d, _ in among)
+                   for _, a, b, _ in fused)
+    return {"fused": len(fused), "sgns": len(sgns), "overlapping": hits(sgns),
+            "other": len(other), "overlapping_other": hits(other),
+            "fused_streams": sorted(fused_streams),
+            "sgns_streams": sorted({a[3] for a in sgns})}
+
+
 def run_embeddings(g) -> dict:
     """Phase 4: ``Walker.train_embeddings`` at full width (EMB) on the main
     path's graph, overlapped, serial and overlapped again, each run with
@@ -2559,6 +2709,8 @@ def run_embeddings(g) -> dict:
     when overlapped, one per round and per step when serial; the three
     runs' tables, moments and rings equal; the ring holding the walks of
     the last two rounds, as ``Walker.run`` gives them; the losses finite.
+    Each run's walls (:func:`pipeline_clock`, :func:`print_overlap`), and
+    a trace of one overlapped round (:func:`trace_embeddings_overlap`).
     Then the producer's walks/s, SGNS steps/s and the per-step device time
     of the sampler, forward + backward and AdamW.  Returns the launches
     summed over the three runs."""
@@ -2567,25 +2719,29 @@ def run_embeddings(g) -> dict:
     from repro_torch.core import corpus_ring
     from repro_torch.core.rng import stream_key
     w = embedding_walker()
+    card = card_line().replace("\n", "; ")
     steps = EMB["rounds"] * EMB["steps_per_round"]
     want_launched = {k: 0 for k in embedding_launches()}
     want_launched.update(embedding_bag=3 * steps, segment_sum=3 * steps)
     totals = {k: 0 for k in want_launched}
-    outs = []
-    for label in ("overlap", "serial", "overlap"):
+    outs, walls = [], {}
+    for label in ("overlap", "serial", "overlap again"):
         reset_all_launches()
         copies = corpus_ring.host_copies()
         torch.cuda.synchronize()
+        overlap = label != "serial"
         t0 = time.perf_counter()
-        if label == "overlap":
-            with corpus_ring.no_host_copies():
-                out = w.train_embeddings(g, **EMB,
+        with phase_limit(), pipeline_clock() as rec:
+            if overlap:
+                with corpus_ring.no_host_copies():
+                    out = w.train_embeddings(
+                        g, **EMB, log_every=EMB["steps_per_round"])
+            else:
+                out = w.train_embeddings(g, **EMB, overlap=False,
                                          log_every=EMB["steps_per_round"])
-        else:
-            out = w.train_embeddings(g, **EMB, overlap=False,
-                                     log_every=EMB["steps_per_round"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        walls[label] = wall, pipeline_walls(rec, overlap)
         launched = embedding_launches()
         copies = corpus_ring.host_copies() - copies
         fused = launched["fused_superstep"]
@@ -2593,7 +2749,7 @@ def run_embeddings(g) -> dict:
             raise AssertionError(f"embeddings {label}: kernel launches "
                                  f"{launched}, expected {want_launched} and "
                                  "fused launches")
-        if copies != (0 if label == "overlap" else EMB["rounds"] + steps):
+        if copies != (0 if overlap else EMB["rounds"] + steps):
             raise AssertionError(f"embeddings {label}: {copies} host copies")
         for k in totals:
             totals[k] += launched[k]
@@ -2608,6 +2764,7 @@ def run_embeddings(g) -> dict:
               f"{[round(x, 6) for x in losses]}; host copies {copies}; "
               f"kernel launches {launched}")
         outs.append(out)
+    print_overlap("embeddings", walls, list(walls), "serial", card)
     first = outs[0]
     for label, out in zip(("serial", "overlap again"), outs[1:]):
         same = (all(torch.equal(first["params"][k], out["params"][k])
@@ -2640,11 +2797,48 @@ def run_embeddings(g) -> dict:
           f"{EMB['rounds'] - 2} and {EMB['rounds'] - 1} as Walker.run "
           "gives them; tables finite")
     del outs
+    with timed("embeddings overlap trace"), phase_limit():
+        trace_embeddings_overlap(g, w, card)
     with timed("embeddings measure"):
         measure_embeddings(g, w, first)
     with timed("embeddings step vs CPU"):
         check_embeddings_step(g, first)
     return totals
+
+
+def trace_embeddings_overlap(g, w, card) -> None:
+    """A device trace of one overlapped round: ``train_embeddings`` at
+    EMB_TRACE (round 1's walks produced while round 0's steps are
+    issued).  Prints how many fused launches ran at the same time as an
+    embedding-bag or segment-sum kernel, or as any activity on another
+    stream, and on which streams each ran; the run's tables and ring
+    equal an untraced run of the same rounds."""
+    import torch
+    kw = EMB_TRACE
+    want = w.train_embeddings(g, **kw)
+    torch.cuda.synchronize()
+    with device_trace() as prof:
+        got = w.train_embeddings(g, **kw)
+        torch.cuda.synchronize()
+    if not (all(torch.equal(got["params"][k], want["params"][k])
+                for k in want["params"])
+            and all(torch.equal(a, b) for a, b in zip(got["ring"],
+                                                      want["ring"]))):
+        raise AssertionError("embeddings: the traced overlapped run differs")
+    t = overlap_trace(prof)
+    if t["fused"] == 0:
+        print(f"embeddings overlap trace: not measured (the profiler "
+              f"recorded no fused launch) | {card}")
+        return
+    print(f"embeddings overlap trace (2 rounds of {kw['walks_per_round']} "
+          f"walks, {kw['steps_per_round']} steps a round): "
+          f"{t['overlapping']} of {t['fused']} fused launches intersect an "
+          f"embedding-bag or segment-sum interval ({t['sgns']} of those), "
+          f"{t['overlapping_other']} intersect a device activity on another "
+          f"stream ({t['other']} of those: the step's sampler, gathers, "
+          f"AdamW and copies); fused on streams {t['fused_streams']}, "
+          f"embedding-bag and segment-sum on streams {t['sgns_streams']} | "
+          f"{card}")
 
 
 def part_times(fn, reps=EMB_SPLIT_STEPS):
@@ -3469,7 +3663,8 @@ def sharded_embeddings(g, card, add, devices=None, one=None) -> None:
     """``train_embeddings`` at phase 4's width (DeepWalk, dim 128, batch
     4,096, 8,192 walks a round, so the 4 x 1,024 pool fills; 2 rounds of
     8 steps) on the single backend (fused), the sharded backend (its
-    producer a sharded stream) and the sharded backend in 2 groups (on
+    producer a sharded stream) overlapped and serial, with their walls
+    (:func:`print_overlap`), and the sharded backend in 2 groups (on
     ``devices``, by default both on cuda:0; the one-group run on the mesh
     ``one``, if given): rings, tables and moments equal (the 2-group
     ones whole on its first device); the sharded runs launch 3
@@ -3477,32 +3672,41 @@ def sharded_embeddings(g, card, add, devices=None, one=None) -> None:
     import torch
     prog = programs()["deepwalk"]
     steps = SHARD_EMB["rounds"] * SHARD_EMB["steps_per_round"]
-    outs = {}
+    outs, walls = {}, {}
     devices = devices or on_card0(2)
     two = f"sharded G=2 on {' and '.join(str(d) for d in devices)}"
+    serial = "sharded serial"
     for label, w in (("single", fused_walker(prog)),
                      ("sharded", sharded_walker(prog, mesh=one)),
+                     (serial, sharded_walker(prog, mesh=one)),
                      (two, sharded_walker(prog, mesh=group_mesh(devices)))):
         reset_all_launches()
         torch.cuda.synchronize()
+        overlap = label != serial
         t0 = time.perf_counter()
-        outs[label] = w.train_embeddings(g, **SHARD_EMB)
+        with phase_limit(), pipeline_clock() as rec:
+            outs[label] = w.train_embeddings(g, **SHARD_EMB, overlap=overlap)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        walls[label] = wall, pipeline_walls(rec, overlap)
         launched = embedding_launches()
         add(launched)
         check_embedding_launches(label, launched, steps)
         walks = SHARD_EMB["rounds"] * SHARD_EMB["walks_per_round"]
         print(f"sharded embeddings {label}: {walks} walks and {steps} steps "
               f"in {wall:.3f} s; kernel launches {launched} | {card}")
-    a, b = outs["single"], outs["sharded"]
-    if not (all(torch.equal(x, y) for x, y in zip(a["ring"], b["ring"]))
-            and all(torch.equal(a["params"][k], b["params"][k])
-                    and torch.equal(a["opt_state"].nu[k],
-                                    b["opt_state"].nu[k])
-                    for k in a["params"])):
-        raise AssertionError("sharded embeddings differ from the single "
-                             "backend's")
+    print_overlap("sharded embeddings", walls, ["sharded", serial], serial,
+                  card)
+    b = outs["sharded"]
+    for label in ("single", serial):
+        a = outs[label]
+        if not (all(torch.equal(x, y) for x, y in zip(a["ring"], b["ring"]))
+                and all(torch.equal(a["params"][k], b["params"][k])
+                        and torch.equal(a["opt_state"].nu[k],
+                                        b["opt_state"].nu[k])
+                        for k in a["params"])):
+            raise AssertionError(f"sharded embeddings differ from the "
+                                 f"{label} run's")
     c = outs[two]
 
     def tree(out, t):
@@ -3517,7 +3721,8 @@ def sharded_embeddings(g, card, add, devices=None, one=None) -> None:
         raise AssertionError("sharded embeddings in 2 groups differ from "
                              "one group's")
     print("sharded embeddings: ring, tables and moments == the single "
-          f"backend's; in 2 groups (whole on {devices[0]}) == one group's")
+          f"backend's == the serial run's; in 2 groups (whole on "
+          f"{devices[0]}) == one group's")
 
 
 def check_embedding_launches(label, launched, steps) -> None:

@@ -544,7 +544,9 @@ def build_engine(spec: SamplerSpec, cfg: EngineConfig, cache=None):
         state, supersteps, sync_s = runner(graph, state, key,
                                            cfg.max_supersteps, block)
         if supersteps == cfg.max_supersteps and device.type == "cuda":
-            torch.cuda.synchronize(device)   # may have ended without a read
+            # May have ended without a read: wait for this drain's own
+            # stream, not the whole card.
+            torch.cuda.current_stream(device).synchronize()
         result = WalkResult(paths=state.paths, lengths=state.lengths,
                             stats=state.stats)
         return result, Drain(clock.now() - t0, sync_s)

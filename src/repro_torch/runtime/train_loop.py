@@ -12,7 +12,11 @@ of the walks→embeddings pipeline.
   also written as JSON lines to ``metrics_path``.
 
 Waiting for the device (``block_until_ready`` in the reference) is a
-synchronize of the state's device, a no-op on the CPU.  Checkpoints are
+synchronize of the caller's current stream on the state's device, a no-op
+on the CPU.  :func:`run_pipelined` with ``overlap`` runs the walk producer
+on a worker thread of its own, under a CUDA stream of its own on each card
+it touches (:class:`ProducerStreams`), while the caller's thread issues
+the grad steps.  Checkpoints are
 written synchronously: the reference's ``async_checkpoint`` writes on a
 thread, but the port's AdamW updates the state in place, so a thread
 would read tensors the next step is changing.  The knob is kept and
@@ -20,13 +24,15 @@ ignored.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
 import signal
 import tempfile
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -51,12 +57,13 @@ class StragglerWatchdog:
 
 
 def block_until_ready(tree) -> None:
-    """Wait for the device of ``tree``'s first tensor leaf (none on the
-    CPU)."""
+    """Wait for the work issued so far on the caller's current stream on
+    the device of ``tree``'s first tensor leaf (nothing on the CPU).  Work
+    on other streams, such as an overlapped producer's, runs on."""
     for _, leaf in checkpointer.flatten_with_paths(tree):
         if isinstance(leaf, torch.Tensor):
             if leaf.device.type == "cuda":
-                torch.cuda.synchronize(leaf.device)
+                torch.cuda.current_stream(leaf.device).synchronize()
             return
 
 
@@ -132,8 +139,9 @@ class PipelineConfig:
     """Knobs for the producer/consumer loop (`run_pipelined`).
 
     ``rounds`` walk-production rounds × ``steps_per_round`` grad steps.
-    ``overlap=True`` issues round ``r+1``'s walk production *before* round
-    ``r``'s grad steps, and touches the host only at the round fence;
+    ``overlap=True`` hands round ``r+1``'s walk production to the
+    producer's thread *before* round ``r``'s grad steps are issued, so the
+    two run at once, and touches the host only at the round fence;
     ``overlap=False`` is the serial baseline: block on the walks,
     round-trip them through the host, then train.
     """
@@ -147,29 +155,156 @@ class PipelineConfig:
     straggler_factor: float = 3.0
 
 
+# The producer's stream a card, made at first use and kept: the caching
+# allocator keeps a pool of blocks a stream, so a stream made anew for
+# every run would start each run with an empty pool.
+_PRODUCER_STREAMS: dict = {}
+
+
+class ProducerStreams:
+    """The walk producer's own CUDA stream on each card in ``devices``
+    (none on the CPU); the first device is the ring's, where the consumer
+    takes each round.
+
+    The producer's thread issues a round inside :meth:`scope`, which makes
+    these streams its current ones, so its launches and its allocations
+    lie on them.  A stream that cannot be made raises: nothing falls back
+    to the consumer's stream."""
+
+    def __init__(self, devices: Sequence = ()):
+        cards = []
+        for d in map(torch.device, devices):
+            if d.type == "cuda":
+                if d.index is None:
+                    d = torch.device("cuda", torch.cuda.current_device())
+                if d not in cards:
+                    cards.append(d)
+        self.devices = tuple(cards)
+        for d in cards:
+            if d not in _PRODUCER_STREAMS:
+                _PRODUCER_STREAMS[d] = torch.cuda.Stream(d)
+        self.streams = tuple(_PRODUCER_STREAMS[d] for d in cards)
+
+    @contextlib.contextmanager
+    def scope(self):
+        """These streams as the calling thread's current ones."""
+        with contextlib.ExitStack() as stack:
+            for s in self.streams:
+                stack.enter_context(torch.cuda.stream(s))
+            yield
+
+    def issued(self) -> list:
+        """An event a card on the caller's current stream: the work that
+        the caller has issued so far, which the producer waits for."""
+        return [torch.cuda.current_stream(d).record_event()
+                for d in self.devices]
+
+    def wait(self, events) -> None:
+        for s, e in zip(self.streams, events):
+            s.wait_event(e)
+
+    def done(self):
+        """The event that ends a round on the ring's card (None on the
+        CPU)."""
+        return self.streams[0].record_event() if self.streams else None
+
+    def hand_over(self, walks, done) -> None:
+        """Order the caller's stream on the ring's card after the round
+        (``done``), and keep the round's tensors from going back to the
+        producer's stream's pool before the caller's stream has read
+        them."""
+        if done is None:
+            return
+        consumer = torch.cuda.current_stream(self.devices[0])
+        consumer.wait_event(done)
+        for t in walks:
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(consumer)
+
+
+class _Issued:
+    """A round produced in the caller's thread (the serial baseline)."""
+
+    def __init__(self, walks):
+        self._walks = walks
+
+    def result(self):
+        return self._walks
+
+
+class _InFlight:
+    """A round on the producer's thread.  :meth:`result` waits for it,
+    re-raises the producer's exception, and hands the walks over to the
+    caller's stream (:meth:`ProducerStreams.hand_over`)."""
+
+    def __init__(self, future, streams: ProducerStreams):
+        self._future = future
+        self._streams = streams
+
+    def result(self):
+        walks, done = self._future.result()
+        self._streams.hand_over(walks, done)
+        return walks
+
+
+class _Producer:
+    """``produce_fn`` on one worker thread of its own, one round at a time,
+    under ``streams`` (:class:`ProducerStreams`).  Each round first waits,
+    on the producer's streams, for the work the caller had issued when it
+    asked for the round; it ends with the event the caller's stream waits
+    on.  :meth:`close` joins the thread."""
+
+    def __init__(self, produce_fn: Callable, streams: ProducerStreams):
+        self._fn = produce_fn
+        self._streams = streams
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="walk-producer")
+
+    def submit(self, rnd: int) -> _InFlight:
+        issued = self._streams.issued()
+        return _InFlight(self._pool.submit(self._round, rnd, issued),
+                         self._streams)
+
+    def _round(self, rnd: int, issued):
+        with self._streams.scope():
+            self._streams.wait(issued)
+            walks = self._fn(rnd)
+            return walks, self._streams.done()
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True)
+
+
 def run_pipelined(produce_fn: Callable, append_fn: Callable,
                   sample_fn: Callable, step_fn: Callable,
                   state: Any, ring: Any, cfg: PipelineConfig,
                   start_step: int = 0, rounds_done: int = 0,
-                  batch_hook: Optional[Callable] = None):
+                  batch_hook: Optional[Callable] = None,
+                  streams: Optional[ProducerStreams] = None):
     """Producer/consumer training loop.
 
-    * ``produce_fn(round) -> walks`` — run one walk round (device tensors;
-      a pure function of the round index, so a resumed run regenerates
-      exactly the rounds it needs).
+    * ``produce_fn(round) -> walks`` — run one walk round, a tuple of
+      tensors (a pure function of the round index, so a resumed run
+      regenerates exactly the rounds it needs).
     * ``append_fn(ring, walks) -> ring`` — land the walks in the corpus
       ring (device to device when overlapped; the serial baseline's
       append is where the host round-trip lives).
     * ``sample_fn(ring, step) -> batch`` — the corpus consumer.
     * ``step_fn(state, batch) -> (state, aux)`` — the grad step.
 
-    With ``cfg.overlap`` the loop issues round ``r+1``'s production right
-    after appending round ``r``, before any of round ``r``'s grad steps,
-    the reference's order of issue.  Steps are checkpointed
-    (``{"state", "ring"}``) every ``ckpt_every`` steps; resume via
-    :func:`resume_pipeline`, passing ``rounds_done`` so rounds already in
-    the ring are not appended again.  Returns ``(state, ring, step,
-    history, watchdog)``.
+    With ``cfg.overlap`` every round is produced on one worker thread of
+    the loop's own, under ``streams`` (:class:`ProducerStreams`; none, as
+    on the CPU, runs the same thread without streams).  The loop asks for
+    round ``r+1`` right after appending round ``r`` and then issues round
+    ``r``'s grad steps while ``r+1``'s walks are produced, the
+    reference's order of issue; at most one round is in flight.  It takes
+    a round (waits for it, re-raises the producer's exception, orders its
+    stream after the round's event) only to append it, and fences its own
+    stream at each round's end.  The thread is joined on every way out.
+    Steps are checkpointed (``{"state", "ring"}``) every ``ckpt_every``
+    steps; resume via :func:`resume_pipeline`, passing ``rounds_done`` so
+    rounds already in the ring are not appended again.  Returns
+    ``(state, ring, step, history, watchdog)``.
     """
     if cfg.rounds <= 0 or cfg.steps_per_round <= 0:
         raise ValueError(
@@ -179,50 +314,62 @@ def run_pipelined(produce_fn: Callable, append_fn: Callable,
     spr = cfg.steps_per_round
     watchdog = StragglerWatchdog(cfg.straggler_factor)
     history = []
+    producer = (_Producer(produce_fn, streams or ProducerStreams())
+                if cfg.overlap else None)
+
+    def issue(rnd: int):
+        if producer is None:
+            return _Issued(produce_fn(rnd))
+        return producer.submit(rnd)
+
     pending = None
     pending_round = -1
     step = start_step
-    while step < total:
-        r = step // spr
-        # Ingest every round up to and including r (a fresh run appends
-        # exactly round r here; a resumed run may need to catch up).
-        while rounds_done <= r:
-            if pending_round != rounds_done:
-                pending = produce_fn(rounds_done)
-                pending_round = rounds_done
-            ring = append_fn(ring, pending)
-            pending = None
-            rounds_done += 1
-        # Overlap: round r+1's walks are issued ahead of round r's grad
-        # steps (the producer side of the pipeline).
-        nxt = rounds_done
-        if cfg.overlap and nxt == r + 1 and nxt < cfg.rounds:
-            pending = produce_fn(nxt)
-            pending_round = nxt
-        end = min(total, (r + 1) * spr)
-        while step < end:
-            t0 = time.perf_counter()
-            batch = sample_fn(ring, step)
-            if batch_hook is not None:
-                batch_hook(step, batch)
-            state, aux = step_fn(state, batch)
-            step += 1
-            if cfg.log_every and step % cfg.log_every == 0:
+    try:
+        while step < total:
+            r = step // spr
+            # Ingest every round up to and including r (a fresh run appends
+            # exactly round r here; a resumed run may need to catch up).
+            while rounds_done <= r:
+                if pending_round != rounds_done:
+                    pending = issue(rounds_done)
+                    pending_round = rounds_done
+                ring = append_fn(ring, pending.result())
+                pending = None
+                rounds_done += 1
+            # Overlap: round r+1's walks are produced while round r's grad
+            # steps are issued (the producer side of the pipeline).
+            nxt = rounds_done
+            if cfg.overlap and nxt == r + 1 and nxt < cfg.rounds:
+                pending = issue(nxt)
+                pending_round = nxt
+            end = min(total, (r + 1) * spr)
+            while step < end:
+                t0 = time.perf_counter()
+                batch = sample_fn(ring, step)
+                if batch_hook is not None:
+                    batch_hook(step, batch)
+                state, aux = step_fn(state, batch)
+                step += 1
+                if cfg.log_every and step % cfg.log_every == 0:
+                    block_until_ready(state)
+                    dt = time.perf_counter() - t0
+                    history.append({"step": step, "dt_s": dt,
+                                    "straggler": watchdog.observe(dt),
+                                    **{k: float(v)
+                                       for k, v in (aux or {}).items()}})
+                if (cfg.ckpt_dir and cfg.ckpt_every
+                        and step % cfg.ckpt_every == 0 and step < total):
+                    checkpointer.save(cfg.ckpt_dir, step,
+                                      {"state": state, "ring": ring})
+            if cfg.overlap:
+                # Bounded pipeline: fence on the consumer's stream at the
+                # round boundary, so the queue of issued work cannot grow
+                # without bound; round r+1's walks run on behind it.
                 block_until_ready(state)
-                dt = time.perf_counter() - t0
-                history.append({"step": step, "dt_s": dt,
-                                "straggler": watchdog.observe(dt),
-                                **{k: float(v)
-                                   for k, v in (aux or {}).items()}})
-            if (cfg.ckpt_dir and cfg.ckpt_every
-                    and step % cfg.ckpt_every == 0 and step < total):
-                checkpointer.save(cfg.ckpt_dir, step,
-                                  {"state": state, "ring": ring})
-        if cfg.overlap:
-            # Bounded pipeline: fence on the consumer state at the round
-            # boundary, so the queue of issued work cannot grow without
-            # bound.
-            block_until_ready(state)
+    finally:
+        if producer is not None:
+            producer.close()
     if cfg.ckpt_dir:
         checkpointer.save(cfg.ckpt_dir, step, {"state": state, "ring": ring})
     return state, ring, step, history, watchdog

@@ -356,14 +356,22 @@ class Walker:
         has no sharding rule) does; the run is bit-equal to the one-group
         run.
 
-        ``overlap=True`` issues round ``r+1``'s walks before round ``r``'s
-        grad steps, the reference's order; here that order runs nothing
-        concurrently, since the engine's drain reads its progress on the
-        host after every launch, so round ``r+1``'s walks are done before
-        round ``r``'s first step is issued.  ``overlap=False`` is the
-        serial baseline (a host round-trip of every round's paths and
-        every batch, and a wait after every step), bit-identical in
-        result.
+        ``overlap=True`` produces round ``r+1``'s walks while round
+        ``r``'s grad steps are issued, as the reference's order of issue
+        does: every round is produced (the single backend's drain; the
+        sharded stream's inject, drain, harvest and release) on one worker
+        thread of its own, and nothing else touches the producer until
+        the round is handed over; on a card the thread issues on a CUDA
+        stream of its own on each card the producer touches
+        (`train_loop.ProducerStreams`).  The consumer's
+        stream on the ring's card waits on each round's event before it
+        appends the round, and fences only itself at a round's end; on
+        the CPU the same thread runs without streams.  A producer's
+        exception reaches the caller, and the thread is joined before
+        this returns.  ``overlap=False`` is the serial baseline (the
+        walks produced in the caller's thread, a host round-trip of every
+        round's paths and every batch, and a wait after every step),
+        bit-identical in result.
 
         Round ``r``'s corpus is the closed batch of starts ``(r ·
         walks_per_round + i) % |V|`` under ``rng.stream_key(seed, r)``, a
@@ -394,6 +402,7 @@ class Walker:
         stream = None
         if self.backend == "single":
             device = graph.device
+            streams = train_loop.ProducerStreams([device] if overlap else ())
             self.program.requires(graph)
             program, execution = self._bind(graph, walks_per_round)
             engine = self._single_engine(graph, program, dataclasses.replace(
@@ -408,8 +417,16 @@ class Walker:
         else:
             # The stream's epoch r is round r: its walks are the closed
             # batch under stream_key(seed, r), as on the single backend.
-            stream = self.stream(graph, capacity=walks_per_round, seed=seed)
-            device = stream.graph.devices[0]
+            # Overlapped, its state is made on the producer's streams, which
+            # alone use it from then on.
+            self._requires_sharded(graph)
+            pg = self._partition(graph)
+            device = pg.devices[0]
+            streams = train_loop.ProducerStreams(pg.devices if overlap
+                                                 else ())
+            with streams.scope():
+                stream = self.stream(pg, capacity=walks_per_round,
+                                     seed=seed)
 
             def produce(r: int):
                 starts = (r * walks_per_round
@@ -491,7 +508,7 @@ class Walker:
         state, ring, step, history, _ = train_loop.run_pipelined(
             produce, append, sample, step_fn, state, ring, pcfg,
             start_step=start_step, rounds_done=rounds_done,
-            batch_hook=batch_hook)
+            batch_hook=batch_hook, streams=streams)
         params, opt_state = state
         return {"params": params, "opt_state": opt_state, "ring": ring,
                 "step": step, "history": history, "config": sg_cfg}

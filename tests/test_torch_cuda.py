@@ -493,6 +493,42 @@ def test_train_embeddings_on_the_card(card):
         assert torch.equal(ser["params"][k], outs["cuda"]["params"][k])
 
 
+def test_overlapped_training_runs_its_producer_on_its_own_stream(
+        card, monkeypatch):
+    """Overlapped, the fused launches run on the producer's thread under a
+    stream other than the consumer's, and the run equals the serial one
+    (whose launches run on the consumer's stream) bit for bit in tables,
+    moments and ring."""
+    import threading
+    launches = []
+    real = fused_ops.fused_superstep
+
+    def spy(graph, *args, **kw):
+        launches.append((threading.get_ident(),
+                         torch.cuda.current_stream(graph.device)))
+        return real(graph, *args, **kw)
+    monkeypatch.setattr(fused_ops, "fused_superstep", spy)
+    g = make_dataset("WG", weighted=True, with_alias=True,
+                     scale_override=10)
+    w = compile(WalkProgram.deepwalk(10), execution=ExecutionConfig(
+        step_impl="fused", num_slots=64))
+    kw = dict(seed=3, rounds=3, walks_per_round=256, steps_per_round=8,
+              batch_size=64, dim=16, window=3, num_negatives=4)
+    consumer = torch.cuda.current_stream(g.device)
+    over = w.train_embeddings(g, **kw)
+    overlapped, launches[:] = list(launches), []
+    ser = w.train_embeddings(g, **kw, overlap=False)
+    me = threading.get_ident()
+    assert overlapped and all(t != me and s != consumer
+                              for t, s in overlapped)
+    assert launches and all(t == me and s == consumer for t, s in launches)
+    for k in ("in_embed", "out_embed"):
+        assert torch.equal(over["params"][k], ser["params"][k])
+        assert torch.equal(over["opt_state"].mu[k], ser["opt_state"].mu[k])
+        assert torch.equal(over["opt_state"].nu[k], ser["opt_state"].nu[k])
+    assert all(torch.equal(a, b) for a, b in zip(over["ring"], ser["ring"]))
+
+
 # ------------------------------------------- the grid of the fused kernel
 
 @pytest.mark.parametrize("name", sorted(PROGRAMS))

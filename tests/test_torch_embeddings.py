@@ -21,6 +21,7 @@ import fractions
 import functools
 import glob
 import shutil
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +46,7 @@ from repro_torch.kernels.embedding_bag.ref import fma
 from repro_torch.kernels.segment_sum import SegmentSumOp, segment_sum
 from repro_torch.models import embeddings as emb
 from repro_torch.optim import adamw
+from repro_torch.runtime import train_loop
 
 H = 10  # hop budget of the pipeline tests
 TABLE_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -628,6 +630,138 @@ def test_checkpoint_resume_is_bit_identical(graphs, urw, tmp_path):
     assert_ring_equal(res["ring"], ref["ring"])
     assert [h["step"] for h in ref["history"]] == [4, 8, 12, 16]
     assert all(np.isfinite(h["loss"]) for h in ref["history"])
+
+
+# ------------------------------------------------ the overlapped pipeline
+
+OVERLAP_TIMEOUT_S = 60   # a serial order of issue deadlocks into this
+
+
+def _fake_pipeline(rounds=3, spr=4, produce=None, step=None):
+    """``run_pipelined`` over fakes: a round's walks are ``(round,)``, the
+    ring is the list of rounds appended and the state counts steps."""
+    def append(ring, walks):
+        return ring + [walks[0]]
+
+    def sample(ring, s):
+        return (s, tuple(ring))
+
+    def step_fn(state, batch):
+        return state + 1, {}
+    cfg = train_loop.PipelineConfig(rounds=rounds, steps_per_round=spr)
+    return train_loop.run_pipelined(produce or (lambda r: (r,)), append,
+                                    sample, step or step_fn, 0, [], cfg)
+
+
+def test_run_pipelined_produces_while_the_steps_are_issued():
+    """Round 1's producer waits for round 0's first grad step: only an
+    order that issues round 0's steps while round 1 is produced, off the
+    caller's thread, gets past it."""
+    stepped = threading.Event()
+    threads, batches = {}, []
+
+    def produce(r):
+        threads[r] = threading.get_ident()
+        if r == 1 and not stepped.wait(OVERLAP_TIMEOUT_S):
+            raise TimeoutError("round 0's first step was never issued "
+                               "while round 1 was produced")
+        return (r,)
+
+    def step(state, batch):
+        batches.append(batch)
+        stepped.set()
+        return state + 1, {}
+    before = threading.active_count()
+    state, ring, n, _, _ = _fake_pipeline(produce=produce, step=step)
+    assert (state, ring, n) == (12, [0, 1, 2], 12)
+    assert set(threads) == {0, 1, 2}
+    assert threading.get_ident() not in threads.values()
+    # Step s of round r sees rounds 0..r, and no later one.
+    assert batches == [(s, tuple(range(s // 4 + 1))) for s in range(12)]
+    assert threading.active_count() == before
+
+
+class _Boom(Exception):
+    pass
+
+
+@pytest.mark.parametrize("where", ["producer", "step"])
+def test_run_pipelined_raises_and_joins_its_thread(where):
+    """An exception in the producer reaches the caller when its round is
+    taken; one in a step while a round is in flight ends the loop too.
+    Either way the producer's thread is joined."""
+    def produce(r):
+        if where == "producer" and r == 1:
+            raise _Boom("producer")
+        return (r,)
+
+    def step(state, batch):
+        if where == "step" and batch[0] == 2:
+            raise _Boom("step")
+        return state + 1, {}
+    before = threading.active_count()
+    with pytest.raises(_Boom, match=where):
+        _fake_pipeline(produce=produce, step=step)
+    assert threading.active_count() == before
+
+
+def test_overlapped_serial_and_resumed_runs_are_bit_identical(graphs,
+                                                              tmp_path):
+    """DeepWalk on the fused engine over 3 rounds: the overlapped run, the
+    serial one and one resumed from a checkpoint taken inside round 1
+    (round 2 in flight, so the checkpoint's ring holds rounds 0 and 1)
+    agree bit for bit in tables, moments and ring."""
+    w = walker.compile(walker.WalkProgram.deepwalk(H), execution=(
+        walker.ExecutionConfig(step_impl="fused", num_slots=16)))
+    kw = _train_kw(rounds=3)
+    before = threading.active_count()
+    over = w.train_embeddings(graphs[1], **kw)
+    ser = w.train_embeddings(graphs[1], **kw, overlap=False)
+    ckpt = str(tmp_path / "ckpt")
+    w.train_embeddings(graphs[1], **kw, ckpt_dir=ckpt, ckpt_every=4)
+    for p in glob.glob(ckpt + "/step_*"):
+        if int(p.rsplit("_", 1)[1]) > 12:
+            shutil.rmtree(p)
+    assert checkpointer.latest_step(ckpt) == 12
+    saved = checkpointer.restore(ckpt, 12, {"state": (over["params"],
+                                                      over["opt_state"]),
+                                            "ring": over["ring"]})
+    assert int(saved["ring"].tail) == 2 * kw["walks_per_round"]
+    res = w.train_embeddings(graphs[1], **kw, ckpt_dir=ckpt, ckpt_every=4)
+    assert threading.active_count() == before
+    for out in (ser, res):
+        assert out["step"] == over["step"] == 24
+        for k in ("in_embed", "out_embed"):
+            assert torch.equal(out["params"][k], over["params"][k])
+            assert torch.equal(out["opt_state"].mu[k],
+                               over["opt_state"].mu[k])
+            assert torch.equal(out["opt_state"].nu[k],
+                               over["opt_state"].nu[k])
+        assert_ring_equal(out["ring"], over["ring"])
+
+
+def test_train_embeddings_producer_error_reaches_the_caller(graphs, urw,
+                                                            monkeypatch):
+    """A round that fails on the producer's thread fails the call, and no
+    thread outlives it."""
+    import importlib
+    module = importlib.import_module("repro_torch.walker.compile")
+    real = module.build_engine
+
+    def failing(*a, **k):
+        run = real(*a, **k)
+
+        def produce(graph, starts, key):
+            if int(starts[0]) != 0:
+                raise _Boom("round")
+            return run(graph, starts, key)
+        return produce
+    monkeypatch.setattr(module, "build_engine", failing)
+    w = walker.compile(walker.WalkProgram.urw(H - 1))
+    before = threading.active_count()
+    with pytest.raises(_Boom, match="round"):
+        w.train_embeddings(graphs[1], **_train_kw())
+    assert threading.active_count() == before
 
 
 def test_train_embeddings_has_only_the_kernel_gathers(graphs, urw):

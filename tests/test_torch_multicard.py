@@ -9,7 +9,7 @@ Every result must equal the one-group run bit for bit: emission logs,
 cursors, every `WalkStats` field, streams, a service point and trained
 tables.  The reference's own sharded runs (N = 2 and 4 on as many
 devices, ``train_embeddings`` on 2) are held against the groups in
-``tests/test_torch_sharded.py`` (its ``ref_sharded`` fixture).
+``tests/test_torch_sharded_reference.py`` (its ``ref_sharded`` fixture).
 
 Inputs: the WG stand-in at scale 9; 96 starts drawn with numpy; 4 shards
 of 16 lanes; 8 hops.

@@ -4,13 +4,13 @@ backend="sharded")`` against the reference.
 N shards stacked on one device must give the walks of the reference's
 single-device engine, and at N = 2 the very stats and emission logs of the
 reference's sharded engine (``shard_map`` over two forced host devices, run
-in one subprocess).  Everything compared is an integer, so every check is
-exact, but the trained tables (``TABLE_TOL``, the embedding tests').
+in one subprocess: ``tests/test_torch_sharded_reference.py``).  Everything
+compared is an integer, so every check is exact, but the trained tables
+(``TABLE_TOL``, the embedding tests').
 
 Inputs: the WG stand-in at scale 9, built by each package from the same
 seed; 160 starts drawn with numpy; 2 or 8 shards of 16 lanes.
 """
-import dataclasses
 import os
 import pathlib
 import subprocess
@@ -22,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import run_in_subprocess
 from repro import walker as ref_walker
 from repro.core import router as ref_router
 from repro.core.distributed import DistLogs as RefDistLogs
@@ -43,7 +42,6 @@ from repro_torch.core.tasks import N2VSlots, WalkerSlots
 from repro_torch.distributed import (Mesh, all_gather, all_to_all, pmax,
                                   psum)
 from repro_torch.graph import make_dataset, partition_graph
-from repro_torch.serve import HopsController
 from repro_torch.tune import graph_signature
 from test_torch_stream import soak
 
@@ -52,9 +50,6 @@ H = 10                  # hop budget
 NUM_STARTS = 160
 W_LOC = 16              # lanes a shard
 TABLE_TOL = dict(rtol=1e-5, atol=1e-6)
-# train_embeddings against the reference: 2 rounds of 16 walks, 6 steps.
-TRAIN = dict(seed=3, rounds=2, walks_per_round=16, steps_per_round=6,
-             batch_size=32, dim=8, window=3, num_negatives=4)
 # name -> (WalkProgram builder, its arguments, make_dataset keywords)
 PROGRAMS = {
     "urw": ("urw", (), {}),
@@ -521,248 +516,6 @@ def test_walk_serve_cli_sharded():
                "64", "--max-hops", "12", "--requests", "24",
                "--request-size", "8", "--capacity", "512")
     assert "backend=sharded" in out and "drops=0" in out
-
-
-# ------------------------------------- against the reference's sharded engine
-
-
-REF_SHARDED = r"""
-import dataclasses, sys
-import numpy as np
-from repro import walker
-from repro.core.distributed import DistConfig, _run_distributed
-from repro.graph import make_dataset, partition_graph
-from repro.core import rng as ref_rng
-from repro.models import embeddings as ref_emb
-from repro.serve import HopsController
-
-H, W_LOC = {H}, {W_LOC}
-PROGRAMS = {PROGRAMS}
-TRAIN = {TRAIN}
-out = {{}}
-
-
-def program(name, max_hops=H):
-    fn, args, _ = PROGRAMS[name]
-    kw = dict(weighted=True) if name == "node2vec_w" else {{}}
-    return getattr(walker.WalkProgram, fn)(*args, max_hops=max_hops, **kw)
-
-
-starts = np.random.default_rng(0).integers(0, 512, {NUM_STARTS}).astype(
-    np.int32)
-for name, (_, _, kw) in PROGRAMS.items():
-    g = make_dataset("WG", scale_override=9, **kw)
-    for n, tag in ((4, "4"), (2, "")):      # N shards on devices[:N]
-        pg = partition_graph(g, n)
-        logs, stats = _run_distributed(
-            pg, starts, program(name).spec,
-            DistConfig(slots_per_device=W_LOC, max_hops=H,
-                       log_capacity=1 << 12),
-            seed=4)
-        for f in logs._fields:
-            out[f"{{name}}.log{{tag}}.{{f}}"] = np.asarray(getattr(logs, f))
-        for f in stats._fields:
-            out[f"{{name}}.stats{{tag}}.{{f}}"] = np.asarray(
-                getattr(stats, f))
-    stream = walker.compile(
-        program(name), backend="sharded",
-        execution=walker.ExecutionConfig(slots_per_device=W_LOC)).stream(
-            pg, capacity=len(starts), seed=4)
-    stream.inject(starts[:70])
-    stream.advance(3)
-    stream.inject(starts[70:])
-    stream.drain(chunk=7)
-    out[f"{{name}}.stream.stats"] = np.asarray(stream.walk_stats())
-
-pg = partition_graph(make_dataset("WG", scale_override=9), 2)
-svc = walker.compile(walker.WalkProgram.urw(12), backend="sharded",
-                     execution=walker.ExecutionConfig(
-                         slots_per_device=32)).serve(
-    pg, seed=0, chunk=2, adapt=True,
-    controller=HopsController(min_chunk=1, max_chunk=32, patience=2))
-rng = np.random.default_rng(0)
-for _ in range(12):
-    svc.submit(rng.integers(0, 512, size=48).astype(np.int32))
-    svc.step()
-for r in svc.drain():
-    for f in ("qids", "epochs", "paths", "lengths", "submitted_at",
-              "admitted_at", "completed_at"):
-        out[f"svc.{{r.request_id}}.{{f}}"] = np.asarray(getattr(r, f))
-out["svc.adapt_num"] = np.asarray(
-    [dataclasses.astuple(e)[:5] for e in svc.adaptation], np.float64)
-out["svc.adapt_reason"] = np.asarray([e.reason for e in svc.adaptation])
-out["svc.chunk"] = np.asarray(svc.chunk)
-out["svc.stats"] = np.asarray(svc.walk_stats())
-
-# train_embeddings on a 2-device mesh: the ring's rows and both tables
-# (with their moments) sharded over the devices.
-te = walker.compile(walker.WalkProgram.urw(H), backend="sharded",
-                    execution=walker.ExecutionConfig(
-                        num_devices=2)).train_embeddings(
-    make_dataset("WG", scale_override=9), **TRAIN, use_kernel=False)
-init = ref_emb.init_params(ref_rng.stream_key(TRAIN["seed"]), te["config"])
-for k in ("in_embed", "out_embed"):
-    out[f"te.init.{{k}}"] = np.asarray(init[k])
-    out[f"te.params.{{k}}"] = np.asarray(te["params"][k])
-for f in ("paths", "lengths", "tail"):
-    out[f"te.ring.{{f}}"] = np.asarray(getattr(te["ring"], f))
-out["te.step"] = np.asarray(te["step"])
-np.savez(sys.argv[1] if len(sys.argv) > 1 else "{PATH}", **out)
-print("REF_SHARDED_OK")
-"""
-
-
-@pytest.fixture(scope="module")
-def ref_sharded(tmp_path_factory):
-    """The reference's sharded engine on four forced host devices (N
-    shards on the first N): closed logs and stats at N = 2 and 4,
-    mid-flight streams, an adaptive service and ``train_embeddings`` on 2
-    devices (one subprocess for the whole module)."""
-    path = tmp_path_factory.mktemp("ref_sharded") / "ref.npz"
-    code = REF_SHARDED.format(H=H, W_LOC=W_LOC, NUM_STARTS=NUM_STARTS,
-                              PROGRAMS=repr(PROGRAMS), TRAIN=repr(TRAIN),
-                              PATH=str(path))
-    out = run_in_subprocess(code, devices=4, timeout=900)
-    assert "REF_SHARDED_OK" in out
-    return dict(np.load(path))
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("name", sorted(PROGRAMS))
-def test_logs_and_stats_equal_reference_sharded(ref_sharded, name):
-    """At N = 2 the emission logs (every entry, -1 fill included, each
-    shard's cursor) and the per-shard WalkStats equal the reference's
-    sharded engine's; so do the stream's folded stats."""
-    _, g = graphs(name)
-    logs, stats = _run_distributed(
-        partition_graph(g, 2), starts_of(), program(walker, name).spec,
-        DistConfig(slots_per_device=W_LOC, max_hops=H, log_capacity=1 << 12),
-        seed=4)
-    for f in logs._fields:
-        np.testing.assert_array_equal(getattr(logs, f).numpy(),
-                                      ref_sharded[f"{name}.log.{f}"], f)
-    for f in stats._fields:
-        np.testing.assert_array_equal(getattr(stats, f).numpy(),
-                                      ref_sharded[f"{name}.stats.{f}"], f)
-    stream = sharded(name).stream(partition_graph(g, 2),
-                                  capacity=NUM_STARTS, seed=4)
-    starts = starts_of()
-    stream.inject(starts[:70])
-    stream.advance(3)
-    stream.inject(starts[70:])
-    stream.drain(chunk=7)
-    np.testing.assert_array_equal(np.asarray(stream.walk_stats()),
-                                  ref_sharded[f"{name}.stream.stats"])
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("name", sorted(PROGRAMS))
-def test_groups_equal_reference_sharded(ref_sharded, name):
-    """N = 2 shards in 2 groups (one shard a group, both on the CPU, the
-    reference's one shard a device) give the reference's emission logs,
-    per-shard stats and stream stats."""
-    _, g = graphs(name)
-    mesh = Mesh(2, [g.device] * 2)
-    logs, stats = _run_distributed(
-        partition_graph(g, 2, mesh), starts_of(), program(walker, name).spec,
-        DistConfig(slots_per_device=W_LOC, max_hops=H, log_capacity=1 << 12),
-        mesh=mesh, seed=4)
-    for f in logs._fields:
-        np.testing.assert_array_equal(getattr(logs, f).numpy(),
-                                      ref_sharded[f"{name}.log.{f}"], f)
-    for f in stats._fields:
-        np.testing.assert_array_equal(getattr(stats, f).numpy(),
-                                      ref_sharded[f"{name}.stats.{f}"], f)
-    stream = walker.compile(
-        program(walker, name), backend="sharded", mesh=mesh,
-        execution=walker.ExecutionConfig(slots_per_device=W_LOC)).stream(
-            g, capacity=NUM_STARTS, seed=4)
-    starts = starts_of()
-    stream.inject(starts[:70])
-    stream.advance(3)
-    stream.inject(starts[70:])
-    stream.drain(chunk=7)
-    np.testing.assert_array_equal(np.asarray(stream.walk_stats()),
-                                  ref_sharded[f"{name}.stream.stats"])
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("groups", [2, 4])
-@pytest.mark.parametrize("name", sorted(PROGRAMS))
-def test_groups_of_four_equal_reference_sharded(ref_sharded, name, groups):
-    """N = 4 shards in 2 and 4 groups (all on the CPU; the reference's one
-    shard a device on 4 devices) give the reference's emission logs and
-    per-shard stats."""
-    _, g = graphs(name)
-    mesh = Mesh(4, [g.device] * groups)
-    logs, stats = _run_distributed(
-        partition_graph(g, 4, mesh), starts_of(), program(walker, name).spec,
-        DistConfig(slots_per_device=W_LOC, max_hops=H, log_capacity=1 << 12),
-        mesh=mesh, seed=4)
-    for f in logs._fields:
-        np.testing.assert_array_equal(getattr(logs, f).numpy(),
-                                      ref_sharded[f"{name}.log4.{f}"], f)
-    for f in stats._fields:
-        np.testing.assert_array_equal(getattr(stats, f).numpy(),
-                                      ref_sharded[f"{name}.stats4.{f}"], f)
-
-
-@pytest.mark.slow
-def test_train_embeddings_in_groups_equal_reference_sharded(ref_sharded,
-                                                            monkeypatch):
-    """``train_embeddings`` over 2 groups (both on the CPU) from the
-    reference's initial tables: the ring equals the reference's 2-device
-    run bit for bit, and the tables are within TABLE_TOL of its tables."""
-    from repro_torch.models import embeddings as emb
-    _, g = graphs("urw")
-    init = {k: ref_sharded[f"te.init.{k}"] for k in ("in_embed", "out_embed")}
-    monkeypatch.setattr(emb, "init_params", lambda gen, cfg, device=None:
-                        emb.params_from_reference(init, device))
-    got = walker.compile(walker.WalkProgram.urw(H), backend="sharded",
-                         mesh=Mesh(2, [g.device] * 2)).train_embeddings(
-        g, **TRAIN)
-    for f in ("paths", "lengths", "tail"):
-        np.testing.assert_array_equal(getattr(got["ring"], f).numpy(),
-                                      ref_sharded[f"te.ring.{f}"], f)
-    for k in ("in_embed", "out_embed"):
-        np.testing.assert_allclose(got["params"][k].numpy(),
-                                   ref_sharded[f"te.params.{k}"],
-                                   **TABLE_TOL)
-    assert got["step"] == int(ref_sharded["te.step"]) == 12
-
-
-@pytest.mark.slow
-def test_service_equals_reference_sharded(ref_sharded):
-    """An adaptive service over the sharded stream: every request's walks
-    and clocks, the adaptation trace, the final chunk and the stats equal
-    the reference's sharded service."""
-    _, g = graphs("urw")
-    svc = walker.compile(walker.WalkProgram.urw(12), backend="sharded",
-                         execution=walker.ExecutionConfig(
-                             slots_per_device=32)).serve(
-        partition_graph(g, 2), seed=0, chunk=2, adapt=True,
-        controller=HopsController(min_chunk=1, max_chunk=32, patience=2))
-    rng = np.random.default_rng(0)
-    for _ in range(12):
-        svc.submit(rng.integers(0, 512, size=48).astype(np.int32))
-        svc.step()
-    reqs = svc.drain()
-    assert len(reqs) == 12
-    for r in reqs:
-        for f in ("qids", "epochs", "paths", "lengths", "submitted_at",
-                  "admitted_at", "completed_at"):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(r, f)),
-                ref_sharded[f"svc.{r.request_id}.{f}"], f)
-    assert svc.adaptation, "the overloaded service did not adapt"
-    np.testing.assert_array_equal(
-        np.asarray([dataclasses.astuple(e)[:5] for e in svc.adaptation],
-                   np.float64), ref_sharded["svc.adapt_num"])
-    assert ([e.reason for e in svc.adaptation]
-            == list(ref_sharded["svc.adapt_reason"]))
-    assert svc.chunk == int(ref_sharded["svc.chunk"])
-    np.testing.assert_array_equal(np.asarray(svc.walk_stats()),
-                                  ref_sharded["svc.stats"])
 
 
 def test_no_warning_on_the_supported_path():
