@@ -206,8 +206,11 @@ its seconds.
    groups, each equal in paths, lengths and every stat to one group and
    to the single backend; the URW stream in 2 groups (its first capacity
    of arrivals) equal to the one-group stream; ``train_embeddings`` in
-   2 groups (ring, tables and moments whole on its first device) equal
-   to one group's.  ``python3 chip_smoke.py --across-cards``, on a machine with
+   2 and 4 groups, its tables and moments in row blocks (each group's
+   slab on its device, checked there against one group's rows; the ring
+   whole on the first), equal to one group's, no step clipped, with each
+   run's wall and each device's peak memory.
+   ``python3 chip_smoke.py --across-cards``, on a machine with
    2 or more cards, runs these grouped runs with one group a card
    instead (:func:`run_across_cards`); with no argument the script needs
    one card.
@@ -3659,82 +3662,201 @@ def sharded_service(g, card, add) -> None:
           f"under stream_key({out['seed']}, epoch)")
 
 
-def sharded_embeddings(g, card, add, devices=None, one=None) -> None:
+# Split training's groups (phase 8): the tables and moments in row blocks
+# over 2 and 4 groups on cuda:0, each run bit-equal to one group.
+SHARD_EMB_GROUPS = (2, 4)
+
+
+@contextlib.contextmanager
+def sgns_grad_norms():
+    """Each SGNS step's ``grad_norm`` as the device scalar the step made
+    (``"norms"``), and the clipping bound of each AdamW config a step was
+    built with (``"grad_clip"``), kept in the yielded dict by a wrapper
+    the script puts around ``embeddings.make_sgns_step`` (no host read
+    while the run is timed)."""
+    from repro_torch.models import embeddings as emb
+    seen, real = {"norms": [], "grad_clip": []}, emb.make_sgns_step
+
+    def make(cfg, opt_cfg):
+        step = real(cfg, opt_cfg)
+        seen["grad_clip"].append(opt_cfg.grad_clip)
+
+        def wrapped(params, opt_state, batch):
+            params, opt_state, aux = step(params, opt_state, batch)
+            seen["norms"].append(aux["grad_norm"])
+            return params, opt_state, aux
+        return wrapped
+    emb.make_sgns_step = make
+    try:
+        yield seen
+    finally:
+        emb.make_sgns_step = real
+
+
+def reached_groups(batches, table) -> int:
+    """The launches of each gather kernel over ``batches`` (each step's
+    centers, contexts and negatives) in a run whose tables came out as
+    ``table``: one a gather for a tensor, and for row blocks one a gather
+    for each slab that ``RowBlocks.owner`` gives one of its ids
+    (models.layers._SplitGather)."""
+    import torch
+
+    from repro_torch.distributed.row_blocks import RowBlocks
+    if not isinstance(table, RowBlocks):
+        return sum(len(batch) for batch in batches)
+    return sum(int(torch.unique(table.owner(ids.reshape(-1))).numel())
+               for batch in batches for ids in batch)
+
+
+def sharded_embeddings(g, card, add, groups=None, one=None) -> None:
     """``train_embeddings`` at phase 4's width (DeepWalk, dim 128, batch
     4,096, 8,192 walks a round, so the 4 x 1,024 pool fills; 2 rounds of
     8 steps) on the single backend (fused), the sharded backend (its
     producer a sharded stream) overlapped and serial, with their walls
-    (:func:`print_overlap`), and the sharded backend in 2 groups (on
-    ``devices``, by default both on cuda:0; the one-group run on the mesh
-    ``one``, if given): rings, tables and moments equal (the 2-group
-    ones whole on its first device); the sharded runs launch 3
-    embedding-bag and 3 segment-sum kernels a step and nothing else."""
+    (:func:`print_overlap`), and the sharded backend with its tables and
+    moments in row blocks over each of ``groups`` (lists of devices, one
+    a group; by default 2 and 4 groups on cuda:0; the one-group runs on
+    the mesh ``one``, if given): rings, tables and moments equal, each
+    slab checked on its group's device against the one-group run's rows;
+    no step clipped at the ``grad_clip`` of the config the run built
+    (each step's grad_norm kept on the device, read after the run); the
+    gathers launch one embedding-bag and one segment-sum kernel for each
+    group a gather's ids reach (3 a step in one group) and nothing else.
+    Prints each run's wall and each device's peak memory above the run's
+    start beside the table-sized buffers' share of a group.  A grouped
+    run's peak may not pass, on one card, the one-group run's by half a
+    table; one group a card, the one-group run's over G by half a table
+    on any card (a step that joined a table's slabs on one card would).
+    On one card every slab shares the device, so there the peak bounds
+    only joins larger than half a table."""
     import torch
+
+    from repro_torch.distributed.row_blocks import RowBlocks
     prog = programs()["deepwalk"]
     steps = SHARD_EMB["rounds"] * SHARD_EMB["steps_per_round"]
+    nv, dim = g.num_vertices, SHARD_EMB["dim"]
+    table_bytes = nv * dim * 4
     outs, walls = {}, {}
-    devices = devices or on_card0(2)
-    two = f"sharded G=2 on {' and '.join(str(d) for d in devices)}"
+    groups = groups or [on_card0(G) for G in SHARD_EMB_GROUPS]
     serial = "sharded serial"
-    for label, w in (("single", fused_walker(prog)),
-                     ("sharded", sharded_walker(prog, mesh=one)),
-                     (serial, sharded_walker(prog, mesh=one)),
-                     (two, sharded_walker(prog, mesh=group_mesh(devices)))):
+    runs = [("single", fused_walker(prog), None),
+            ("sharded", sharded_walker(prog, mesh=one), None),
+            (serial, sharded_walker(prog, mesh=one), None)]
+    for devs in groups:
+        runs.append((f"sharded G={len(devs)} on "
+                     f"{' and '.join(dict.fromkeys(str(d) for d in devs))}",
+                     sharded_walker(prog, mesh=group_mesh(devs)), devs))
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    peaks = {}
+    for label, w, devs in runs:
+        G = len(devs) if devs else 1
         reset_all_launches()
         torch.cuda.synchronize()
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        held = {str(d): torch.cuda.memory_allocated(d) for d in cards}
         overlap = label != serial
+        batches = []
         t0 = time.perf_counter()
-        with phase_limit(), pipeline_clock() as rec:
-            outs[label] = w.train_embeddings(g, **SHARD_EMB, overlap=overlap)
-        torch.cuda.synchronize()
+        with phase_limit(), pipeline_clock() as rec, \
+                sgns_grad_norms() as seen:
+            outs[label] = w.train_embeddings(
+                g, **SHARD_EMB, overlap=overlap,
+                batch_hook=lambda step, batch: batches.append(batch[:3]))
+        for d in cards:
+            torch.cuda.synchronize(d)
         wall = time.perf_counter() - t0
         walls[label] = wall, pipeline_walls(rec, overlap)
         launched = embedding_launches()
         add(launched)
-        check_embedding_launches(label, launched, steps)
+        check_embedding_launches(label, launched, reached_groups(
+            batches, outs[label]["params"]["in_embed"]))
+        norms, clip = seen["norms"], min(seen["grad_clip"])
+        top = float(torch.stack(norms).max())
+        if len(norms) != steps or not top < clip:
+            raise AssertionError(f"sharded embeddings {label}: {len(norms)} "
+                                 f"steps, largest grad_norm {top} (a step "
+                                 f"that clips at grad_clip {clip} breaks "
+                                 "the bit-equality to the single backend)")
+        # The run's own peak: above what the earlier runs' results held.
+        peaks[label] = {str(d): torch.cuda.max_memory_allocated(d)
+                        - held[str(d)] for d in cards}
         walks = SHARD_EMB["rounds"] * SHARD_EMB["walks_per_round"]
         print(f"sharded embeddings {label}: {walks} walks and {steps} steps "
-              f"in {wall:.3f} s; kernel launches {launched} | {card}")
+              f"in {wall:.3f} s; kernel launches {launched}; largest "
+              f"grad_norm {top:.6f}; peak memory above the run's start "
+              + ", ".join(f"{d} {b / 2**30:.3f} GiB"
+                          for d, b in peaks[label].items())
+              + " (tables, moments and gradients "
+              f"{8 * table_bytes / 2**30:.3f} GiB, "
+              f"{8 * table_bytes / G / 2**30:.3f} GiB a group) | {card}")
+        # On one device its peak stays within half a table of one group's;
+        # one group a card, each card's within half a table of one group's
+        # over G (one group's card holds every slab), which a step that
+        # joined a table's slabs on one card would pass.
+        base = peaks.get("sharded", {})
+        if len(set(map(str, devs or ()))) == 1:
+            limit = {d: b + table_bytes // 2 for d, b in base.items()}
+        else:
+            limit = dict.fromkeys(base, max(base.values(), default=0) // G
+                                  + table_bytes // 2)
+        if devs and any(b > limit[d] for d, b in peaks[label].items()):
+            raise AssertionError(
+                f"sharded embeddings {label}: peaks {peaks[label]} against "
+                f"one group's {base} (a step joined slabs?)")
     print_overlap("sharded embeddings", walls, ["sharded", serial], serial,
                   card)
     b = outs["sharded"]
-    for label in ("single", serial):
-        a = outs[label]
-        if not (all(torch.equal(x, y) for x, y in zip(a["ring"], b["ring"]))
-                and all(torch.equal(a["params"][k], b["params"][k])
-                        and torch.equal(a["opt_state"].nu[k],
-                                        b["opt_state"].nu[k])
-                        for k in a["params"])):
-            raise AssertionError(f"sharded embeddings differ from the "
-                                 f"{label} run's")
-    c = outs[two]
 
     def tree(out, t):
         return out["params"] if t == "params" else getattr(out["opt_state"],
                                                            t)
-    # The 2-group ring, tables and moments lie whole on its first device.
-    if not (all(x.device == devices[0] and torch.equal(x, y)
-                for x, y in zip(c["ring"], b["ring"]))
-            and all(tree(c, t)[k].device == devices[0]
-                    and torch.equal(tree(c, t)[k], tree(b, t)[k])
-                    for k in b["params"] for t in ("params", "mu", "nu"))):
-        raise AssertionError("sharded embeddings in 2 groups differ from "
-                             "one group's")
+    for label in ("single", serial):
+        a = outs[label]
+        if not (all(torch.equal(x, y) for x, y in zip(a["ring"], b["ring"]))
+                and all(torch.equal(tree(a, t)[k], tree(b, t)[k])
+                        for k in b["params"] for t in ("params", "mu", "nu"))):
+            raise AssertionError(f"sharded embeddings differ from the "
+                                 f"{label} run's")
+    for label, _, devs in runs[3:]:
+        c = outs[label]
+        G = len(devs)
+        rows = nv // G
+        # The ring whole on the first group's device; each table's and
+        # moment's slab g on group g's device, equal to one group's rows.
+        ok = all(x.device == devs[0] and torch.equal(x, y)
+                 for x, y in zip(c["ring"], b["ring"]))
+        ok = ok and c["step"] == b["step"] and torch.equal(
+            c["opt_state"].step, b["opt_state"].step.to(devs[0]))
+        for k in b["params"]:
+            for t in ("params", "mu", "nu"):
+                x = tree(c, t)[k]
+                ok = ok and isinstance(x, RowBlocks) and len(x.slabs) == G
+                ok = ok and all(
+                    s.device == d and s.shape[0] == rows and torch.equal(
+                        s, tree(b, t)[k][i * rows:(i + 1) * rows].to(d))
+                    for i, (s, d) in enumerate(zip(x.slabs, devs)))
+        if not ok:
+            raise AssertionError(f"sharded embeddings {label} differ from "
+                                 "one group's")
     print("sharded embeddings: ring, tables and moments == the single "
-          f"backend's == the serial run's; in 2 groups (whole on "
-          f"{devices[0]}) == one group's")
+          "backend's == the serial run's; in "
+          + " and ".join(str(len(d)) for d in groups)
+          + " groups each slab on its group's device == one group's rows")
 
 
-def check_embedding_launches(label, launched, steps) -> None:
-    """3 embedding-bag and 3 segment-sum launches a step, fused launches
-    for the single backend's producer and none for the sharded one's."""
+def check_embedding_launches(label, launched, gathers) -> None:
+    """``gathers`` embedding-bag and as many segment-sum launches (3 a step
+    in one group), fused launches for the single backend's producer and
+    none for the sharded one's."""
     want = {k: 0 for k in launched}
-    want.update(embedding_bag=3 * steps, segment_sum=3 * steps)
-    # (the sharded producers, in one group or two, launch no kernel)
+    want.update(embedding_bag=gathers, segment_sum=gathers)
+    # (the sharded producers, in one group or more, launch no kernel)
     if label == "single" and launched["fused_superstep"] > 0:
         want["fused_superstep"] = launched["fused_superstep"]
     if launched != want:
-        raise AssertionError(f"embeddings {label}: launches {launched}")
+        raise AssertionError(f"embeddings {label}: launches {launched}, "
+                             f"expected {want}")
 
 
 def sharded_profile(g) -> None:
@@ -3825,8 +3947,8 @@ def run_sharded(graphs, starts_np) -> dict:
 def run_across_cards() -> int:
     """``python3 chip_smoke.py --across-cards`` on a machine with 2 or
     more cards: phase 8's grouped runs with one group a card (closed URW
-    and weighted Node2Vec batches in 2 and 4 groups, the URW stream and a
-    training round in 2), each against one group on cuda:0 and the
+    and weighted Node2Vec batches in 2 and 4 groups, the URW stream in 2,
+    split training in 2 and 4), each against one group on cuda:0 and the
     single backend, with every card's name and power limit."""
     import torch
 
@@ -3859,7 +3981,8 @@ def run_across_cards() -> int:
         h = sharded_stream(g, card, add, mesh=one)
         sharded_stream(g, card, add, base=h, mesh=group_mesh(two))
     with timed("sharded embeddings one a card"):
-        sharded_embeddings(g, card, add, devices=two, one=one)
+        sharded_embeddings(g, card, add, one=one,
+                           groups=[d for _, d in across_cards()])
     del g
     with timed("lmt substrate one group a card"):
         lmt_across_cards(add)

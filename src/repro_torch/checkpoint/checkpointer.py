@@ -11,7 +11,10 @@ sorted order, as the reference's pytrees flatten them), NamedTuples
 leaves.  :func:`restore` loads into the structure of a ``like`` tree and
 puts each leaf on the dtype of the matching ``like`` leaf and on its
 device, or on the device a ``shardings`` tree names (an elastic restart
-onto a new mesh).
+onto a new mesh).  A table in row blocks over device groups
+(`distributed.row_blocks.RowBlocks`) is one leaf: saved joined, slab by slab
+on the host, and restored split into the layout of ``like``'s leaf, so
+one checkpoint resumes at any number of groups.
 bfloat16 has no numpy dtype, so such a leaf is stored as float32 (exact)
 and cast back.  Writes are synchronous.
 """
@@ -24,6 +27,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.row_blocks import RowBlocks
 
 
 def flatten_with_paths(tree, prefix: str = ""):
@@ -65,6 +70,8 @@ def tree_map(fn, tree, *rest):
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, RowBlocks):
+        return np.concatenate([_to_numpy(s) for s in leaf.slabs])
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
@@ -74,7 +81,7 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def _dtype_name(leaf) -> str:
-    if isinstance(leaf, torch.Tensor):
+    if isinstance(leaf, (torch.Tensor, RowBlocks)):
         return str(leaf.dtype).removeprefix("torch.")
     return str(np.asarray(leaf).dtype)
 
@@ -117,8 +124,10 @@ def restore(ckpt_dir: str, step: int, like: Any, shardings: Any = None):
     structure whose leaves are devices, or ``None`` to keep ``like``'s
     leaf's device (the whole tree ``None``: every leaf on ``like``'s) --
     the reference's re-sharding on restore, with one device a leaf (its
-    ``SingleDeviceSharding``).  ``like`` may lie on ``meta``: only its
-    structure, shapes and dtypes are read."""
+    ``SingleDeviceSharding``).  A :class:`RowBlocks` leaf of ``like``
+    is restored in its layout (its ``shardings`` entry None).  ``like``
+    may lie on ``meta``: only its structure, shapes and dtypes are
+    read."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -141,7 +150,13 @@ def restore(ckpt_dir: str, step: int, like: Any, shardings: Any = None):
         if arr.shape != want:
             raise ValueError(f"checkpoint leaf {m['path']} has shape "
                              f"{list(arr.shape)}, expected {list(want)}")
-        if isinstance(ref, torch.Tensor):
+        if isinstance(ref, RowBlocks):
+            if place is not None:
+                raise ValueError(f"checkpoint leaf {m['path']} is restored "
+                                 "in the row blocks of the tree restored "
+                                 "into; its shardings entry must be None")
+            loaded.append(ref.like(torch.from_numpy(arr)))
+        elif isinstance(ref, torch.Tensor):
             loaded.append(torch.from_numpy(arr).to(
                 device=ref.device if place is None else place,
                 dtype=ref.dtype))

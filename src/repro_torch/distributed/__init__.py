@@ -9,8 +9,9 @@ from repro_torch.distributed.mesh import (GridMesh, Mesh, PartitionSpec,
                                           card_groups, pmax, ppermute, psum,
                                           shard_shape)
 from repro_torch.distributed.pipeline import StageGroups, place_stages
+from repro_torch.distributed.row_blocks import RowBlocks
 
 __all__ = ["Mesh", "GridMesh", "PartitionSpec", "axis_size", "axis_devices",
            "card_groups", "shard_shape", "psum", "pmax", "all_gather",
            "all_to_all", "ppermute", "pipeline", "place_stages",
-           "StageGroups"]
+           "StageGroups", "RowBlocks"]

@@ -24,7 +24,9 @@ from typing import Callable
 
 import torch
 
-from repro_torch.checkpoint.checkpointer import leaves, tree_map, unflatten
+# The module, not its names: the checkpointer imports this package's
+# ``row_blocks``, so it may be part-way through its own import here.
+from repro_torch.checkpoint import checkpointer
 from repro_torch.distributed.mesh import (axis_devices, axis_size,
                                           check_devices, ppermute)
 
@@ -48,21 +50,21 @@ def place_stages(params_stacked, mesh, axis: str = "pipe") -> StageGroups:
     n_stages = axis_size(mesh, axis)
     devices = check_devices(axis_devices(mesh, axis))
     k = n_stages // len(devices)
-    for a in leaves(params_stacked):
+    for a in checkpointer.leaves(params_stacked):
         if a.shape[0] != n_stages:
             raise ValueError(f"a stage leaf of shape {tuple(a.shape)} does "
                              f"not lead with the {n_stages} stages of "
                              f"axis {axis!r}")
     return StageGroups(tuple(
-        tree_map(lambda a, g=g, d=d: a[g * k:(g + 1) * k].to(d),
-                 params_stacked)
+        checkpointer.tree_map(
+            lambda a, g=g, d=d: a[g * k:(g + 1) * k].to(d), params_stacked)
         for g, d in enumerate(devices)), devices)
 
 
 def _stages(tree) -> list:
     """One tree a stage of a group's tree (one ``unbind`` a leaf)."""
-    rows = [a.unbind(0) for a in leaves(tree)]
-    return [unflatten(tree, iter(r)) for r in zip(*rows)]
+    rows = [a.unbind(0) for a in checkpointer.leaves(tree)]
+    return [checkpointer.unflatten(tree, iter(r)) for r in zip(*rows)]
 
 
 def pipeline_apply(stage_fn: Callable, params_stacked, x_microbatches,

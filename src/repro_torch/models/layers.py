@@ -13,6 +13,8 @@ the reference's weights, carry its tree across with
 Row gathers (``table[ids]``) go through :func:`gather_rows`: the forward
 on the embedding-bag kernel, the backward on the segment-sum kernel, so
 a training step on the card is a deterministic function of its inputs.
+A table in row blocks over device groups (`distributed.row_blocks.RowBlocks`)
+is gathered slab by slab on each slab's device (:class:`_SplitGather`).
 
 The language-model half (RoPE, GQA attention with its three paths, the
 SwiGLU FFN) follows JAX's dtype promotion explicitly: ``torch.einsum`` and
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 from repro_torch.checkpoint.checkpointer import leaves, tree_map, unflatten
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.segment_sum import segment_sum
+from repro_torch.distributed.row_blocks import RowBlocks
 
 
 def normal(generator: torch.Generator, shape, dtype=torch.float32,
@@ -163,15 +166,97 @@ class _KernelGather(torch.autograd.Function):
         return grad, None
 
 
-def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+class _SplitGather(torch.autograd.Function):
+    """``table[flat_ids]`` for a table in row blocks, each slab gathered
+    on its own device; ``flat_ids`` and the result lie on the first
+    slab's device.
+
+    Forward: the ids are partitioned stably by ``owner``, the slab that
+    holds each (:meth:`RowBlocks.owner`; batch order kept within each
+    slab; one host read of the G counts), each slab's local ids go to
+    its device, the embedding-bag kernel gathers its (n_g, dim) rows
+    there, and the rows come back and are put into batch order.
+    Backward: each slab's rows' gradients go to its device, where the
+    segment-sum kernel sums them into the slab's dense gradient.  A slab
+    that no id reaches launches nothing either way; its gradient is
+    zeros.
+
+    The segment sum adds a row's positions in ascending order, and the
+    stable partition keeps each row's positions in batch order, so every
+    slab's gradient equals the matching rows of the whole table's
+    gradient bit for bit.  Ids out of range take the first or last slab,
+    whose kernel clamps (forward) or drops (backward) them, as the whole
+    table's does.
+    """
+
+    @staticmethod
+    def forward(ctx, flat_ids, owner, *slabs):
+        device, G = flat_ids.device, len(slabs)
+        rows, dim = slabs[0].shape
+        order = torch.argsort(owner, stable=True)
+        counts = (owner[None, :] == torch.arange(
+            G, dtype=owner.dtype, device=device)[:, None]).sum(1).tolist()
+        local = (flat_ids - owner * rows).index_select(0, order)
+        parts, found, start = [], [], 0
+        for slab, n in zip(slabs, counts):
+            ids = local[start:start + n].to(slab.device)
+            start += n
+            parts.append(ids)
+            if n:
+                found.append(embedding_bag(ids[:, None], slab).to(device))
+        ctx.save_for_backward(order, *parts)
+        ctx.slab_shape = (rows, dim)
+        ctx.devices = [s.device for s in slabs]
+        ordered = (torch.cat(found) if found else
+                   slabs[0].new_empty((0, dim), device=device))
+        return ordered.index_select(0, torch.argsort(order))
+
+    @staticmethod
+    def backward(ctx, g):
+        order, *parts = ctx.saved_tensors
+        g = g.contiguous().index_select(0, order)
+        rows, dim = ctx.slab_shape
+        grads, start = [], 0
+        for ids, dev, need in zip(parts, ctx.devices,
+                                  ctx.needs_input_grad[2:]):
+            n = ids.shape[0]
+            if not need:
+                grads.append(None)
+            elif n:
+                grads.append(segment_sum(g[start:start + n].to(dev), ids,
+                                         rows))
+            else:
+                grads.append(torch.zeros((rows, dim), dtype=g.dtype,
+                                         device=dev))
+            start += n
+        return (None, None, *grads)
+
+
+def gather_rows(table, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` for a 2-D float32 ``table``, with the forward on the
     embedding-bag kernel and the backward on the segment-sum kernel (their
     plain versions for CPU tensors).  Ids must lie in ``[0, rows)``: the
     forward clamps others, the backward drops them.
 
+    ``table`` may be a :class:`RowBlocks` (its slabs on their devices, the
+    ids and the result on the first slab's): with one slab it is that
+    slab's gather; with more, :class:`_SplitGather`'s.
+
     ``ids`` may carry any leading shape; the row axis is appended last.
     """
     flat = ids.reshape(-1).to(torch.int32).contiguous()
+    if isinstance(table, RowBlocks):
+        if len(table.slabs) > 1:
+            # Each slab enters through a view made on its own device, so
+            # the slab's gradient reaches its accumulator from a node of
+            # that device's stream; the split node's stream is the first
+            # slab's device's, and autograd warns of (and waits on) a
+            # mismatch there.
+            rows = _SplitGather.apply(
+                flat, table.owner(flat),
+                *(s.contiguous().view_as(s) for s in table.slabs))
+            return rows.reshape(*ids.shape, table.shape[1])
+        table = table.slabs[0]
     rows = _KernelGather.apply(table.contiguous(), flat)
     return rows.reshape(*ids.shape, table.shape[1])
 

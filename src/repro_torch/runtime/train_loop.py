@@ -37,6 +37,7 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 
 from repro_torch.checkpoint import checkpointer
+from repro_torch.distributed.row_blocks import RowBlocks, devices_of
 
 
 class StragglerWatchdog:
@@ -58,12 +59,14 @@ class StragglerWatchdog:
 
 def block_until_ready(tree) -> None:
     """Wait for the work issued so far on the caller's current stream on
-    the device of ``tree``'s first tensor leaf (nothing on the CPU).  Work
-    on other streams, such as an overlapped producer's, runs on."""
+    the device of ``tree``'s first tensor leaf, or on each slab's device
+    of a first leaf in row blocks (nothing on the CPU).  Work on other
+    streams, such as an overlapped producer's, runs on."""
     for _, leaf in checkpointer.flatten_with_paths(tree):
-        if isinstance(leaf, torch.Tensor):
-            if leaf.device.type == "cuda":
-                torch.cuda.current_stream(leaf.device).synchronize()
+        if isinstance(leaf, (torch.Tensor, RowBlocks)):
+            for d in dict.fromkeys(devices_of(leaf)):
+                if d.type == "cuda":
+                    torch.cuda.current_stream(d).synchronize()
             return
 
 

@@ -38,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpointer import tree_map
 from repro_torch.core import clock, corpus_ring
 from repro_torch.core import rng as task_rng
 from repro_torch.core.distributed import (DistLogs, assemble_paths,
@@ -55,6 +56,7 @@ from repro_torch.distributed.mesh import (Mesh, card_groups, gather_first,
                                           reduce_first)
 from repro_torch.graph.partition import PartitionedGraph, partition_graph
 from repro_torch.models import embeddings as emb
+from repro_torch.distributed.row_blocks import RowBlocks
 from repro_torch.optim import adamw
 from repro_torch.runtime import train_loop
 from repro_torch.walker.execution import ExecutionConfig
@@ -349,12 +351,23 @@ class Walker:
         backward on the card adds with atomics in no fixed order.
 
         On the sharded backend the producer's shards lie in the mesh's
-        device groups; the corpus ring, both tables and their AdamW
-        moments lie whole on the first group's device, where each round's
-        walks are harvested and every SGNS step runs its two kernels.  The
-        step sees whole tables, as the reference's ``pallas_call`` (which
-        has no sharding rule) does; the run is bit-equal to the one-group
-        run.
+        device groups.  When the N shards divide |V|, both tables and
+        their AdamW moments lie in row blocks as the reference's
+        vocab-sharded ones do: shard i owns rows ``[i·|V|/N,
+        (i+1)·|V|/N)``, and group g's device holds its shards' rows as one
+        slab (`distributed.row_blocks.RowBlocks`).  Each SGNS step gathers and
+        updates every slab on its own device: only the batch's rows and
+        their gradients cross between devices (``models.layers``'s split
+        gather, ``adamw.apply_updates``).  The corpus ring, the sampler,
+        the loss and the AdamW step counter stay on the first group's
+        device, the ring whole (the reference shards its rows too).  The
+        optimizer's norm sums the tables by shard block, so runs in any
+        number of groups are bit-equal to each other, and to the single
+        backend whenever no step clips.  In one group the returned
+        ``params`` and moments are plain tensors; in more, ``RowBlocks``
+        (``.whole(device)`` joins a copy).  When N does not divide |V|,
+        the tables and moments lie whole on the first group's device, as
+        the reference leaves them.
 
         ``overlap=True`` produces round ``r+1``'s walks while round
         ``r``'s grad steps are issued, as the reference's order of issue
@@ -449,8 +462,13 @@ class Walker:
         opt_cfg = opt_cfg or adamw.AdamWConfig(
             lr=1e-2, warmup_steps=max(1, rounds * steps_per_round // 10),
             total_steps=rounds * steps_per_round)
+        # The tables' place: row blocks over the groups when the shards
+        # divide |V| (in one group, one slab), else whole on ``device``.
+        place = device
+        if stream is not None and nv % pg.num_devices == 0:
+            place = Mesh(pg.num_devices, pg.devices)
         params0 = emb.init_params(task_rng.seeded_generator(seed), sg_cfg,
-                                  device=device)
+                                  device=place)
         state0 = (params0, adamw.init_state(params0))
         sampler = corpus_ring.make_batch_sampler(nv, batch_size, window,
                                                  num_negatives)
@@ -509,9 +527,17 @@ class Walker:
             produce, append, sample, step_fn, state, ring, pcfg,
             start_step=start_step, rounds_done=rounds_done,
             batch_hook=batch_hook, streams=streams)
-        params, opt_state = state
+        params, opt_state = tree_map(_one_slab_whole, state)
         return {"params": params, "opt_state": opt_state, "ring": ring,
                 "step": step, "history": history, "config": sg_cfg}
+
+
+def _one_slab_whole(x):
+    """The one slab of one group's row blocks, as the plain tensor it
+    is; anything else as it is."""
+    if isinstance(x, RowBlocks) and len(x.slabs) == 1:
+        return x.slabs[0]
+    return x
 
 
 class _StreamBase:

@@ -4,7 +4,9 @@ A mesh of N shards over G devices holds G groups of N/G consecutive
 shards, group g on ``devices[g]``.  Here every group is on ``cpu`` (a mesh
 may name one device G times), so these tests run the grouped code: its
 per-group views and pools, the collectives that copy blocks between the
-groups, and ``train_embeddings`` fed by a grouped stream.
+groups, and ``train_embeddings`` fed by a grouped stream, its tables in
+row blocks over the groups (``tests/test_torch_split_tables.py`` holds
+them at 1, 2 and 4 groups).
 Every result must equal the one-group run bit for bit: emission logs,
 cursors, every `WalkStats` field, streams, a service point and trained
 tables.  The reference's own sharded runs (N = 2 and 4 on as many
@@ -25,6 +27,7 @@ from repro_torch.core.distributed import (DistConfig, _run_distributed,
                                           inject_stream_queries)
 from repro_torch.distributed import Mesh
 from repro_torch.graph import partition_graph
+from repro_torch.distributed.row_blocks import RowBlocks
 from test_torch_sharded import PROGRAMS, W_LOC, graphs, program, starts_of
 
 H = 8
@@ -218,9 +221,10 @@ def test_service_point_in_groups():
 
 
 def test_train_embeddings_in_groups():
-    """``train_embeddings`` over a 2-group mesh keeps the ring, both
-    tables and their moments whole on the first group's device, and they
-    are bit-equal to the one-group run's."""
+    """``train_embeddings`` over a 2-group mesh keeps the ring whole on the
+    first group's device and both tables and their moments in row blocks,
+    each group's slab (half the rows) on its own device; every slab is
+    bit-equal to the matching rows of the one-group run's."""
     _, g = graphs("urw")
     kw = dict(seed=3, rounds=2, walks_per_round=16, steps_per_round=4,
               batch_size=32, dim=8, window=3, num_negatives=4)
@@ -234,11 +238,17 @@ def test_train_embeddings_in_groups():
     for f in ("paths", "lengths", "tail"):
         got = getattr(two["ring"], f)
         assert got.device == CPU and torch.equal(got, getattr(one["ring"], f))
+    rows = g.num_vertices // 2
     for k in ("in_embed", "out_embed"):
         for tree_two, tree_one in ((two["params"], one["params"]),
                                    (two["opt_state"].mu, one["opt_state"].mu),
                                    (two["opt_state"].nu,
                                     one["opt_state"].nu)):
-            assert tree_two[k].device == CPU
-            assert torch.equal(tree_two[k], tree_one[k]), k
+            assert isinstance(tree_two[k], RowBlocks), k
+            assert len(tree_two[k].slabs) == 2, k
+            for i, (slab, dev) in enumerate(zip(tree_two[k].slabs,
+                                                mesh(2).devices)):
+                assert slab.device == dev and slab.shape[0] == rows
+                assert torch.equal(
+                    slab, tree_one[k][i * rows:(i + 1) * rows].to(dev)), k
     assert two["step"] == one["step"] == 8

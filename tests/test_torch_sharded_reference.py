@@ -27,6 +27,7 @@ from repro_torch import walker
 from repro_torch.core.distributed import DistConfig, _run_distributed
 from repro_torch.distributed import Mesh
 from repro_torch.graph import partition_graph
+from repro_torch.distributed.row_blocks import RowBlocks
 from repro_torch.serve import HopsController
 from test_torch_sharded import (H, NUM_STARTS, PROGRAMS, TABLE_TOL, W_LOC,
                                 graphs, program, sharded, starts_of)
@@ -34,6 +35,13 @@ from test_torch_sharded import (H, NUM_STARTS, PROGRAMS, TABLE_TOL, W_LOC,
 # train_embeddings against the reference: 2 rounds of 16 walks, 6 steps.
 TRAIN = dict(seed=3, rounds=2, walks_per_round=16, steps_per_round=6,
              batch_size=32, dim=8, window=3, num_negatives=4)
+# AdamW as train_embeddings builds it at TRAIN, with a clipping bound
+# below every step's norm (0.076-0.107 there): each step clips.
+CLIP = dict(lr=1e-2, warmup_steps=1, total_steps=12, grad_clip=0.02)
+# The clipped run's moments against the reference's, whose clipping scale
+# and update XLA computes in its own order: measured 1.0e-10 absolute at
+# most in mu (its entries up to 8.1e-4), 3.4e-13 in nu (up to 1.7e-6).
+MOMENT_TOL = dict(rtol=1e-4, atol=1e-9)
 
 
 # ------------------------------------- against the reference's sharded engine
@@ -47,11 +55,13 @@ from repro.core.distributed import DistConfig, _run_distributed
 from repro.graph import make_dataset, partition_graph
 from repro.core import rng as ref_rng
 from repro.models import embeddings as ref_emb
+from repro.optim import adamw as ref_adamw
 from repro.serve import HopsController
 
 H, W_LOC = {H}, {W_LOC}
 PROGRAMS = {PROGRAMS}
 TRAIN = {TRAIN}
+CLIP = {CLIP}
 out = {{}}
 
 
@@ -120,6 +130,16 @@ for k in ("in_embed", "out_embed"):
 for f in ("paths", "lengths", "tail"):
     out[f"te.ring.{{f}}"] = np.asarray(getattr(te["ring"], f))
 out["te.step"] = np.asarray(te["step"])
+# The same run with every step clipped: tables and moments.
+te = walker.compile(walker.WalkProgram.urw(H), backend="sharded",
+                    execution=walker.ExecutionConfig(
+                        num_devices=2)).train_embeddings(
+    make_dataset("WG", scale_override=9), **TRAIN, use_kernel=False,
+    opt_cfg=ref_adamw.AdamWConfig(**CLIP))
+for k in ("in_embed", "out_embed"):
+    out[f"te_clip.params.{{k}}"] = np.asarray(te["params"][k])
+    out[f"te_clip.mu.{{k}}"] = np.asarray(te["opt_state"].mu[k])
+    out[f"te_clip.nu.{{k}}"] = np.asarray(te["opt_state"].nu[k])
 np.savez(sys.argv[1] if len(sys.argv) > 1 else "{PATH}", **out)
 print("REF_SHARDED_OK")
 """
@@ -130,11 +150,12 @@ def ref_sharded(tmp_path_factory):
     """The reference's sharded engine on four forced host devices (N
     shards on the first N): closed logs and stats at N = 2 and 4,
     mid-flight streams, an adaptive service and ``train_embeddings`` on 2
-    devices (one subprocess for the whole module)."""
+    devices, with and without clipping (one subprocess for the whole
+    module)."""
     path = tmp_path_factory.mktemp("ref_sharded") / "ref.npz"
     code = REF_SHARDED.format(H=H, W_LOC=W_LOC, NUM_STARTS=NUM_STARTS,
                               PROGRAMS=repr(PROGRAMS), TRAIN=repr(TRAIN),
-                              PATH=str(path))
+                              CLIP=repr(CLIP), PATH=str(path))
     out = run_in_subprocess(code, devices=4, timeout=900)
     assert "REF_SHARDED_OK" in out
     return dict(np.load(path))
@@ -225,7 +246,9 @@ def test_train_embeddings_in_groups_equal_reference_sharded(ref_sharded,
                                                             monkeypatch):
     """``train_embeddings`` over 2 groups (both on the CPU) from the
     reference's initial tables: the ring equals the reference's 2-device
-    run bit for bit, and the tables are within TABLE_TOL of its tables."""
+    run bit for bit, and the tables, in row blocks over the 2 groups as
+    the reference's are vocab-sharded over its 2 devices, are within
+    TABLE_TOL of its tables."""
     from repro_torch.models import embeddings as emb
     _, g = graphs("urw")
     init = {k: ref_sharded[f"te.init.{k}"] for k in ("in_embed", "out_embed")}
@@ -238,10 +261,39 @@ def test_train_embeddings_in_groups_equal_reference_sharded(ref_sharded,
         np.testing.assert_array_equal(getattr(got["ring"], f).numpy(),
                                       ref_sharded[f"te.ring.{f}"], f)
     for k in ("in_embed", "out_embed"):
-        np.testing.assert_allclose(got["params"][k].numpy(),
+        assert isinstance(got["params"][k], RowBlocks), k
+        np.testing.assert_allclose(got["params"][k].whole("cpu").numpy(),
                                    ref_sharded[f"te.params.{k}"],
                                    **TABLE_TOL)
     assert got["step"] == int(ref_sharded["te.step"]) == 12
+
+
+@pytest.mark.slow
+def test_clipped_train_embeddings_in_groups_equal_reference_sharded(
+        ref_sharded, monkeypatch):
+    """As above with a ``grad_clip`` below every step's norm: the 2 groups'
+    tables (norm by shard block) within TABLE_TOL of the reference's
+    vocab-sharded tables, and their moments within MOMENT_TOL; every
+    step clipped."""
+    from repro_torch.models import embeddings as emb
+    from repro_torch.optim import adamw
+    _, g = graphs("urw")
+    init = {k: ref_sharded[f"te.init.{k}"] for k in ("in_embed", "out_embed")}
+    monkeypatch.setattr(emb, "init_params", lambda gen, cfg, device=None:
+                        emb.params_from_reference(init, device))
+    got = walker.compile(walker.WalkProgram.urw(H), backend="sharded",
+                         mesh=Mesh(2, [g.device] * 2)).train_embeddings(
+        g, **TRAIN, opt_cfg=adamw.AdamWConfig(**CLIP), log_every=1)
+    assert all(h["grad_norm"] > CLIP["grad_clip"] for h in got["history"])
+    for k in ("in_embed", "out_embed"):
+        for t, x, tol in (
+                ("params", got["params"][k], TABLE_TOL),
+                ("mu", got["opt_state"].mu[k], MOMENT_TOL),
+                ("nu", got["opt_state"].nu[k], MOMENT_TOL)):
+            assert isinstance(x, RowBlocks), (t, k)
+            np.testing.assert_allclose(x.whole("cpu").numpy(),
+                                       ref_sharded[f"te_clip.{t}.{k}"],
+                                       **tol, err_msg=f"{t}.{k}")
 
 
 @pytest.mark.slow
@@ -283,12 +335,17 @@ def test_service_equals_reference_sharded(ref_sharded):
 # ------------------------------------------------ the overlapped pipeline
 
 
+def _whole(x):
+    return x.whole("cpu") if isinstance(x, RowBlocks) else x
+
+
 def _same_training(a, b) -> None:
     assert a["step"] == b["step"]
     for k in ("in_embed", "out_embed"):
-        assert torch.equal(a["params"][k], b["params"][k])
-        assert torch.equal(a["opt_state"].mu[k], b["opt_state"].mu[k])
-        assert torch.equal(a["opt_state"].nu[k], b["opt_state"].nu[k])
+        for x, y in ((a["params"][k], b["params"][k]),
+                     (a["opt_state"].mu[k], b["opt_state"].mu[k]),
+                     (a["opt_state"].nu[k], b["opt_state"].nu[k])):
+            assert torch.equal(_whole(x), _whole(y))
     for x, y in zip(a["ring"], b["ring"]):
         assert torch.equal(x, y)
 
