@@ -26,8 +26,17 @@ its seconds.
    repro_torch.launch.train`` on the card for PNA and DCN-v2 for 6 steps,
    then PNA resumed to 8, ``python -m repro_torch.launch.serve --arch
    deepseek_7b`` and ``python -m repro_torch.launch.train --arch
-   granite_moe --device cuda --steps 4``.  Each must exit 0 and print
-   what it must.
+   granite_moe --device cuda --steps 4``; and the port's examples as
+   scripts at the reference's default sizes, in two chains:
+   ``examples/torch_gnn_neighbor_sampling.py``,
+   ``torch_serve_continuous_batching.py`` and ``torch_quickstart.py
+   --step-impl cuda``, then, once the fused kernel is built,
+   ``torch_quickstart.py``, ``torch_serve_walk_requests.py`` and
+   ``torch_distributed_walks.py`` with ``--step-impl fused`` and
+   ``torch_cached_superstep_smoke.py``.  Each must exit 0 and print what
+   it must: an example its own checks (the sharded run bit-identical to
+   the single one, cache hits above 0) and a nonzero launch count of each
+   kernel it reaches.
 2. Hold each kernel against its plain PyTorch version on the card, bit for
    bit.  First the launch floor: a 4-byte ``zero_()`` timed warm and cold
    as the kernels are, printed beside each kernel's time.  The one-hop
@@ -332,7 +341,22 @@ its seconds.
     against ``torch.cuda.memory_allocated()``'s growth over phase 12's
     setup (within 512 bytes a leaf); its roofline beside the measured
     step, with the card's name and power limit.  Nothing is launched.
-14. Print the kernels' JSON summary (five rows), the card line, and last
+14. Asynchronous checkpoint writes (:func:`run_async_checkpoint`):
+    granite_moe FULL cut to 2 layers (0.35 B parameters, 4.2 GB of
+    parameters and AdamW moments in float32), drawn on the card from seed
+    0; ``runtime.train_loop.run`` of 8 steps of ``make_lm_step`` at batch
+    1 x 4,096 tokens with a checkpoint every 4 steps, from those
+    parameters, once with ``async_checkpoint=False`` and once with
+    ``True``, under ``torch.use_deterministic_algorithms``.  Every file of
+    the checkpoints at steps 4 and 8 and of the final save byte-equal
+    between the runs (a snapshot that read a tensor after the next step's
+    in-place update would differ), the losses and the final parameters
+    and moments bit-equal, the snapshot's pinned bytes those of the state.
+    Each run prints its wall, the median step, the step just after a
+    checkpoint, how long each save and join held the caller and the
+    pinned bytes.  The checkpoints lie under ``build/`` and are deleted.
+    The launch counts are zeroed before each run and read after it.
+15. Print the kernels' JSON summary (five rows), the card line, and last
     the result line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or when the
@@ -344,6 +368,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -6116,6 +6141,186 @@ def run_dryrun_vs_card(dry_rec) -> None:
         raise AssertionError("dry run vs the card: " + "; ".join(failures))
 
 
+# ---------------------------------------------------------------- phase 14
+#
+# Asynchronous checkpoint writes (``checkpointer.save(..., blocking=False)``
+# through ``train_loop.run``'s ``async_checkpoint``) over phase 12's
+# granite_moe step at full width, cut in depth: the same run with blocking
+# and with asynchronous saves, every checkpoint compared byte for byte.
+
+CKPT_STEPS = 8                   # steps a run
+CKPT_EVERY = 4                   # periodic checkpoints after steps 4 and 8
+# Phase 12's batch cut to 1 x 4,096 tokens: a checkpoint's bytes (the
+# parameters and AdamW moments) do not depend on the batch.
+CKPT_BATCH = 1
+CKPT_READ = 64 << 20             # bytes a read when two files are compared
+
+
+def same_files(a, b) -> int:
+    """The bytes of directory ``a``'s files if ``b`` holds the same names
+    with the same bytes, else -1."""
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        return -1
+    n = 0
+    for name in names:
+        with open(os.path.join(a, name), "rb") as fa, \
+                open(os.path.join(b, name), "rb") as fb:
+            while True:
+                x, y = fa.read(CKPT_READ), fb.read(CKPT_READ)
+                if x != y:
+                    return -1
+                if not x:
+                    break
+                n += len(x)
+    return n
+
+
+def ckpt_run(cfg, params, ckpt_dir, asynchronous) -> dict:
+    """``train_loop.run`` over CKPT_STEPS of ``make_lm_step`` from a copy
+    of ``params`` (fresh moments), a checkpoint every CKPT_EVERY steps,
+    with the launch counts zeroed just before and read just after.  Timers
+    the script wraps around ``checkpointer.save`` and ``PendingSave.join``
+    record how long each holds the caller; the loop's final save, which
+    rewrites the last periodic step, writes under ``final/`` instead so
+    that both are kept."""
+    import torch
+
+    from repro_torch.launch.train import make_lm_step
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop
+    ckpt = train_loop.checkpointer
+    save, join = ckpt.save, ckpt.PendingSave.join
+    saves, joins = [], []
+
+    def timed_save(d, step, tree, blocking=True):
+        if any(s["step"] == step for s in saves):
+            d = os.path.join(d, "final")
+        t0 = time.perf_counter()
+        out = save(d, step, tree, blocking=blocking)
+        saves.append({"step": step, "s": time.perf_counter() - t0,
+                      "pinned": getattr(out, "pinned_bytes", 0)})
+        return out
+
+    def timed_join(self, timeout=None):
+        t0 = time.perf_counter()
+        try:
+            join(self, timeout)
+        finally:
+            joins.append(time.perf_counter() - t0)
+    state = (tree_map(torch.clone, params), adamw.init_state(params))
+    state_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+    step = make_lm_step(cfg, adamw.AdamWConfig(total_steps=CKPT_STEPS,
+                                               warmup_steps=1))
+    loop_cfg = train_loop.TrainLoopConfig(
+        total_steps=CKPT_STEPS, ckpt_dir=ckpt_dir, ckpt_every=CKPT_EVERY,
+        log_every=1, async_checkpoint=asynchronous)
+    ckpt.save, ckpt.PendingSave.join = timed_save, timed_join
+    try:
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        state, n, hist, _ = train_loop.run(
+            step, state, lambda s: lmt_batch(cfg, CKPT_BATCH, LMT_SEQ, s),
+            loop_cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = zoo_counts()
+    finally:
+        ckpt.save, ckpt.PendingSave.join = save, join
+    if n != CKPT_STEPS:
+        raise AssertionError(f"ckpt: the run stopped at step {n}")
+    return {"state": state, "wall": wall, "saves": saves, "joins": joins,
+            "state_bytes": state_bytes,
+            "dts": [h["dt_s"] for h in hist],
+            "losses": [h["loss"] for h in hist], "counts": counts}
+
+
+def ckpt_line(label, run) -> str:
+    """A run's walls: steps 2-8 but the one after a checkpoint, that one,
+    what each save and join held the caller, the pinned bytes."""
+    dts = run["dts"]
+    after = [CKPT_EVERY]          # 0-based: the step after step 4's save
+    rest = [d for i, d in enumerate(dts[1:], 1) if i not in after]
+    saves = ", ".join(f"step {s['step']}{' (final)' if i == 2 else ''} "
+                      f"{s['s'] * 1e3:.1f} ms" for i, s in
+                      enumerate(run["saves"]))
+    return (f"ckpt {label}: run wall {run['wall']:.3f} s; a step "
+            f"{float(np.median(rest)) * 1e3:.2f} ms (median of steps 2-8 "
+            f"but 5; step 1 {dts[0] * 1e3:.2f} ms), step 5 (just after step "
+            f"4's checkpoint) {dts[CKPT_EVERY] * 1e3:.2f} ms; save held the "
+            f"caller: {saves}; joins waited "
+            f"{', '.join(f'{j * 1e3:.1f} ms' for j in run['joins']) or '-'};"
+            f" pinned {max(s['pinned'] for s in run['saves'])} B; launches "
+            f"embedding_bag {run['counts']['embedding_bag']} segment_sum "
+            f"{run['counts']['segment_sum']}")
+
+
+def run_async_checkpoint() -> dict:
+    """Phase 14: granite_moe FULL cut to LMT_CHECK_LAYERS layers, drawn on
+    the card from seed 0; ``train_loop.run`` from those parameters with
+    blocking and with asynchronous saves under deterministic algorithms:
+    every file of the checkpoints at steps 4 and 8 (and of the final save)
+    byte-equal between the runs, the losses and the final parameters and
+    moments bit-equal.  Returns the kernels' launches of both runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.rng import seeded_generator
+    from repro_torch.models import transformer as tfm
+    cfg = lm_config("granite_moe", n_layers=LMT_CHECK_LAYERS)
+    root = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    failures, runs = [], {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        params = tfm.init_params(seeded_generator(0, "cuda"), cfg)
+        print(f"ckpt granite_moe FULL width, {cfg.n_layers} layers "
+              f"({cfg.param_count() / 1e9:.3f} B parameters), batch {CKPT_BATCH} x {LMT_SEQ} tokens, "
+              f"{CKPT_STEPS} steps, a checkpoint every {CKPT_EVERY}")
+        for flag, label in ((False, "blocking"), (True, "async")):
+            runs[label] = ckpt_run(cfg, params, os.path.join(root, label),
+                                   flag)
+            print(ckpt_line(label, runs[label]))
+        del params
+        launched = {k: sum(r["counts"][k] for r in runs.values())
+                    for k in ("embedding_bag", "segment_sum")}
+        nbytes = runs["async"]["state_bytes"]
+        compared = []
+        for sub in (f"step_{CKPT_EVERY:08d}", f"step_{CKPT_STEPS:08d}",
+                    f"final/step_{CKPT_STEPS:08d}"):
+            n = same_files(os.path.join(root, "blocking", sub),
+                           os.path.join(root, "async", sub))
+            compared.append(f"{sub} {'byte-equal' if n >= 0 else 'DIFFER'}"
+                            f" ({n} B)")
+            if n < 0:
+                failures.append(f"{sub} differs")
+        same = runs["blocking"]["losses"] == runs["async"]["losses"] and all(
+            torch.equal(a, b) for a, b in zip(
+                tree_leaves(runs["blocking"]["state"]),
+                tree_leaves(runs["async"]["state"]), strict=True))
+        if not same:
+            failures.append("the final states or the losses differ")
+        if not all(np.isfinite(runs["async"]["losses"])):
+            failures.append(f"losses {runs['async']['losses']}")
+        if runs["async"]["saves"][0]["pinned"] != nbytes:
+            failures.append(f"pinned {runs['async']['saves'][0]['pinned']} "
+                            f"B for {nbytes} B of state")
+        print(f"ckpt blocking vs async ({nbytes / 1e9:.3f} GB of parameters "
+              f"and AdamW moments a checkpoint): {'; '.join(compared)}; final "
+              f"parameters, moments and losses "
+              f"{'bit-identical' if same else 'DIFFER'} ({card_line()})")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        runs.clear()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("ckpt: " + "; ".join(failures))
+    return launched
+
+
 # ------------------------------------------------------------ the launchers
 #
 # The command-line checks run in processes of their own while phase 1
@@ -6128,13 +6333,15 @@ def run_dryrun_vs_card(dry_rec) -> None:
 CLI_TIMEOUT = 300                # seconds a command may take
 
 
-def cli_chains(tmp) -> tuple[list, list]:
+def cli_chains(tmp) -> tuple[list, list, list]:
     """The checks as chains whose commands run in turn (PNA's resume after
     its first run, the perf line after its own baseline), split into
     those that need no kernel (the verifier's two ``--check`` CLIs, the
-    dry-run on ``meta`` tensors) and those that launch the embedding-bag
-    and segment-sum kernels.  A command: (label, arguments after ``python``,
-    strings its standard output must hold, which of its lines to print)."""
+    dry-run on ``meta`` tensors), those that launch the embedding-bag,
+    segment-sum and walk-step kernels, and those that launch the fused
+    kernel too.  A command: (label, arguments after ``python``, strings or
+    compiled patterns its standard output must hold, which of its lines to
+    print)."""
     def train(arch, steps, resume=False):
         return (f"zoo launcher --arch {arch} --steps {steps}"
                 f"{' --resume' if resume else ''}",
@@ -6169,6 +6376,32 @@ def cli_chains(tmp) -> tuple[list, list]:
              ["vs baseline bound="], "last")]
     no_kernel = [check("repro_torch.analysis"),
                  check("repro_torch.core.phase_program"), sweep, perf]
+
+    def launched(*names):
+        return [re.compile(rf"\b{n}=[1-9]") for n in names]
+    # The examples at the reference's default sizes, each as a script: the
+    # three on the embedding-bag, segment-sum and walk-step kernels, then
+    # the four that launch the fused kernel (run once it is built).
+    examples = [(f"example torch_{name}.py {' '.join(args)}".rstrip(),
+                 [os.path.join("examples", f"torch_{name}.py"), *args],
+                 want, "all") for name, args, want in (
+        ("gnn_neighbor_sampling", [],
+         ["done"] + launched("embedding_bag", "segment_sum")),
+        ("serve_continuous_batching", [],
+         ["served 24 requests"] + launched("embedding_bag")),
+        ("quickstart", ["--step-impl", "cuda"],
+         ["first MetaPath walk"]
+         + launched("walk_step_uniform", "walk_step_alias")),
+        ("quickstart", ["--step-impl", "fused"],
+         ["first MetaPath walk"] + launched("fused_superstep")),
+        ("serve_walk_requests", ["--step-impl", "fused"],
+         ["tenant B request 4: 64 walks"] + launched("fused_superstep")),
+        ("distributed_walks", ["--step-impl", "fused"],
+         ["bit-identical to single-device engine: True",
+          "drops=0 (must be 0)"] + launched("fused_superstep")),
+        ("cached_superstep_smoke", [],
+         ["paths/lengths/stats bit-identical", "OK"]
+         + launched("hits", "fused_superstep")))]
     kernels = [
         [train("pna", ZOO_LAUNCHER_STEPS),
          train("pna", ZOO_LAUNCHER_STEPS + 2, resume=True)],
@@ -6181,13 +6414,17 @@ def cli_chains(tmp) -> tuple[list, list]:
           "--device cuda --steps 4",
           ["-m", "repro_torch.launch.train", "--arch", "granite_moe",
            "--device", "cuda", "--steps", "4", "--ckpt-dir",
-           os.path.join(tmp, "granite_moe")], ["done at step 4"], "last")]]
-    return no_kernel, kernels
+           os.path.join(tmp, "granite_moe")], ["done at step 4"], "last")],
+        examples[:3]]
+    return no_kernel, kernels, [examples[3:]]
 
 
-def run_chain(chain) -> list:
-    """Each command of ``chain`` in turn, until one fails: (label, the
-    completed process, seconds, wanted strings, lines to print)."""
+def run_chain(chain, after=None) -> list:
+    """Each command of ``chain`` in turn, until one fails, once the future
+    ``after`` (a build) is done: (label, the completed process, seconds,
+    wanted strings, lines to print)."""
+    if after is not None:
+        after.result()
     env = dict(os.environ, PYTHONPATH=SRC)
     done = []
     for label, argv, want, show in chain:
@@ -6206,7 +6443,9 @@ def finish_clis(futures) -> None:
     failures = []
     for f in futures:
         for label, r, secs, want, show in f.result():
-            if r.returncode != 0 or not all(w in r.stdout for w in want):
+            if r.returncode != 0 or not all(
+                    w.search(r.stdout) if isinstance(w, re.Pattern)
+                    else w in r.stdout for w in want):
                 failures.append(f"{label}: exit {r.returncode}, wanted "
                                 f"{want}\n{r.stdout}\n{r.stderr}")
                 continue
@@ -6246,14 +6485,15 @@ def main() -> int:
     t_run = t0 = time.perf_counter()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
-    no_kernel, kernels = cli_chains(tmp)
+    no_kernel, kernels, fused_chains = cli_chains(tmp)
     with ThreadPoolExecutor(max_workers=len(no_kernel) + len(kernels)
-                            + 1) as pool:
+                            + len(fused_chains) + 1) as pool:
         clis = [pool.submit(run_chain, c) for c in no_kernel]
         fused = pool.submit(build.build, ["fused_superstep"])
         secs = build.build([n for n in build.SOURCES
                             if n != "fused_superstep"])
         clis += [pool.submit(run_chain, c) for c in kernels]
+        clis += [pool.submit(run_chain, c, fused) for c in fused_chains]
         t1 = time.perf_counter()
         g = make_dataset("WG", weighted=True, with_alias=True,
                          scale_override=WG_SCALE)
@@ -6333,6 +6573,8 @@ def main() -> int:
     for name, n in phase("12 LM training", run_lm_train).items():
         launches[name] = launches.get(name, 0) + n
     phase("13 dry run vs the card", run_dryrun_vs_card, dry_rec)
+    for name, n in phase("14 async checkpoint", run_async_checkpoint).items():
+        launches[name] = launches.get(name, 0) + n
     for name, row in rows.items():
         row["launches"] = launches[name]
         if row["launches"] <= 0:

@@ -7,6 +7,9 @@
   PYTHONPATH=src python -m repro_torch.launch.walk --algo node2vec \
       --backend sharded --devices 4 --slots 4096
 
+``--distributed`` is an alias for ``--backend sharded``, as in the
+reference.
+
 Prints the graph's size and one summary line (steps, supersteps, launches,
 MStep/s, occupancy, starved lane-supersteps, drops; route waits on the
 sharded backend).  Throughput is wall time around the drain, on the device
@@ -34,7 +37,7 @@ from repro_torch.core.scheduler import analyze_run
 from repro_torch.graph import make_dataset
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--algo", default="urw", choices=sorted(ALGORITHMS))
     ap.add_argument("--dataset", default="WG")
@@ -52,6 +55,8 @@ def main():
                     help="fused only: supersteps per kernel launch")
     ap.add_argument("--backend", default="single",
                     choices=list(walker.BACKENDS))
+    ap.add_argument("--distributed", action="store_true",
+                    help="alias for --backend sharded")
     ap.add_argument("--devices", type=int, default=8,
                     help="sharded only: shard count (placed over the "
                          "visible cards by the default mesh rule, which "
@@ -60,12 +65,13 @@ def main():
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--record-paths", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     spec = ALGORITHMS[args.algo]
     program = walker.WalkProgram(spec=spec, max_hops=args.max_hops,
                                  name=args.algo)
-    if args.backend == "sharded":
+    backend = "sharded" if args.distributed else args.backend
+    if backend == "sharded":
         if args.mode != "zero_bubble" or args.step_impl != "torch":
             ap.error("--mode/--step-impl only apply to --backend single "
                      "(the sharded superstep is always zero-bubble torch)")
@@ -77,7 +83,7 @@ def main():
             num_slots=args.slots, record_paths=args.record_paths,
             mode=args.mode, step_impl=args.step_impl,
             hops_per_launch=args.hops_per_launch)
-    w = walker.compile(program, backend=args.backend, execution=execution)
+    w = walker.compile(program, backend=backend, execution=execution)
     g = make_dataset(args.dataset,
                      weighted=spec.kind in ("alias", "reservoir_n2v"),
                      with_alias=spec.kind == "alias",
@@ -98,7 +104,7 @@ def main():
           f"throughput={a.msteps_per_s:.3f} MStep/s "
           f"occupancy={a.occupancy:.3f} starved={a.starved} drops={a.drops}"
           + (f" route_waits={a.route_waits} shards={args.devices}"
-             if args.backend == "sharded" else ""))
+             if backend == "sharded" else ""))
 
 
 if __name__ == "__main__":

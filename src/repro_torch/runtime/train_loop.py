@@ -16,11 +16,17 @@ synchronize of the caller's current stream on the state's device, a no-op
 on the CPU.  :func:`run_pipelined` with ``overlap`` runs the walk producer
 on a worker thread of its own, under a CUDA stream of its own on each card
 it touches (:class:`ProducerStreams`), while the caller's thread issues
-the grad steps.  Checkpoints are
-written synchronously: the reference's ``async_checkpoint`` writes on a
-thread, but the port's AdamW updates the state in place, so a thread
-would read tensors the next step is changing.  The knob is kept and
-ignored.
+the grad steps.
+
+With ``async_checkpoint`` (the default), :func:`run` writes its periodic
+checkpoints on a writer thread, as the reference's does: AdamW updates
+the state in place, so ``checkpointer.save(..., blocking=False)`` first
+copies every leaf on a card into pinned host memory on the current
+stream of its device, ahead of the next step's kernels there, and the
+files are written from that snapshot.  At most one save is in flight
+(joined before the next); the final save blocks.  :func:`run_pipelined`
+saves blocking, as the reference's does: its producer writes on streams
+of its own.
 """
 from __future__ import annotations
 
@@ -77,7 +83,7 @@ class TrainLoopConfig:
     ckpt_every: int = 50
     log_every: int = 10
     straggler_factor: float = 3.0
-    async_checkpoint: bool = True   # accepted; saves block (module doc)
+    async_checkpoint: bool = True   # periodic saves on a writer thread
     metrics_path: Optional[str] = None
 
 
@@ -95,6 +101,7 @@ def run(step_fn: Callable, state: Any, batch_fn: Callable,
     old = signal.signal(signal.SIGTERM, _on_sigterm)
     watchdog = StragglerWatchdog(cfg.straggler_factor)
     metrics_f = open(cfg.metrics_path, "a") if cfg.metrics_path else None
+    pending = None
     step = start_step
     history = []
     try:
@@ -115,13 +122,21 @@ def run(step_fn: Callable, state: Any, batch_fn: Callable,
                     metrics_f.write(json.dumps(rec) + "\n")
                     metrics_f.flush()
             if step % cfg.ckpt_every == 0:
-                checkpointer.save(cfg.ckpt_dir, step, state)
+                if pending is not None:
+                    pending.join()
+                pending = checkpointer.save(
+                    cfg.ckpt_dir, step, state,
+                    blocking=not cfg.async_checkpoint)
     finally:
-        # Preemption / completion checkpoint.
-        checkpointer.save(cfg.ckpt_dir, step, state)
-        if metrics_f:
-            metrics_f.close()
-        signal.signal(signal.SIGTERM, old)
+        try:
+            if pending is not None:
+                pending.join()      # re-raises a failed write
+        finally:
+            # Preemption / completion checkpoint.
+            checkpointer.save(cfg.ckpt_dir, step, state, blocking=True)
+            if metrics_f:
+                metrics_f.close()
+            signal.signal(signal.SIGTERM, old)
     return state, step, history, watchdog
 
 

@@ -57,3 +57,11 @@ def test_deepwalk_example_modes_train_the_same_tables(tmp_path):
     for k in ("in_embed", "out_embed"):
         assert torch.equal(over["params"][k], ser["params"][k])
     assert all(torch.equal(a, b) for a, b in zip(over["ring"], ser["ring"]))
+
+
+def test_every_reference_example_has_a_port_counterpart():
+    ref = {p.name for p in (REPO / "examples").glob("*.py")
+           if not p.name.startswith("torch_")}
+    port = {p.name.removeprefix("torch_")
+            for p in (REPO / "examples").glob("torch_*.py")}
+    assert ref and ref <= port, sorted(ref - port)
